@@ -30,7 +30,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-KERNELS = ("flash_attention", "ragged_decode_attention", "int4_matmul")
+KERNELS = ("flash_attention", "ragged_decode_attention", "ragged_decode_attention_int8",
+           "int4_matmul")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -74,7 +74,7 @@ class ChatTSModel(nn.Module):
         ts_mask=None,
         scatter_seq=None,
         scatter_tok=None,
-        kv_caches: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
+        kv_caches: Optional[List[Tuple[torch.Tensor, ...]]] = None,
         write_pos=None,
         kv_valid=None,
         kv_positions=None,

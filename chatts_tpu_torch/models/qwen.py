@@ -14,8 +14,15 @@ On CUDA tensors the three hot spots are the port's kernels: prefill attention
 (``ops/flash_attention.py``), decode attention
 (``ops/ragged_decode_attention.py``) and every int4 projection
 (``ops/int4_matmul.py``).  On CPU tensors each runs its plain version.
-Recent-KV decode, chunked prefill, the int8 KV cache, int8 weights and int8
-activations are not ported yet.
+
+A layer cache is a (k, v) pair of float tensors, or the int8 4-tuple
+(k_q, v_q, k_scale, v_scale) of ``runtime/kv_cache.py``.  With an int8 cache
+prefill writes codes and scales but attends over the unquantized fresh
+block, as the reference does; decode writes the new token's codes and scales
+and attends through ``ragged_decode_attention_int8``.
+
+Recent-KV decode, chunked prefill, int8 weights and int8 activations are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -28,9 +35,12 @@ from torch import nn
 from chatts_tpu.core.config import QwenConfig
 from chatts_tpu_torch.ops.attention import attention
 from chatts_tpu_torch.ops.int4_matmul import int4_matmul
-from chatts_tpu_torch.ops.ragged_decode_attention import ragged_decode_attention
+from chatts_tpu_torch.ops.ragged_decode_attention import (
+    ragged_decode_attention,
+    ragged_decode_attention_int8,
+)
 
-LayerCache = Tuple[torch.Tensor, torch.Tensor]
+LayerCache = Tuple[torch.Tensor, ...]
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +72,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
     out = x.float() * cos[:, :, None, :] + rotated.float() * sin[:, :, None, :]
     return out.to(x.dtype)
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the head dim, one scale per (..., position): the
+    port of ``qwen._quantize_kv``.  x (B, KVH, T, D) -> (int8 codes, f32
+    scales (B, KVH, T)).  ``torch.round`` rounds half to even, as
+    ``jnp.round`` does."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def embed_tokens(table: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
@@ -187,28 +208,53 @@ class Attention(nn.Module):
         k = apply_rope(k, cos, sin)
         scale = d ** -0.5
 
+        int8_kv = kv_cache is not None and len(kv_cache) == 4
+        if kv_cache is not None:
+            # Head-major (B, KVH, T, D) views of this block's K/V, as the cache
+            # stores them: int8 codes and scales, or the cache's float type.
+            if int8_kv:
+                k_cache, v_cache, k_scale, v_scale = kv_cache
+                kt, kt_s = quantize_kv(k.transpose(1, 2))
+                vt, vt_s = quantize_kv(v.transpose(1, 2))
+            elif len(kv_cache) == 2:
+                k_cache, v_cache = kv_cache
+                kt = k.transpose(1, 2).to(k_cache.dtype)
+                vt = v.transpose(1, 2).to(v_cache.dtype)
+            else:
+                raise ValueError(f"a layer cache is a 2-tuple or an int8 4-tuple, "
+                                 f"not {len(kv_cache)} tensors")
+
         if kv_cache is not None and write_pos is not None:
             # Decode: write the new token's K/V first, then attend over the
             # cache prefix of length kv_lengths (which counts that token).
             if t != 1:
                 raise ValueError("a cache write at write_pos is a single-token decode step")
-            k_cache, v_cache = kv_cache
             rows = torch.arange(b, device=x.device)[:, None, None]
             heads = torch.arange(kvh, device=x.device)[None, :, None]
             pos = write_pos.long()[:, None, :]
-            k_cache[rows, heads, pos] = k.transpose(1, 2).to(k_cache.dtype)
-            v_cache[rows, heads, pos] = v.transpose(1, 2).to(v_cache.dtype)
-            out = ragged_decode_attention(
-                q[:, 0].contiguous(), k_cache.to(q.dtype), v_cache.to(q.dtype),
-                kv_lengths, scale=scale,
-            )[:, None]
+            k_cache[rows, heads, pos] = kt
+            v_cache[rows, heads, pos] = vt
+            if int8_kv:
+                k_scale[rows, heads, pos] = kt_s
+                v_scale[rows, heads, pos] = vt_s
+                out = ragged_decode_attention_int8(
+                    q[:, 0].contiguous(), k_cache, v_cache, k_scale, v_scale,
+                    kv_lengths, scale=scale,
+                )[:, None]
+            else:
+                out = ragged_decode_attention(
+                    q[:, 0].contiguous(), k_cache.to(q.dtype), v_cache.to(q.dtype),
+                    kv_lengths, scale=scale,
+                )[:, None]
         else:
             if kv_cache is not None:
                 # Prefill: write the block at offset 0 but attend over the
-                # fresh T block only, not the cache's capacity.
-                k_cache, v_cache = kv_cache
-                k_cache[:, :, :t] = k.transpose(1, 2).to(k_cache.dtype)
-                v_cache[:, :, :t] = v.transpose(1, 2).to(v_cache.dtype)
+                # fresh, unquantized T block only, not the cache's capacity.
+                k_cache[:, :, :t] = kt
+                v_cache[:, :, :t] = vt
+                if int8_kv:
+                    k_scale[:, :, :t] = kt_s
+                    v_scale[:, :, :t] = vt_s
                 kv_valid = kv_valid[:, :t].contiguous()
                 kv_positions = kv_positions[:, :t].contiguous()
             out = attention(

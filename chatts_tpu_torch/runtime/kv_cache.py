@@ -1,9 +1,13 @@
-"""KV cache allocation for the batch inference engine.
+"""KV cache allocation for the batch and serving engines.
 
-Counterpart of ``chatts_tpu/runtime/kv_cache.py``: per layer a (k, v) pair of
-**(B, KVH, S, D)** tensors, head-major, so the decode kernel reads one
-contiguous (S, D) slab per (row, kv head).  bf16 and f32 caches; the int8
-cache belongs to the serving slice and is not ported yet.
+Counterpart of ``chatts_tpu/runtime/kv_cache.py``.  Caches are head-major
+**(B, KVH, S, D)**, so the decode kernels read one contiguous (S, D) slab per
+(row, kv head).
+
+- bf16 and f32: per layer a (k, v) pair.
+- int8 (``dtype=torch.int8``): per layer the 4-tuple (k_q, v_q, k_scale,
+  v_scale): int8 codes (B, KVH, S, D) and f32 scales (B, KVH, S), one per
+  (row, head, position).  The scales start at ones, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -13,9 +17,9 @@ import torch
 
 from chatts_tpu.core.config import QwenConfig
 
-LayerCache = Tuple[torch.Tensor, torch.Tensor]
+LayerCache = Tuple[torch.Tensor, ...]
 
-_DTYPES = (torch.bfloat16, torch.float32)
+_DTYPES = (torch.bfloat16, torch.float32, torch.int8)
 
 
 def _check(dtype) -> None:
@@ -27,6 +31,15 @@ def allocate(cfg: QwenConfig, batch_size: int, max_seq_len: int,
              dtype=torch.bfloat16, device=None) -> List[LayerCache]:
     _check(dtype)
     shape = (batch_size, cfg.num_key_value_heads, max_seq_len, cfg.head_dim)
+    if dtype == torch.int8:
+        sshape = shape[:3]
+        return [
+            (torch.zeros(shape, dtype=dtype, device=device),
+             torch.zeros(shape, dtype=dtype, device=device),
+             torch.ones(sshape, dtype=torch.float32, device=device),
+             torch.ones(sshape, dtype=torch.float32, device=device))
+            for _ in range(cfg.num_hidden_layers)
+        ]
     return [
         (torch.zeros(shape, dtype=dtype, device=device),
          torch.zeros(shape, dtype=dtype, device=device))
@@ -36,7 +49,12 @@ def allocate(cfg: QwenConfig, batch_size: int, max_seq_len: int,
 
 def cache_bytes(cfg: QwenConfig, batch_size: int, max_seq_len: int,
                 dtype=torch.bfloat16) -> int:
+    """Device bytes of ``allocate``'s result, the int8 mode's scales included
+    (the JAX package's ``cache_bytes`` counts the codes only)."""
     _check(dtype)
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return (2 * cfg.num_hidden_layers * batch_size * max_seq_len
-            * cfg.num_key_value_heads * cfg.head_dim * itemsize)
+    positions = cfg.num_hidden_layers * batch_size * max_seq_len * cfg.num_key_value_heads
+    total = 2 * positions * cfg.head_dim * itemsize
+    if dtype == torch.int8:
+        total += 2 * positions * 4
+    return total

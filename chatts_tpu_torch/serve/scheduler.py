@@ -1,0 +1,998 @@
+"""Continuous-batching serving engine.
+
+Counterpart of ``chatts_tpu/serve/scheduler.py``: a slot-based host scheduler
+over one persistent KV cache of ``max_batch_size`` rows, bf16, f32 or int8
+(``runtime/kv_cache.py``).  A background thread runs the engine loop, and
+every piece of device state lives on the engine's device and is driven from
+that thread, on its current stream.
+
+Round forms, as in the reference:
+- **monolithic admission** (no slot live): the admitted prompts prefill as
+  one (A, T) block, each row's prompt K/V is copied into its slot, and the
+  first tokens are sampled;
+- **pure decode round**: every live slot advances ``decode_chunk`` steps on
+  the device, with EOS and the token budget checked there; the host syncs
+  once per round, on a packed (B, chunk + 1) result;
+- **block admission** (slots live, ``a * T <= block_token_budget``): the
+  whole admission prefills as one block, its rows merge into the decode
+  state, then either the round ends there and the first tokens stream at
+  once (``block_early_emit``), or the decode chunk runs in the same round
+  with the new rows live (fused).
+
+What differs from the reference, and why:
+- Placement is an indexed copy of the admitted rows into their slots.  The
+  reference's host gather plus select and its span scatters exist because
+  XLA serialises general scatters on the TPU.
+- There are no pad rows.  The reference pads admission rows to a few row
+  families to bound XLA compiles; eager PyTorch compiles nothing, so the
+  port computes exactly the rows of the processed batch.  ``_block_family``
+  stays for the eligibility rule, so both engines take the same path.
+- Decode is the per-step cache write form; the recent-KV mode is TPU-only
+  machinery (ROADMAP "Not to port").
+- The scan-sliced mixed admission (prompt tokens consumed inside the decode
+  scan) is not ported yet.  ``prefill_chunk`` raises at construction, and a
+  live-slot admission that is not block-eligible fails its requests with a
+  ``NotImplementedError`` message; neither quietly takes another path.
+- ``prefill_act_int8`` needs kernel B5, which is not ported yet, and raises.
+  ``mixed_admission`` (which no caller turns off: admissions while slots
+  decode always take the block round), ``mixed_npt`` (scan-sliced only) and
+  ``admission_pad_to_class`` (it pads each wave to its length class to bound
+  XLA compiles, and would only add pad tokens here) are not options here.
+- Shape keys that mark a round's first XLA compile (``fresh``) have no
+  counterpart: nothing compiles per shape.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import queue
+import sys
+import threading
+import time
+import traceback
+import uuid
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from chatts_tpu.core import encoding
+from chatts_tpu.core.config import ChatTSConfig
+from chatts_tpu.processor.processor import ChatTSProcessor
+from chatts_tpu.utils.profiling import MetricsAggregator
+from chatts_tpu_torch.models.chatts import ChatTSModel, maybe_fuse
+from chatts_tpu_torch.models.convert import from_jax_params
+from chatts_tpu_torch.models.qwen import embed_tokens
+from chatts_tpu_torch.runtime import kv_cache, sampling
+
+MIXED_NOT_PORTED = "NotImplementedError: scan-sliced mixed admission is not ported yet"
+
+
+@dataclasses.dataclass
+class SamplingParams:
+    max_tokens: int = 512
+    temperature: float = 0.2
+    top_p: float = 1.0
+    stop_token_ids: Sequence[int] = ()
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: str
+    timeseries: List[np.ndarray]
+    params: SamplingParams
+    request_id: str = dataclasses.field(default_factory=lambda: uuid.uuid4().hex)
+    # Filled by the engine:
+    created_s: float = dataclasses.field(default_factory=time.perf_counter)
+    first_token_s: Optional[float] = None
+    finished_s: Optional[float] = None
+    prompt_tokens: int = 0
+    output_tokens: List[int] = dataclasses.field(default_factory=list)
+    stream_queue: "queue.Queue[Optional[List[int]]]" = dataclasses.field(
+        default_factory=queue.Queue
+    )
+    finish_reason: Optional[str] = None
+    error: Optional[str] = None
+    cancelled: bool = False
+    # Length class for admission grouping (engine-filled, cached): the pow2
+    # >= 256 ceiling of the exact prompt token count, or -1 when the prompt
+    # fails to encode (such a request admits alone, so the per-request error
+    # isolation catches it without failing a wave).
+    token_class: Optional[int] = None
+
+    def cancel(self) -> None:
+        """Request cancellation (client disconnect); honoured at the next
+        scheduler round."""
+        self.cancelled = True
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        if self.first_token_s is None:
+            return None
+        return self.first_token_s - self.created_s
+
+
+class _WaitQueue:
+    """FIFO wait queue that the admission path can also inspect in place:
+    the ``queue.Queue`` surface the engine uses (put / get_nowait / empty /
+    qsize) plus snapshot / remove / requeue, so length-classed admission can
+    take a same-class wave from the middle of the backlog without losing
+    arrival order for everyone else."""
+
+    def __init__(self):
+        self._d: "list[Request]" = []
+        self._lock = threading.Lock()
+
+    def put(self, item) -> None:
+        with self._lock:
+            self._d.append(item)
+
+    def get_nowait(self):
+        with self._lock:
+            if not self._d:
+                raise queue.Empty
+            return self._d.pop(0)
+
+    def empty(self) -> bool:
+        with self._lock:
+            return not self._d
+
+    def qsize(self) -> int:
+        with self._lock:
+            return len(self._d)
+
+    def snapshot(self) -> list:
+        with self._lock:
+            return list(self._d)
+
+    def remove(self, items) -> None:
+        with self._lock:
+            ids = {id(r) for r in items}
+            self._d = [r for r in self._d if id(r) not in ids]
+
+    def requeue(self, items) -> None:
+        """Put items back at the FRONT, in order (they were the oldest of
+        their class; appending would let newer arrivals jump them)."""
+        with self._lock:
+            self._d = list(items) + self._d
+
+
+# ---------------------------------------------------------------------------
+# Device functions.  Each runs on the engine's device with no host sync; the
+# caches and the (B,) decode state are updated in place where noted.
+# ---------------------------------------------------------------------------
+
+def _block_caches(caches, a: int, t: int):
+    """Transient caches for an (A, T) prompt block, shaped like the slot
+    caches.  Left uninitialised: the block's prefill writes all T positions
+    of every buffer, scales included."""
+    return [
+        tuple(torch.empty((a, buf.shape[1], t, *buf.shape[3:]), dtype=buf.dtype,
+                          device=buf.device)
+              for buf in layer)
+        for layer in caches
+    ]
+
+
+def _block_prefill_merge(
+    model: ChatTSModel,
+    caches,  # slot caches, written in place
+    tokens, cur_lens, temperature, top_p, budget,  # (B,) decode state, in place
+    src,  # (N,) int64: block rows that land in a slot
+    dst,  # (N,) int64: their slots
+    embeds,  # (A, T, H) merged prompt embeddings
+    seq_lens,  # (A,) int32
+    adm_temp, adm_topp,  # (A,) f32
+    adm_budget,  # (A,) int32: max_tokens of each block row
+    generator: torch.Generator,
+):
+    """The admission's prompt block: one self-contained prefill over the
+    (A, T) block, each landing row's prompt K/V (codes and scales in int8
+    mode) copied into positions [0, T) of its slot, the first token of
+    every block row sampled from its hidden state at seq_len - 1, and the
+    landing rows merged into the decode state.  Returns the first tokens
+    (A,) int32.  The port of ``_prefill_batch`` and ``_block_prefill_merge``."""
+    a, t, _ = embeds.shape
+    positions = torch.arange(t, dtype=torch.int32, device=embeds.device)[None].repeat(a, 1)
+    kv_valid = positions < seq_lens[:, None]
+    block = _block_caches(caches, a, t)
+    hidden, _ = model.llm(embeds, positions, kv_caches=block, kv_valid=kv_valid,
+                          kv_positions=positions)
+    # Positions past the cache capacity are padding (prompt + max_tokens fit
+    # the capacity), so a block wider than the cache copies what fits.
+    n = min(t, caches[0][0].shape[2])
+    for big, small in zip(caches, block):
+        for bbuf, sbuf in zip(big, small):
+            bbuf[dst, :, :n] = sbuf[src, :, :n]
+    last = (seq_lens.long() - 1).clamp(min=0)[:, None, None].expand(a, 1, hidden.shape[-1])
+    logits = model.compute_logits(hidden.gather(1, last))[:, 0]
+    first = sampling.sample_per_slot(logits, generator, adm_temp, adm_topp)
+    tokens[dst] = first[src]
+    cur_lens[dst] = seq_lens[src]
+    temperature[dst] = adm_temp[src]
+    top_p[dst] = adm_topp[src]
+    budget[dst] = adm_budget[src] - 1
+    return first
+
+
+def _decode_scan(model: ChatTSModel, chunk_size: int, caches, tokens, cur_lens, active,
+                 temperature, top_p, eos_ids, budget, generator: torch.Generator):
+    """Advance every active slot ``chunk_size`` decode steps: the port of
+    the reference's non-recent ``_decode_scan`` as a loop on the device.
+
+    Each step writes the slot's new K/V at cur_len and attends the first
+    cur_len + 1 positions.  Inactive slots attend one position and write at
+    their stale cur_len, which admission keeps inside the capacity
+    (prompt + max_tokens <= max_model_len).  Returns (tokens, cur_lens,
+    budget, emitted (B, chunk) int32 with -1 where a slot did not emit,
+    live (B,) bool)."""
+    llm = model.llm
+    live = active & (budget > 0)
+    emitted = []
+    for _ in range(chunk_size):
+        positions = cur_lens[:, None]
+        hidden, _ = llm(
+            embed_tokens(llm.embed_tokens, tokens[:, None]), positions,
+            kv_caches=caches, write_pos=positions,
+            kv_lengths=torch.where(active, cur_lens + 1, 1),
+        )
+        logits = llm.compute_logits(hidden)[:, 0]
+        next_tok = sampling.sample_per_slot(logits, generator, temperature, top_p)
+        emitted.append(torch.where(live, next_tok, -1))
+        hit_eos = (next_tok[:, None] == eos_ids[None, :]).any(dim=1)
+        budget = budget - live.to(budget.dtype)
+        tokens = torch.where(live, next_tok, tokens)
+        cur_lens = cur_lens + live.to(cur_lens.dtype)
+        live = live & ~hit_eos & (budget > 0)
+    return tokens, cur_lens, budget, torch.stack(emitted, dim=1), live
+
+
+def _decode_all_slots(model, chunk_size, caches, tokens, cur_lens, active, temperature,
+                      top_p, eos_ids, budget, generator):
+    """A pure decode round.  The host fetches one packed (B, chunk + 1) int32
+    array: the emitted tokens, then the live flag."""
+    tokens, cur_lens, budget, emitted, live = _decode_scan(
+        model, chunk_size, caches, tokens, cur_lens, active, temperature, top_p,
+        eos_ids, budget, generator)
+    packed = torch.cat([emitted, live[:, None].to(torch.int32)], dim=1)
+    return tokens, cur_lens, budget, packed
+
+
+def _block_admission_round(model, chunk_size, caches, tokens, cur_lens, active,
+                           temperature, top_p, eos_ids, budget, src, dst, embeds,
+                           seq_lens, adm_temp, adm_topp, adm_budget, generator):
+    """One fused round: the admission's prompt block, then the decode chunk
+    with the admitted rows live from its first step.  Device liveness of the
+    new rows uses the global EOS set, a subset of each request's host-side
+    set (the host stays authoritative and drops over-decoded tokens).
+    Returns (tokens, cur_lens, budget, packed (B, chunk + 2)): the emitted
+    tokens, the live flag, and the first tokens in rows [0, A)."""
+    b = tokens.shape[0]
+    first = _block_prefill_merge(model, caches, tokens, cur_lens, temperature, top_p,
+                                 budget, src, dst, embeds, seq_lens, adm_temp, adm_topp,
+                                 adm_budget, generator)
+    first_eos = (first[:, None] == eos_ids[None, :]).any(dim=1)
+    active = active.clone()
+    active[dst] = (~first_eos & (adm_budget > 1))[src]
+    tokens, cur_lens, budget, emitted, live = _decode_scan(
+        model, chunk_size, caches, tokens, cur_lens, active, temperature, top_p,
+        eos_ids, budget, generator)
+    first_b = torch.full((b,), -1, dtype=torch.int32, device=tokens.device)
+    first_b[: first.shape[0]] = first
+    packed = torch.cat([emitted, live[:, None].to(torch.int32), first_b[:, None]], dim=1)
+    return tokens, cur_lens, budget, packed
+
+
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
+
+class ServeEngine:
+    """Slot-based continuous-batching engine with a background step loop."""
+
+    def __init__(
+        self,
+        params_or_model: Union[ChatTSModel, Mapping[str, Any]],
+        cfg: ChatTSConfig,
+        processor: ChatTSProcessor,
+        *,
+        device,
+        max_batch_size: int = 8,
+        max_model_len: int = 6144,  # reference serving default ~6000
+        cache_dtype=torch.bfloat16,
+        decode_chunk: int = 8,
+        eos_token_ids: Sequence[int] = (),
+        seed: int = 0,
+        fuse: bool = True,
+        prefill_chunk: Optional[int] = None,
+        prefill_act_int8: bool = False,
+        admission_bucket: int = 8,
+        admission_binning: bool = True,
+        block_early_emit: bool = False,
+    ):
+        if prefill_chunk is not None:
+            raise NotImplementedError(
+                "prefill_chunk (chunked, scan-sliced admission) is not ported yet; "
+                "see ROADMAP.md")
+        if prefill_act_int8:
+            raise NotImplementedError(
+                "prefill_act_int8 needs kernel B5 (int4_matmul_a8), which is not "
+                "ported yet; see ROADMAP.md")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # The loop thread sets this device, which needs an index.
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if isinstance(params_or_model, ChatTSModel):
+            model = params_or_model.to(self.device)
+        else:
+            model = from_jax_params(params_or_model, cfg, self.device)
+        if fuse:
+            model = maybe_fuse(model)
+        self.model = model.eval()
+        self.cfg = cfg
+        self.processor = processor
+        # Pin the series-count bucket, as the reference does, so admission
+        # batches of any size pad their series to one count.
+        processor.series_count_floor = max(
+            processor.series_count_floor, 2 * max_batch_size
+        )
+        self.max_batch_size = max_batch_size
+        self.max_model_len = max_model_len
+        self.decode_chunk = decode_chunk
+        # Max rows per block admission wave; overflow waits for the next.
+        self._a_bucket_cfg = admission_bucket
+        # Length-classed admission: each wave takes only requests from the
+        # OLDEST waiting request's length class (pow2 ceiling of the exact
+        # token count, min 256), so rows of one wave stay within 2x of each
+        # other's length.
+        self.admission_binning = admission_binning
+        # Early first-token emission: block admissions run prefill-only
+        # rounds, so first tokens stream one round earlier.
+        self.block_early_emit = block_early_emit
+        # Admissions whose padded prompt block fits a*t <= this budget run
+        # as one block round; larger ones need the scan-sliced path.
+        self.block_token_budget = 8192
+        self._a_bucket = min(self._a_bucket_cfg, max_batch_size)
+        self.eos_token_ids = tuple(eos_token_ids)
+        self.pad_id = processor.pad_token_id
+
+        self.cache_dtype = cache_dtype
+        b = max_batch_size
+        dev = self.device
+        # State is made in inference mode: the loop thread updates it in
+        # place, in inference mode too.
+        with torch.inference_mode():
+            self._eos_dev = torch.tensor(list(self.eos_token_ids) or [-1],
+                                         dtype=torch.int32, device=dev)
+            self.caches = kv_cache.allocate(cfg.llm, b, max_model_len, cache_dtype, dev)
+            self.tokens = torch.zeros((b,), dtype=torch.int32, device=dev)
+            self.cur_lens = torch.zeros((b,), dtype=torch.int32, device=dev)
+            self.temperature = torch.zeros((b,), dtype=torch.float32, device=dev)
+            self.top_p = torch.ones((b,), dtype=torch.float32, device=dev)
+            self.budget = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.generator = torch.Generator(device=dev).manual_seed(seed)
+
+        self.slots: List[Optional[Request]] = [None] * b
+        self.live_host = np.zeros((b,), bool)
+        # Device mirror of live_host, uploaded only when it changes.
+        self._active_dev: Optional[torch.Tensor] = None
+        self._active_key: Optional[bytes] = None
+        # A staged block admission, dispatched as the next round.
+        self._pending_block: Optional[Dict[str, Any]] = None
+
+        self.waiting = _WaitQueue()
+        # After a round frees k slots, wait up to this long for k
+        # replacement requests before dispatching the next round, so a
+        # closed-loop client's replacement joins this admission wave.
+        self.admit_grace_s = 0.010
+        self._finished_total = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._wake = threading.Event()
+        # Metrics.
+        self.total_requests = 0
+        self.total_output_tokens = 0  # updated at request completion
+        self.streamed_tokens = 0  # updated every round
+        self.metrics = MetricsAggregator()
+        # Round anatomy ring buffer: one dict per engine-loop round,
+        # {kind, admit_s, round_s, live, a, rows, emitted, gap_s}.  gap_s is
+        # host time since the previous round ended (loop starvation).
+        self.round_log: "collections.deque" = collections.deque(maxlen=4096)
+        # stats() snapshots the deques from caller threads while the loop
+        # appends.
+        self._round_log_lock = threading.Lock()
+        # Slow-event log: any loop phase that blocks >= slow_event_s.
+        self.events: "collections.deque" = collections.deque(maxlen=512)
+        self.slow_event_s = 1.0
+        self._last_round_end = time.perf_counter()
+
+    # -- public API --------------------------------------------------------
+
+    def warmup(
+        self,
+        prefill_buckets: Sequence[int] = (128, 256, 512),
+        series_per_request: int = 2,
+        series_len: int = 512,
+    ) -> None:
+        """Run the admission shapes of real traffic once, so the first real
+        requests find the kernels built and the allocator warm: per bucket,
+        monolithic bursts of max_batch_size, 4, 2 and 1 rows, then (with
+        every block-admission row count next to a decoding runner.  Failures
+        are printed, not raised, as in the reference."""
+        self.start()
+        for bucket in sorted(prefill_buckets):
+            # ~1 token per short word; leave headroom for the template and
+            # the TS placeholders so the padded length lands in this bucket.
+            words = " ".join("warm" for _ in range(max(1, bucket - 64)))
+            holes = " ".join(encoding.TS_PAIR for _ in range(series_per_request))
+            prompt = f"{words} {holes}"
+            bursts = [self.max_batch_size]
+            if self.max_batch_size > 8:
+                bursts.append(4)
+            if self.max_batch_size > 2:
+                bursts.append(2)
+            if self.max_batch_size > 1:
+                bursts.append(1)
+            for burst in bursts:
+                reqs = []
+                for _ in range(burst):
+                    series = [np.sin(np.arange(float(series_len)))
+                              for _ in range(series_per_request)]
+                    req = Request(prompt, series,
+                                  SamplingParams(max_tokens=self.decode_chunk + 2,
+                                                 temperature=0.0))
+                    self.submit(req)
+                    reqs.append(req)
+                deadline = time.time() + 600
+                for req in reqs:
+                    while req.finished_s is None and req.error is None:
+                        if time.time() > deadline:
+                            print(f"[warmup] bucket {bucket} timed out", file=sys.stderr)
+                            return
+                        time.sleep(0.01)
+                    if req.error:
+                        print(f"[warmup] bucket {bucket} failed: {req.error}",
+                              file=sys.stderr)
+        self._warmup_block(prefill_buckets, series_per_request, series_len)
+
+    def _warmup_block(self, prefill_buckets, series_per_request, series_len):
+        """Keep one runner request decoding and admit a wave of each block
+        row count per bucket, so the block rounds run once."""
+        holes = " ".join(encoding.TS_PAIR for _ in range(series_per_request))
+
+        def mkseries():
+            return [np.sin(np.arange(float(series_len))) for _ in range(series_per_request)]
+
+        # The runner's prompt + max_tokens must pass the max_model_len check
+        # for any engine capacity.
+        budget = min(4096, self.max_model_len - 64
+                     - 64 * max(1, series_per_request)
+                     - series_per_request * series_len // 8)
+        budget = max(budget, 4 * self.decode_chunk)
+        deadline = time.time() + 600
+        runner_box: List[Optional[Request]] = [None]
+
+        def ensure_runner() -> bool:
+            """(Re)start the runner if it finished or failed."""
+            r = runner_box[0]
+            if r is not None and r.finished_s is None and r.error is None:
+                return True
+            r = Request(f"runner {holes}", mkseries(),
+                        SamplingParams(max_tokens=budget, temperature=0.0))
+            runner_box[0] = r
+            self.submit(r)
+            while not r.output_tokens:
+                if r.error:
+                    print(f"[warmup] block runner rejected: {r.error}", file=sys.stderr)
+                    return False
+                if time.time() > deadline:
+                    print("[warmup] block runner timed out", file=sys.stderr)
+                    return False
+                time.sleep(0.01)
+            return True
+
+        for bucket in sorted(prefill_buckets):
+            fams = {self._block_family(n) for n in range(1, self._a_bucket + 1)}
+            for rows in sorted(fams, reverse=True):
+                if not ensure_runner():
+                    return
+                words = " ".join("warm" for _ in range(max(1, bucket - 64)))
+                reqs = [Request(f"{words} {holes}", mkseries(),
+                                SamplingParams(max_tokens=2, temperature=0.0))
+                        for _ in range(rows)]
+                for req in reqs:
+                    self.submit(req)
+                for req in reqs:
+                    while req.finished_s is None and req.error is None:
+                        if time.time() > deadline:
+                            print(f"[warmup] block bucket {bucket} timed out",
+                                  file=sys.stderr)
+                            if runner_box[0] is not None:
+                                runner_box[0].cancel()
+                            return
+                        time.sleep(0.01)
+                    if req.error:
+                        print(f"[warmup] block bucket {bucket} failed: {req.error}",
+                              file=sys.stderr)
+        runner = runner_box[0]
+        if runner is None:
+            return
+        runner.cancel()
+        while runner.finished_s is None and runner.error is None:
+            if time.time() > deadline:
+                return
+            time.sleep(0.01)
+
+    def submit(self, request: Request) -> Request:
+        self.total_requests += 1
+        self.waiting.put(request)
+        self._wake.set()
+        return request
+
+    def generate_sync(
+        self, prompt: str, timeseries: Sequence[np.ndarray] = (),
+        params: Optional[SamplingParams] = None, timeout: float = 600.0,
+    ) -> Request:
+        req = Request(prompt, [np.asarray(t) for t in timeseries],
+                      params or SamplingParams())
+        self.submit(req)
+        deadline = time.time() + timeout
+        while req.finished_s is None and req.error is None:
+            if time.time() > deadline:
+                raise TimeoutError(f"request {req.request_id} timed out")
+            time.sleep(0.005)
+        if req.error:
+            raise RuntimeError(req.error)
+        return req
+
+    def start(self):
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._loop, daemon=True)
+            self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    # -- engine loop -------------------------------------------------------
+
+    def _event(self, label: str, seconds: float, **info) -> None:
+        """Record a slow loop phase (admission, round, post-round admit)."""
+        if seconds >= self.slow_event_s:
+            with self._round_log_lock:
+                self.events.append((time.time(), label, round(seconds, 3), info))
+
+    def event_snapshot(self) -> list:
+        with self._round_log_lock:
+            return list(self.events)
+
+    def _log_round(self, **entry) -> None:
+        with self._round_log_lock:
+            self.round_log.append(entry)
+
+    def _free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    def _tensor(self, a, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
+
+    def _token_class(self, req: Request) -> int:
+        """Cached pow2 (>= 256) length class of a request's exact prompt
+        token count; -1 when the prompt fails to encode."""
+        if req.token_class is None:
+            try:
+                n = self.processor.count_tokens(req.prompt, req.timeseries)
+                c = 256
+                while c < n:
+                    c *= 2
+                req.token_class = c
+            except Exception:
+                req.token_class = -1
+        return req.token_class
+
+    def _select_candidates(self, n_free: int) -> List[Request]:
+        """Pick the next admission wave from the wait queue: FIFO, except
+        that with admission_binning the wave takes only requests sharing the
+        OLDEST request's length class.  Cancelled requests are finished and
+        dropped; a malformed oldest request admits alone."""
+        live: List[Request] = []
+        drop: List[Request] = []
+        for req in self.waiting.snapshot():
+            if req.cancelled:
+                req.finish_reason = "cancelled"
+                req.finished_s = time.perf_counter()
+                req.stream_queue.put(None)
+                drop.append(req)
+            else:
+                live.append(req)
+        if drop:
+            self.waiting.remove(drop)
+        if not live:
+            return []
+        if self.admission_binning and len(live) > 1:
+            head_cls = self._token_class(live[0])
+            if head_cls == -1:
+                chosen = [live[0]]  # malformed: isolate
+            else:
+                chosen = [r for r in live if self._token_class(r) == head_cls][:n_free]
+        else:
+            chosen = live[:n_free]
+        self.waiting.remove(chosen)
+        return chosen
+
+    def _fail(self, req: Request, message: str) -> None:
+        req.error = message
+        req.stream_queue.put(None)
+
+    def _admit(self) -> None:
+        """Admit up to len(free slots) waiting requests with one processor
+        pass and one prefill.  A request that fails processing is isolated
+        by probing each request alone; one whose prompt + max_tokens exceeds
+        max_model_len is rejected without failing the wave."""
+        if self._pending_block is not None:
+            return  # an admission is staged; new ones wait
+        free = self._free_slots()
+        if not free:
+            return
+        candidates = self._select_candidates(len(free))
+        if not candidates:
+            return
+
+        def process(reqs):
+            return self.processor([r.prompt for r in reqs],
+                                  [ts for r in reqs for ts in r.timeseries])
+
+        try:
+            batch = process(candidates)
+        except Exception:
+            kept: List[Request] = []
+            for req in candidates:
+                try:
+                    self.processor([req.prompt], req.timeseries)
+                    kept.append(req)
+                except Exception as err:
+                    self._fail(req, f"{type(err).__name__}: {err}")
+            candidates = kept
+            if not candidates:
+                return
+            batch = process(candidates)
+        admitted: List[Request] = []
+        keep_rows: List[int] = []
+        for i, req in enumerate(candidates):
+            n_tok = int(batch.seq_lens[i])
+            if n_tok + req.params.max_tokens > self.max_model_len:
+                self._fail(req, f"ValueError: prompt ({n_tok}) + max_tokens "
+                                f"({req.params.max_tokens}) exceeds max_model_len "
+                                f"{self.max_model_len}")
+                continue
+            req.prompt_tokens = n_tok
+            admitted.append(req)
+            keep_rows.append(i)
+        if not admitted:
+            return
+        use_block = False
+        if self.live_host.any():
+            # While slots decode, an admission takes the block round instead
+            # of a monolithic prefill that stalls decode.  It is capped at
+            # the admission bucket; overflow returns to the FRONT of the
+            # queue.
+            if len(admitted) > self._a_bucket:
+                self.waiting.requeue(admitted[self._a_bucket:])
+                admitted = admitted[: self._a_bucket]
+                keep_rows = keep_rows[: len(admitted)]
+            # A block packs exactly the admitted rows.
+            if keep_rows != list(range(batch.input_ids.shape[0])):
+                batch = process(admitted)
+                keep_rows = list(range(len(admitted)))
+            if not self._block_eligible(len(admitted), batch.input_ids.shape[1]):
+                for req in admitted:
+                    self._fail(req, MIXED_NOT_PORTED)
+                return
+            use_block = True
+        try:
+            self._prefill_requests(admitted, free[: len(admitted)], batch, keep_rows,
+                                   use_block)
+        except Exception as err:
+            for req in admitted:
+                self._fail(req, f"{type(err).__name__}: {err}")
+
+    def _prefill_requests(self, reqs: List[Request], slots: List[int], batch,
+                          keep_rows: List[int], use_block: bool = False) -> None:
+        if use_block:
+            self._start_block_admission(reqs, slots, keep_rows, batch)
+            return
+        kb, t = batch.input_ids.shape
+        mono_t0 = time.perf_counter()
+        embeds = self._embed(batch)
+        # Every processed row computes (rejected over-long rows included);
+        # only the admitted rows land in a slot.
+        seq_lens = batch.seq_lens.astype(np.int32)
+        temp = np.zeros((kb,), np.float32)
+        topp = np.ones((kb,), np.float32)
+        budget = np.zeros((kb,), np.int32)
+        for req, row in zip(reqs, keep_rows):
+            temp[row] = req.params.temperature
+            topp[row] = req.params.top_p
+            budget[row] = req.params.max_tokens
+        first = _block_prefill_merge(
+            self.model, self.caches, self.tokens, self.cur_lens, self.temperature,
+            self.top_p, self.budget,
+            self._tensor(keep_rows, torch.int64), self._tensor(slots, torch.int64),
+            embeds, self._tensor(seq_lens, torch.int32), self._tensor(temp, torch.float32),
+            self._tensor(topp, torch.float32), self._tensor(budget, torch.int32),
+            self.generator)
+        self._finalize_admission(reqs, slots, keep_rows, first.cpu().numpy())
+        # Monolithic admissions run outside the round loop and block on the
+        # first-token fetch; they are logged as their own round kind.
+        mono_s = time.perf_counter() - mono_t0
+        self._log_round(kind="mono", admit_s=0.0, round_s=mono_s, live=0, a=len(reqs),
+                        rows=kb, emitted=len(reqs), gap_s=0.0)
+        self._event("mono_admission", mono_s, rows=kb, t=t)
+
+    def _embed(self, batch) -> torch.Tensor:
+        """Merged prompt embeddings (A, T, H) of a processed batch."""
+        return self.model.input_embeddings(
+            self._tensor(batch.input_ids, torch.int64),
+            self._tensor(batch.ts_values, torch.float32),
+            self._tensor(batch.ts_mask, torch.float32),
+            self._tensor(batch.scatter_seq, torch.int64),
+            self._tensor(batch.scatter_tok, torch.int64),
+        )
+
+    def _finalize_admission(self, reqs, slots, keep_rows, first_host) -> None:
+        """Host bookkeeping for an admission's first tokens.  The device
+        already merged the rows into the decode state; here the slot
+        records, live_host and the streams are updated, and a request whose
+        first token ends it (EOS, max_tokens 1, cancelled) finishes."""
+        now = time.perf_counter()
+        for req, slot, row in zip(reqs, slots, keep_rows):
+            tok = int(first_host[row])
+            req.first_token_s = now
+            eos = set(self.eos_token_ids) | set(req.params.stop_token_ids)
+            self.slots[slot] = req
+            if req.cancelled:
+                self._finish(slot, "cancelled")
+                continue
+            if tok in eos or req.params.max_tokens <= 1:
+                if tok not in eos:
+                    req.output_tokens.append(tok)
+                    req.stream_queue.put([tok])
+                self._finish(slot, "stop" if tok in eos else "length")
+                continue
+            req.output_tokens.append(tok)
+            req.stream_queue.put([tok])
+            self.live_host[slot] = True
+
+    def _block_family(self, n_reqs: int) -> int:
+        """The reference's padded row count for an n-row block admission
+        ({1,2,3,4,6,8[,10,12]} capped at the admission bucket).  The port
+        computes no pad rows, but sizes the eligibility rule by this count,
+        so both engines take the same path for the same admission."""
+        for f in (1, 2, 3, 4, 6, 8, 10, 12):
+            if n_reqs <= f < self._a_bucket:
+                return f
+        return self._a_bucket
+
+    def _block_eligible(self, n_reqs: int, t: int) -> bool:
+        """Whether an admission takes the block round: the padded block fits
+        the token budget and the prompt fits the cache."""
+        a = self._block_family(n_reqs)
+        return a * t <= self.block_token_budget and t <= self.max_model_len
+
+    def _start_block_admission(self, reqs, slots, keep_rows, batch) -> None:
+        """Stage a block admission: merged prompt embeddings computed now,
+        the prompt block dispatched as the next round.  The slots are
+        reserved; they go live with the first token."""
+        kb = batch.input_ids.shape[0]
+        if kb != len(reqs) or keep_rows != list(range(kb)):
+            raise RuntimeError(f"a block admission packs exactly its {len(reqs)} "
+                               f"admitted rows, not {kb}")
+        for req, slot in zip(reqs, slots):
+            self.slots[slot] = req
+        self._pending_block = {
+            "reqs": reqs, "slots": slots, "keep_rows": keep_rows,
+            "embeds": self._embed(batch),
+            "src": self._tensor(keep_rows, torch.int64),
+            "dst": self._tensor(slots, torch.int64),
+            "seq_lens": self._tensor(batch.seq_lens, torch.int32),
+            "temp": self._tensor([r.params.temperature for r in reqs], torch.float32),
+            "topp": self._tensor([r.params.top_p for r in reqs], torch.float32),
+            "budget": self._tensor([r.params.max_tokens for r in reqs], torch.int32),
+        }
+
+    def _dispatch_block(self):
+        st = self._pending_block
+        self._pending_block = None
+        adm = (st["src"], st["dst"], st["embeds"], st["seq_lens"], st["temp"],
+               st["topp"], st["budget"], self.generator)
+        rows = st["embeds"].shape[0]
+        if self.block_early_emit:
+            first = _block_prefill_merge(
+                self.model, self.caches, self.tokens, self.cur_lens, self.temperature,
+                self.top_p, self.budget, *adm)
+            return ("block_pre", first, st, len(st["reqs"]), rows)
+        self.tokens, self.cur_lens, self.budget, packed = _block_admission_round(
+            self.model, self.decode_chunk, self.caches, self.tokens, self.cur_lens,
+            self._active_device(), self.temperature, self.top_p, self._eos_dev,
+            self.budget, *adm)
+        return ("block", packed, st, len(st["reqs"]), rows)
+
+    def _complete_round(self, handle) -> None:
+        """Fetch the dispatched round's result (the one host sync of the
+        round) and apply it."""
+        kind, packed, finalize = handle[0], handle[1], handle[2]
+        arr = packed.cpu().numpy()
+        if kind == "block_pre":
+            # The fetched array is the (A,) first tokens; the admitted rows
+            # decode in the next round.
+            self._finalize_admission(finalize["reqs"], finalize["slots"],
+                                     finalize["keep_rows"], arr)
+            return
+        if kind == "block":
+            # (B, chunk + 2): emitted | live | first tokens.  Finalize first:
+            # the round already decoded the admitted rows, so their slots
+            # must be live before their chunk tokens are appended.
+            self._finalize_admission(finalize["reqs"], finalize["slots"],
+                                     finalize["keep_rows"], arr[:, -1])
+            self._process_emitted(arr[:, :-2], arr[:, -2].astype(bool))
+            return
+        self._process_emitted(arr[:, :-1], arr[:, -1].astype(bool))
+
+    def _finish(self, slot: int, reason: str) -> None:
+        req = self.slots[slot]
+        if req is not None:
+            req.finish_reason = reason
+            req.finished_s = time.perf_counter()
+            self.total_output_tokens += len(req.output_tokens)
+            self.metrics.record_request(req)
+            req.stream_queue.put(None)
+        self.slots[slot] = None
+        self.live_host[slot] = False
+        self._finished_total += 1
+
+    def _active_device(self) -> torch.Tensor:
+        key = self.live_host.tobytes()
+        if self._active_key != key:
+            self._active_dev = self._tensor(self.live_host, torch.bool)
+            self._active_key = key
+        return self._active_dev
+
+    def _dispatch_decode(self):
+        self.tokens, self.cur_lens, self.budget, packed = _decode_all_slots(
+            self.model, self.decode_chunk, self.caches, self.tokens, self.cur_lens,
+            self._active_device(), self.temperature, self.top_p, self._eos_dev,
+            self.budget, self.generator)
+        return ("decode", packed, None, 0, 0)
+
+    def _dispatch_round(self):
+        """Dispatch the next device round; None when there is none."""
+        # Honour cancellations before spending device time.
+        for slot, req in enumerate(self.slots):
+            if req is not None and req.cancelled and self.live_host[slot]:
+                self._finish(slot, "cancelled")
+        if self._pending_block is not None:
+            return self._dispatch_block()
+        if self.live_host.any():
+            return self._dispatch_decode()
+        return None
+
+    def _process_emitted(self, emitted_host: np.ndarray, live_host: np.ndarray) -> None:
+        for slot, req in enumerate(self.slots):
+            if req is None or not self.live_host[slot]:
+                continue
+            eos = set(self.eos_token_ids) | set(req.params.stop_token_ids)
+            toks = [int(t) for t in emitted_host[slot] if t >= 0]
+            out = []
+            finished = None
+            for t in toks:
+                if t in eos:
+                    finished = "stop"
+                    break
+                out.append(t)
+            if out:
+                req.output_tokens.extend(out)
+                req.stream_queue.put(out)
+                self.streamed_tokens += len(out)
+            if finished is None and not live_host[slot]:
+                finished = "length"
+            if finished:
+                self._finish(slot, finished)
+
+    def _loop(self) -> None:
+        """Engine loop: dispatch a round, fetch its result, then stage the
+        next admission (complete -> admit -> dispatch), so a slot freed in
+        round N decodes its replacement in round N + 1.  A bounded grace
+        (admit_grace_s) after a round that freed slots lets replacement
+        submissions join the same wave.  A failed step fails every
+        in-flight request and the loop keeps serving."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        with torch.inference_mode():
+            while not self._stop.is_set():
+                try:
+                    t0 = time.perf_counter()
+                    n_live = int(self.live_host.sum())
+                    tok0 = self.streamed_tokens
+                    handle = self._dispatch_round()
+                    if handle is None:
+                        if not self.waiting.empty():
+                            # Idle device: monolithic admission runs here.
+                            a0 = time.perf_counter()
+                            self._admit()
+                            self._event("idle_admit", time.perf_counter() - a0)
+                        elif self._pending_block is None and not self.live_host.any():
+                            self._wake.wait(timeout=0.05)
+                            self._wake.clear()
+                        continue
+                    fin0 = self._finished_total
+                    self._complete_round(handle)
+                    t_done = time.perf_counter()
+                    self._event(f"round_{handle[0]}", t_done - t0)
+                    if self._pending_block is None:
+                        if self._finished_total > fin0:
+                            want = min(self._finished_total - fin0, self._a_bucket)
+                            grace = time.perf_counter() + self.admit_grace_s
+                            while (self.waiting.qsize() < want
+                                   and time.perf_counter() < grace):
+                                time.sleep(0.0005)
+                        if not self.waiting.empty():
+                            self._admit()
+                    # Fused block rounds decode their admitted rows in the
+                    # same round, so those count as live.
+                    rows_live = n_live + (handle[3] if handle[0] == "block" else 0)
+                    t_end = time.perf_counter()
+                    self._event("post_round_admit", t_end - t_done, kind=handle[0])
+                    self._log_round(kind=handle[0], admit_s=t_end - t_done,
+                                    round_s=t_done - t0, live=rows_live, a=handle[3],
+                                    rows=handle[4], emitted=self.streamed_tokens - tok0,
+                                    gap_s=t0 - self._last_round_end)
+                    self._last_round_end = t_end
+                except Exception as err:  # the engine survives a bad step
+                    traceback.print_exc()
+                    self._pending_block = None
+                    for slot, req in enumerate(self.slots):
+                        if req is not None:
+                            self._fail(req, f"engine step failed: {err}")
+                            self.slots[slot] = None
+                    self.live_host[:] = False
+
+    # -- metrics -----------------------------------------------------------
+
+    def round_snapshot(self) -> list:
+        """Thread-safe copy of the round-anatomy ring buffer."""
+        with self._round_log_lock:
+            return list(self.round_log)
+
+    def stats(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {
+            "active_slots": int(self.live_host.sum()),
+            "max_batch_size": self.max_batch_size,
+            "waiting": self.waiting.qsize(),
+            "total_requests": self.total_requests,
+            "total_output_tokens": self.total_output_tokens,
+        }
+        agg: Dict[str, list] = collections.defaultdict(lambda: [0, 0.0, 0, 0.0])
+        for r in self.round_snapshot():
+            g = agg[r["kind"]]
+            g[0] += 1
+            g[1] += r["round_s"]
+            g[2] += r["emitted"]
+            g[3] += r["gap_s"]
+        for kind, (n, rnd, emitted, _) in agg.items():
+            out[f"rounds_{kind}"] = n
+            out[f"round_{kind}_mean_ms"] = round(rnd / n * 1e3, 1)
+            out[f"round_{kind}_tokens"] = emitted
+        out["round_gap_total_s"] = round(sum(g[3] for g in agg.values()), 2)
+        out["slow_events"] = len(self.events)
+        out.update(self.metrics.summary())
+        return out

@@ -5,18 +5,28 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
+It builds the four CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
 
   0. environment: card, power limit, torch, CUDA, nvcc;
   1. build: nvcc time and each kernel's registers and spills;
-  2. each kernel against its plain PyTorch version at the main path's shapes,
+  2. each kernel against its plain PyTorch version at the main paths' shapes,
      with both times (CUDA events);
   3. the ChatTS-14B widths at 2 layers, int4 weights: logits of the kernel
      path on the card against the plain path on the CPU in f32;
-  4. the slice at full size: ChatTS-14B shape (48 layers, int4, random weights
-     from a seed), 4 prompts with series, ``InferenceEngine.generate`` greedy
-     twice and sampled twice, each pair token-identical, every kernel's launch
-     counter above 0.
+  3b. the same widths with an int8 KV cache through ``ServeEngine``: one
+     monolithic admission and 16 decode steps on the card, their logits held
+     against the same schedule on the CPU (plain versions, f32, the same int8
+     quantization, the card's tokens fed back);
+  4. the batch slice at full size: ChatTS-14B shape (48 layers, int4, random
+     weights from a seed), 4 prompts with series, ``InferenceEngine.generate``
+     greedy twice and sampled twice, each pair token-identical, every kernel
+     of the path launched;
+  5. the serving slice at full size, on phase 4's weights: ``ServeEngine`` at
+     the 14B serving configuration (24 slots, cap 1024, int8 KV, decode chunk
+     32, early emit) behind ``ChatTSServer`` on 127.0.0.1.  Two waves of 8
+     bench-like chat requests with two series each (the second wave joins
+     while the first decodes, one request streams), twice, token-identical,
+     every kernel of the path launched.
 
 It prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero; there
@@ -38,12 +48,27 @@ import time
 # probabilities relative to a running max.  |got - ref| <= ATOL + RTOL * |ref|.
 KERNEL_ATOL = 2e-2
 KERNEL_RTOL = 2e-2
+# The int8 decode attention (B4) against its plain version: both compute in
+# f32 and round the output to bf16, so they differ by at most one bf16 ulp,
+# at most 2**-7 of the element and so of its row's largest.  A long row's
+# outputs average thousands of positions and are small (about 0.02 at
+# length 6000), below KERNEL_ATOL itself, so B4 is held per (row, head) to a
+# share of that row's largest output: |got - ref| <= 2e-2 * max_D |ref|.
+# Dropping one 128-key tile past 4096, or an off-by-one scale index within a
+# tile, moves a long row by 11% to 28% of its largest output.
+INT8_ROW_RTOL = 2e-2
 # Model logits, bf16 kernel path on the card against f32 plain path on the CPU:
 # two decoder layers of bf16 activations (8-bit mantissa) through rms_norm,
 # attention and the MLP.  The kernels keep the int4 weights exact in f32, and
 # the difference measured on an H100 was 0.34% of the largest logit; allow
 # 1.5% of the largest plain logit.
 LOGIT_RTOL_OF_MAX = 1.5e-2
+# Phase 3b adds the int8 KV cache on both sides.  The codes are rounded from
+# bf16 activations on the card and f32 ones on the CPU, so a code may differ
+# by one step (1/127 of its row's largest value, the same order as a bf16
+# rounding), and decode reads the quantized cache.  The same 1.5% of the
+# largest plain logit holds.
+SERVE_LOGIT_RTOL_OF_MAX = 1.5e-2
 
 SEED = 0
 
@@ -106,8 +131,10 @@ def time_ms(fn, target_s: float = 0.2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(got, ref, what: str) -> float:
-    """Max abs error; raises unless |got - ref| <= ATOL + RTOL * |ref|."""
+def compare(got, ref, what: str, row_rtol: float = 0.0) -> float:
+    """Max abs error; raises unless |got - ref| <= ATOL + RTOL * |ref|, or,
+    with ``row_rtol``, unless |got - ref| <= row_rtol * max |ref| over the
+    last axis."""
     import torch
 
     got, ref = got.float(), ref.float()
@@ -116,7 +143,10 @@ def compare(got, ref, what: str) -> float:
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: non-finite output")
     err = (got - ref).abs()
-    bad = err > KERNEL_ATOL + KERNEL_RTOL * ref.abs()
+    if row_rtol:
+        bad = err > row_rtol * ref.abs().amax(dim=-1, keepdim=True)
+    else:
+        bad = err > KERNEL_ATOL + KERNEL_RTOL * ref.abs()
     if bad.any():
         raise AssertionError(
             f"{what}: {int(bad.sum())} elements out of tolerance, max abs err "
@@ -246,6 +276,59 @@ def phase_kernels():
         results["ragged_decode_attention"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain)
 
+        # Ragged decode attention over the int8 cache, at the serving shape
+        # (24 slots, cap 1024) and at the engine's default cap of 6144.
+        for cap, lens in ((1024, [0, 1, 255, 256, 257, 600, 1024, 2, 17, 128, 129, 383,
+                                  384, 511, 512, 513, 700, 767, 768, 900, 1000, 1023, 64,
+                                  640]),
+                          (6144, [0, 1, 6144, 6143, 256, 257, 4097, 3000, 2048, 1024, 512,
+                                  5000, 100, 6000, 300, 4500, 1500, 2500, 3500, 5500, 700,
+                                  800, 900, 6100])):
+            b, h, kvh, d = len(lens), 40, 8, 128
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+            def make_int8(_):
+                k = torch.randint(-127, 128, (b, kvh, cap, d), generator=gen, device=dev,
+                                  dtype=torch.int8)
+                v = torch.randint(-127, 128, (b, kvh, cap, d), generator=gen, device=dev,
+                                  dtype=torch.int8)
+                ks = (torch.rand((b, kvh, cap), generator=gen, device=dev) + 0.5) / 127
+                vs = (torch.rand((b, kvh, cap), generator=gen, device=dev) + 0.5) / 127
+                return k, v, ks, vs
+
+            caches8 = rotating(make_int8, 2 * b * kvh * cap * (d + 4))
+            q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+            got = rda.ragged_decode_attention_int8(q, *caches8[0], lengths)
+            ref = rda.ragged_decode_attention_int8_reference(q, *caches8[0], lengths)
+            torch.cuda.synchronize()
+            err = compare(got, ref, f"ragged decode int8 S={cap}", row_rtol=INT8_ROW_RTOL)
+            if got[0].abs().max() != 0:
+                raise AssertionError("ragged decode int8: a row of length 0 did not give 0")
+            row_max = ref.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+            of_row = float(((got.float() - ref.float()).abs() / row_max).max())
+            turn = [0]
+
+            def cycle8(fn):
+                def run():
+                    turn[0] = (turn[0] + 1) % len(caches8)
+                    fn(q, *caches8[turn[0]], lengths)
+                return run
+
+            ms = time_ms(cycle8(rda.ragged_decode_attention_int8))
+            plain = time_ms(cycle8(rda.ragged_decode_attention_int8_reference))
+            log(f"  ragged_decode_attention_int8 B={b} H=40 KVH=8 D=128 S={cap} lengths "
+                f"{min(lens)}..{max(lens)} (mean {sum(lens) / b:.0f}): max_abs_err {err:.3g} "
+                f"({of_row:.3g} of its row's largest; tolerance {INT8_ROW_RTOL}), "
+                f"kernel {ms:.3f} ms, plain {plain:.3f} ms")
+            if cap == 1024:
+                results["ragged_decode_attention_int8"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain)
+            else:
+                results["ragged_decode_attention_int8"]["max_abs_err"] = max(
+                    err, results["ragged_decode_attention_int8"]["max_abs_err"])
+            del caches8
+            torch.cuda.empty_cache()
+
         # int4 matmul at the 14B projection shapes.
         shapes = {"qkv": (5120, 7168), "o": (5120, 5120), "gate_up": (5120, 27648),
                   "down": (13824, 5120), "lm_head": (5120, 152064)}
@@ -319,6 +402,10 @@ class WordTokenizer:
         import zlib
 
         return [10 + zlib.crc32(word.encode()) % 390 for word in text.split()]
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        """Each id as ``t<id>``, so a client can read the ids back."""
+        return " ".join(f"t{int(i)}" for i in ids)
 
 
 def make_batch(cfg, specs, seed: int):
@@ -407,6 +494,117 @@ def phase_model():
         return dict(max_abs_logit_err=err, tolerance=tol)
 
 
+class LogitRecorder:
+    """Wraps a model's ``compute_logits`` to keep a host copy of every call's
+    logits, for comparing what the engine computed step by step."""
+
+    def __init__(self, llm):
+        self.llm, self.inner, self.calls = llm, llm.compute_logits, []
+        llm.compute_logits = self
+
+    def __call__(self, hidden):
+        logits = self.inner(hidden)  # (rows, 1, vocab) in prefill and decode
+        self.calls.append(logits[:, -1].float().cpu())
+        return logits
+
+    def remove(self):
+        del self.llm.compute_logits
+
+
+def phase_serving_model():
+    import numpy as np
+    import torch
+
+    from chatts_tpu_torch.models.qwen import embed_tokens
+    from chatts_tpu_torch.models.quantize import init_quantized_params
+    from chatts_tpu_torch.runtime import kv_cache
+    from chatts_tpu_torch.serve.scheduler import Request, SamplingParams, ServeEngine
+    from chatts_tpu_torch.shared import ChatTSProcessor
+
+    dev = torch.device("cuda", 0)
+    n_steps = 16
+    with Phase("3b", "ChatTS-14B widths, 2 layers, int4, int8 KV: ServeEngine on the card "
+                     "against the same schedule on the CPU (plain, f32)"):
+        cfg = chatts_14b_config(num_layers=2)
+        model = init_quantized_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 3), dev)
+        proc = ChatTSProcessor(WordTokenizer(), cfg)
+        rng = np.random.default_rng(SEED + 3)
+        # Every prompt under 256 tokens: one length class, one admission.
+        specs = [(150, [256]), (100, [512, 256]), (200, [300]), (60, [800])]
+        reqs = []
+        for i, (n_words, lengths) in enumerate(specs):
+            holes = " ".join(f"series {j}: <ts><ts/>" for j in range(len(lengths)))
+            words = " ".join(f"w{int(x)}" for x in rng.integers(0, 10 ** 6, n_words))
+            reqs.append(Request(f"Please analyze {holes} and then answer. {words}",
+                                [rng.normal(0.0, 10.0, size=n).cumsum() for n in lengths],
+                                SamplingParams(max_tokens=n_steps + 1, temperature=0.0)))
+        engine = ServeEngine(model, cfg, proc, device=dev, max_batch_size=len(reqs),
+                             max_model_len=1024, cache_dtype=torch.int8,
+                             decode_chunk=n_steps, fuse=False)
+        recorder = LogitRecorder(model.llm)
+        engine.waiting.requeue(reqs)  # one monolithic admission of all four
+        with engine:
+            deadline = time.time() + 300
+            while any(r.finished_s is None and r.error is None for r in reqs):
+                if time.time() > deadline:
+                    raise TimeoutError("phase 3b requests did not finish")
+                time.sleep(0.01)
+        recorder.remove()
+        for r in reqs:
+            if r.error or len(r.output_tokens) != n_steps + 1:
+                raise AssertionError(f"phase 3b request: error {r.error}, "
+                                     f"{len(r.output_tokens)} tokens")
+        stats = engine.stats()
+        if stats.get("rounds_mono") != 1 or stats.get("rounds_decode") != 1:
+            raise AssertionError(f"phase 3b ran another schedule: {stats}")
+        got = recorder.calls  # prefill (4, V), then 16 decode steps (4, V)
+        del engine
+
+        # The same schedule on the CPU in f32, the card's tokens fed back.
+        model.to("cpu").float()
+        batch = proc([r.prompt for r in reqs], [ts for r in reqs for ts in r.timeseries])
+        tokens = torch.tensor([r.output_tokens for r in reqs], dtype=torch.int64)
+        seq_lens = torch.as_tensor(batch.seq_lens, dtype=torch.int64)
+        b, t = batch.input_ids.shape
+        cpu = torch.device("cpu")
+        with torch.inference_mode():
+            caches = kv_cache.allocate(cfg.llm, b, 1024, torch.int8, cpu)
+            positions = torch.arange(t, dtype=torch.int32)[None].repeat(b, 1)
+            hidden, _ = model(
+                torch.as_tensor(batch.input_ids, dtype=torch.int64), positions,
+                ts_values=torch.as_tensor(batch.ts_values, dtype=torch.float32),
+                ts_mask=torch.as_tensor(batch.ts_mask, dtype=torch.float32),
+                scatter_seq=torch.as_tensor(batch.scatter_seq, dtype=torch.int64),
+                scatter_tok=torch.as_tensor(batch.scatter_tok, dtype=torch.int64),
+                kv_caches=caches, kv_valid=positions < seq_lens[:, None],
+                kv_positions=positions)
+            last = (seq_lens - 1)[:, None, None].expand(b, 1, hidden.shape[-1])
+            want = [model.compute_logits(hidden.gather(1, last))[:, 0]]
+            cur = seq_lens.to(torch.int32)
+            for step in range(n_steps):
+                pos = cur[:, None]
+                hidden, _ = model.llm(embed_tokens(model.llm.embed_tokens, tokens[:, step:step + 1]),
+                                      pos, kv_caches=caches, write_pos=pos, kv_lengths=cur + 1)
+                want.append(model.compute_logits(hidden)[:, 0])
+                cur = cur + 1
+        del model
+        if len(got) != len(want):
+            raise AssertionError(f"the engine computed logits {len(got)} times, not {len(want)}")
+        got_t, want_t = torch.stack(got), torch.stack(want)
+        if not torch.isfinite(got_t).all():
+            raise AssertionError("non-finite logits on the card")
+        errs = (got_t - want_t).abs().amax(dim=(1, 2))
+        tol = SERVE_LOGIT_RTOL_OF_MAX * float(want_t.abs().max())
+        agree = (got_t.argmax(-1) == want_t.argmax(-1)).float().mean()
+        log(f"  prompt tokens {batch.seq_lens.tolist()}, padded to {t}; max |logit diff| "
+            f"first token {float(errs[0]):.4g}, decode steps {float(errs[1:].max()):.4g} "
+            f"(tolerance {tol:.4g} = {SERVE_LOGIT_RTOL_OF_MAX} x max |plain logit| "
+            f"{float(want_t.abs().max()):.4g}); argmax agrees at {float(agree):.0%}")
+        if float(errs.max()) > tol:
+            raise AssertionError(f"int8-KV logits differ by {float(errs.max()):.4g} > {tol:.4g}")
+        torch.cuda.empty_cache()
+
+
 def phase_slice(smi: str):
     import torch
 
@@ -480,12 +678,198 @@ def phase_slice(smi: str):
             f"{len(lens) / g2.tpot_s:.1f} tok/s (greedy, second run; batch {len(lens)}); "
             f"peak memory {peak_gb:.2f} GB; card {smi}")
         log("  slice stats: " + json.dumps(stats))
+        del engine
+        torch.cuda.empty_cache()
+    return launches, model, cfg
+
+
+class WaveGate:
+    """Stands in for ``engine.submit`` under the server: it holds the
+    requests that the server submits until a whole wave is in, then queues
+    the wave with one ``requeue``, so every run admits the same waves."""
+
+    def __init__(self, engine, size: int):
+        import threading
+
+        self.engine, self.size = engine, size
+        self.held, self.all = [], []
+        self.lock = threading.Lock()
+        engine.submit = self.submit
+
+    def submit(self, req):
+        with self.lock:
+            self.engine.total_requests += 1
+            self.held.append(req)
+            self.all.append(req)
+            if len(self.held) == self.size:
+                self.engine.waiting.requeue(self.held)
+                self.held = []
+                self.engine._wake.set()
+        return req
+
+
+def _post_chat(port: int, body: dict, timeout: float = 240.0) -> dict:
+    """One /v1/chat/completions call; returns the token ids, the finish
+    reason and the completion count as the client reads them."""
+    import re
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/chat/completions",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        raw = r.read().decode()
+    if body.get("stream"):
+        chunks = [json.loads(line[6:]) for line in raw.split("\n\n")
+                  if line.startswith("data: {")]
+        if not raw.rstrip().endswith("data: [DONE]") or any("error" in c for c in chunks):
+            raise AssertionError(f"bad stream: {raw[-300:]}")
+        text = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks)
+        finish = chunks[-1]["choices"][0]["finish_reason"]
+        ids = [int(x) for x in re.findall(r"t(\d+)", text)]
+        return dict(ids=ids, finish=finish, completion_tokens=len(ids))
+    data = json.loads(raw)
+    choice = data["choices"][0]
+    return dict(ids=[int(x) for x in re.findall(r"t(\d+)", choice["message"]["content"])],
+                finish=choice["finish_reason"],
+                completion_tokens=data["usage"]["completion_tokens"])
+
+
+def phase_serving(smi: str, model, cfg):
+    import concurrent.futures
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from chatts_tpu_torch.ops import flash_attention as fa
+    from chatts_tpu_torch.ops import int4_matmul as i4
+    from chatts_tpu_torch.ops import ragged_decode_attention as rda
+    from chatts_tpu_torch.serve.scheduler import ServeEngine
+    from chatts_tpu_torch.serve.server import ChatTSServer
+    from chatts_tpu_torch.shared import ChatTSProcessor
+
+    dev = torch.device("cuda", 0)
+    wrappers = {"flash_attention": fa.flash_attention,
+                "ragged_decode_attention_int8": rda.ragged_decode_attention_int8,
+                "int4_matmul": i4.int4_matmul}
+    wave, n_new = 8, 64
+    with Phase(5, "serving slice at full size: ChatTS-14B, 48 layers, int4, int8 KV, "
+                  "ServeEngine behind ChatTSServer"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        tokenizer = WordTokenizer()
+        # bench.py's 14B serving engine (bench.py:843-859).
+        engine = ServeEngine(model, cfg, ChatTSProcessor(tokenizer, cfg), device=dev,
+                             max_batch_size=24, max_model_len=1024, cache_dtype=torch.int8,
+                             decode_chunk=32, fuse=False, block_early_emit=True,
+                             admission_bucket=8)
+        gate = WaveGate(engine, wave)
+        server = ChatTSServer(engine, tokenizer, host="127.0.0.1", port=0)
+        rng = np.random.default_rng(SEED + 5)
+        filler = " ".join(f"word{i}" for i in range(400))  # bench.py's _bench_prompt
+
+        def body(i: int) -> dict:
+            parts = [{"type": "text", "text": "here are two metrics "},
+                     {"type": "timeseries",
+                      "timeseries": rng.normal(0, 50, 256).cumsum().tolist()},
+                     {"type": "text", "text": " and "},
+                     {"type": "timeseries",
+                      "timeseries": rng.normal(0, 5, 512).cumsum().tolist()},
+                     {"type": "text", "text": f". {filler} analyze their local changes."}]
+            return {"model": "chatts", "max_tokens": n_new, "temperature": 0.0,
+                    "stream": i == wave + 3,
+                    "messages": [{"role": "user", "content": parts}]}
+
+        bodies = [body(i) for i in range(2 * wave)]
+        runs = []
+        server.start_background()
+        try:
+            if server._httpd is None:
+                raise RuntimeError("the server did not come up")
+            port = server._httpd.server_address[1]
+            with concurrent.futures.ThreadPoolExecutor(2 * wave) as pool:
+                for fn in wrappers.values():
+                    fn.launches = 0
+                for run in range(2):
+                    start = time.perf_counter()
+                    n_before = len(gate.all)
+                    futs = [pool.submit(_post_chat, port, bodies[i]) for i in range(wave)]
+                    deadline = time.time() + 600
+                    while (len(gate.all) < n_before + wave
+                           or any(r.first_token_s is None for r in gate.all[n_before:])):
+                        if time.time() > deadline or any(f.done() for f in futs):
+                            raise RuntimeError("wave 1 did not start decoding")
+                        time.sleep(0.005)
+                    # Wave 1 is decoding: wave 2 joins through block admission.
+                    futs += [pool.submit(_post_chat, port, bodies[i])
+                             for i in range(wave, 2 * wave)]
+                    results = [f.result(timeout=300) for f in futs]
+                    wall = time.perf_counter() - start
+                    reqs = gate.all[n_before:]
+                    runs.append((results, reqs, wall))
+                launches = {name: fn.launches for name, fn in wrappers.items()}
+            stats = engine.stats()
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                        timeout=60) as r:
+                metrics = json.loads(r.read())
+        finally:
+            server.shutdown()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+        log(f"  kernel launches during the two runs: {launches}")
+        for name, count in launches.items():
+            if count < 1:
+                raise AssertionError(f"the serving path never launched {name}")
+        for results, reqs, _ in runs:
+            for res in results:
+                if (res["finish"] != "length" or res["completion_tokens"] != n_new
+                        or len(res["ids"]) != n_new):
+                    raise AssertionError(f"a request ended {res['finish']} with "
+                                         f"{res['completion_tokens']} tokens")
+                if any(not 0 <= tok < cfg.llm.vocab_size for tok in res["ids"]):
+                    raise AssertionError("token id outside the vocabulary")
+            if any(r.error for r in reqs):
+                raise AssertionError(f"engine errors: {[r.error for r in reqs if r.error]}")
+        for kind in ("rounds_mono", "rounds_block_pre", "rounds_decode"):
+            if stats.get(kind, 0) < 1:
+                raise AssertionError(f"{kind} is 0: {stats}")
+        if metrics["total_requests"] != 4 * wave:
+            raise AssertionError(f"/metrics counts {metrics['total_requests']} requests")
+        if [r["ids"] for r in runs[0][0]] != [r["ids"] for r in runs[1][0]]:
+            raise AssertionError("the second run of the schedule gave other tokens")
+
+        summary = []
+        for results, reqs, wall in runs:
+            ttft = np.asarray([r.ttft_s for r in reqs]) * 1e3
+            first = min(r.first_token_s for r in reqs)
+            last = max(r.finished_s for r in reqs)
+            decode_tok_s = sum(len(r.output_tokens) - 1 for r in reqs) / (last - first)
+            summary.append(dict(
+                ttft_p50_ms=float(np.percentile(ttft, 50)),
+                ttft_p90_ms=float(np.percentile(ttft, 90)),
+                wave1_ttft_mean_ms=float(ttft[:wave].mean()),
+                wave2_ttft_mean_ms=float(ttft[wave:].mean()),
+                decode_tok_s=decode_tok_s, wall_s=wall))
+        rounds = {k: v for k, v in stats.items() if k.startswith("round")}
+        for i, s in enumerate(summary):
+            log(f"  run {i + 1}: TTFT p50 {s['ttft_p50_ms']:.1f} ms, p90 {s['ttft_p90_ms']:.1f} ms "
+                f"(wave 1 mean {s['wave1_ttft_mean_ms']:.1f}, wave 2 mean "
+                f"{s['wave2_ttft_mean_ms']:.1f}); aggregate decode {s['decode_tok_s']:.1f} tok/s; "
+                f"{2 * wave} requests x {n_new} tokens in {s['wall_s']:.2f} s")
+        log(f"  rounds (both runs): {json.dumps(rounds)}")
+        log(f"  prompt tokens {sorted({r.prompt_tokens for r in runs[0][1]})}; peak memory "
+            f"{peak_gb:.2f} GB; card {smi}")
+        log("  serving stats: " + json.dumps(dict(runs=summary, rounds=rounds,
+                                                  peak_memory_gb=peak_gb, card=smi)))
+        del engine
+        torch.cuda.empty_cache()
     return launches
 
 
 REPLACES = {
     "flash_attention": "chatts_tpu/ops/flash_attention.py:129",
     "ragged_decode_attention": "chatts_tpu/ops/ragged_decode_attention.py:123",
+    "ragged_decode_attention_int8": "chatts_tpu/ops/ragged_decode_attention.py:376",
     "int4_matmul": "chatts_tpu/ops/int4_matmul.py:291",
 }
 
@@ -503,10 +887,17 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     phase_model()
-    launches = phase_slice(smi)
+    phase_serving_model()
+    batch_launches, model, cfg = phase_slice(smi)
+    serve_launches = phase_serving(smi, model, cfg)
+    # Each path counted from 0: "launches" is a kernel's sum over both paths,
+    # and "launches_by_path" says which path launched what.
+    by_path = {name: {"batch": batch_launches.get(name, 0),
+                      "serving": serve_launches.get(name, 0)} for name in REPLACES}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"chatts_tpu_torch/csrc/{name}.cu",
-         "replaces": REPLACES[name], "launches": launches[name],
+         "replaces": REPLACES[name], "launches": sum(by_path[name].values()),
+         "launches_by_path": by_path[name],
          "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
          "plain_ms": kernels[name]["plain_ms"]}
         for name in REPLACES

@@ -135,8 +135,10 @@ def test_torch_kv_cache_and_capacity_rule():
     assert caches[0][0].shape == (3, lcfg.num_key_value_heads, 256, lcfg.head_dim)
     for dtype, jdtype in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
         assert tkv.cache_bytes(lcfg, 3, 256, dtype) == jkv.cache_bytes(lcfg, 3, 256, jdtype)
+    # int8 is the serving cache: per layer codes and scales.
+    assert len(tkv.allocate(lcfg, 1, 256, torch.int8)[0]) == 4
     with pytest.raises(NotImplementedError):
-        tkv.allocate(lcfg, 1, 256, torch.int8)
+        tkv.allocate(lcfg, 1, 256, torch.float16)
     # The JAX engine's rule: prompt + new tokens, rounded up to 256.
     assert default_cache_len(300, 64) == 512
     assert default_cache_len(192, 64) == 256

@@ -37,7 +37,8 @@ def test_torch_port_imports_without_jax():
     for name in ("chatts_tpu_torch.kernels.build", "chatts_tpu_torch.ops.flash_attention",
                  "chatts_tpu_torch.ops.ragged_decode_attention",
                  "chatts_tpu_torch.ops.int4_matmul", "chatts_tpu_torch.runtime.engine",
-                 "chatts_tpu_torch.models.convert", "chatts_tpu_torch.shared"):
+                 "chatts_tpu_torch.models.convert", "chatts_tpu_torch.shared",
+                 "chatts_tpu_torch.serve.scheduler", "chatts_tpu_torch.serve.server"):
         assert name in report["modules"]
 
 

@@ -11,6 +11,11 @@ Tolerance, both sides bf16 on the card: |got - ref| <= 2e-2 + 2e-2 |ref|.
 The outputs round to bf16 (one ulp apart at worst), the plain int4 matmul
 rounds each dequantized weight to bf16, and the plain attention rounds
 normalised probabilities where the kernel rounds them against a running max.
+
+The int8 decode attention is held tighter, per (row, head), to 2e-2 of that
+row's largest output: both sides compute in f32 and round once to bf16 (one
+ulp, at most 2**-7 of the row's largest), and a long row's outputs are too
+small for the shared absolute tolerance to see one wrong 128-key tile.
 """
 import math
 
@@ -38,6 +43,13 @@ def _close(got, ref):
     got, ref = got.float(), ref.float()
     assert torch.isfinite(got).all()
     assert ((got - ref).abs() <= ATOL + RTOL * ref.abs()).all(), float((got - ref).abs().max())
+
+
+def _close_rows(got, ref, rtol=2e-2):
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    tol = rtol * ref.abs().amax(dim=-1, keepdim=True)
+    assert ((got - ref).abs() <= tol).all(), float((got - ref).abs().max())
 
 
 def _bf16(gen, shape, dev):
@@ -85,6 +97,46 @@ def test_torch_ragged_kernel_matches_plain(cuda, lengths, h, kvh, s):
     torch.cuda.synchronize()
     assert rda.ragged_decode_attention.launches == before + 1
     _close(got, rda.ragged_decode_attention_reference(q, k, v, lens))
+
+
+def _int8_cache(gen, shape, dev):
+    codes = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+    scales = (torch.rand(shape[:3], generator=gen, device=dev) + 0.5) / 127
+    return codes, scales
+
+
+@pytest.mark.parametrize("lengths,h,kvh,s", [([0, 1, 129], 8, 2, 300), ([256, 255, 257], 40, 8, 1024),
+                                             ([17], 16, 1, 64), ([1000, 3], 10, 2, 1000),
+                                             ([0], 4, 4, 130), ([6000, 4500], 8, 2, 6144)])
+def test_torch_ragged_int8_kernel_matches_plain(cuda, lengths, h, kvh, s):
+    gen = torch.Generator(device=cuda).manual_seed(len(lengths) + s)
+    b, d = len(lengths), 128
+    q = _bf16(gen, (b, h, d), cuda)
+    k, ks = _int8_cache(gen, (b, kvh, s, d), cuda)
+    v, vs = _int8_cache(gen, (b, kvh, s, d), cuda)
+    lens = torch.tensor(lengths, device=cuda, dtype=torch.int32)
+    before = rda.ragged_decode_attention_int8.launches
+    got = rda.ragged_decode_attention_int8(q, k, v, ks, vs, lens)
+    torch.cuda.synchronize()
+    assert rda.ragged_decode_attention_int8.launches == before + 1
+    _close_rows(got, rda.ragged_decode_attention_int8_reference(q, k, v, ks, vs, lens))
+    assert (got[lens == 0] == 0).all()  # a row of length 0 gives 0
+
+
+def test_torch_ragged_int8_kernel_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _bf16(gen, (1, 4, 128), cuda)
+    k, ks = _int8_cache(gen, (1, 2, 64, 128), cuda)
+    lens = torch.tensor([5], device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int8 cache"):
+        rda.ragged_decode_attention_int8(q, k.to(torch.bfloat16), k.to(torch.bfloat16),
+                                         ks, ks, lens)
+    with pytest.raises(ValueError, match="scales"):
+        rda.ragged_decode_attention_int8(q, k, k, ks.double(), ks, lens)
+    with pytest.raises(ValueError, match="lengths"):
+        rda.ragged_decode_attention_int8(q, k, k, ks, ks, lens.long())
+    with pytest.raises(ValueError, match="kv heads"):
+        rda.ragged_decode_attention_int8(_bf16(gen, (1, 3, 128), cuda), k, k, ks, ks, lens)
 
 
 @pytest.mark.parametrize("r", [1, 3, 16, 17, 130])

@@ -1,0 +1,58 @@
+"""The port's ``ServeEngine`` on the card, built the way a user builds it:
+``device="cuda"``, with no index.
+
+Marked ``gpu``; the test skips where there is no CUDA card.  This file imports
+no JAX, so on a machine without it run it without the repository's conftest:
+
+    python -m pytest --noconftest -q tests/test_torch_serve_gpu.py
+"""
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from chatts_tpu_torch.models.quantize import init_quantized_params
+from chatts_tpu_torch.ops import flash_attention as fa
+from chatts_tpu_torch.ops import int4_matmul as i4
+from chatts_tpu_torch.ops import ragged_decode_attention as rda
+from chatts_tpu_torch.serve.scheduler import SamplingParams, ServeEngine
+from chatts_tpu_torch.shared import ChatTSProcessor, tiny_config
+
+pytestmark = pytest.mark.gpu
+
+
+class WordTokenizer:
+    """One id in [10, 400) per whitespace word."""
+
+    pad_token_id = 0
+    eos_token_id = 1
+
+    def encode(self, text, add_special_tokens=False):
+        return [10 + zlib.crc32(w.encode()) % 390 for w in text.split()]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(f"t{int(i)}" for i in ids)
+
+
+def test_torch_serve_engine_on_unindexed_cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    # head_dim 128 and int4 widths that are multiples of 128, as the kernels take.
+    cfg = tiny_config(vocab_size=512, hidden_size=256, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                      head_dim=128, patch_size=4, max_sequence_length=64,
+                      ts_token_start_index=500)
+    model = init_quantized_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    proc = ChatTSProcessor(WordTokenizer(), cfg)
+    wrappers = (fa.flash_attention, i4.int4_matmul, rda.ragged_decode_attention_int8)
+    before = [fn.launches for fn in wrappers]
+    with ServeEngine(model, cfg, proc, device="cuda", max_batch_size=2, max_model_len=256,
+                     cache_dtype=torch.int8, decode_chunk=4) as eng:
+        assert eng.device == torch.device("cuda", torch.cuda.current_device())
+        req = eng.generate_sync("check <ts><ts/> the series", [np.sin(np.arange(40.0))],
+                                SamplingParams(max_tokens=6, temperature=0.0), timeout=60)
+    assert req.error is None, req.error
+    assert req.finish_reason == "length" and len(req.output_tokens) == 6
+    assert all(0 <= t < cfg.llm.vocab_size for t in req.output_tokens)
+    assert all(fn.launches > n for fn, n in zip(wrappers, before))
