@@ -79,12 +79,14 @@ class ChatTSModel(nn.Module):
         kv_valid=None,
         kv_positions=None,
         kv_lengths=None,
+        act_int8: bool = False,
     ):
         """Merge-embed -> decoder.  Returns (hidden (B, T, H), caches)."""
         embeds = self.input_embeddings(input_ids, ts_values, ts_mask, scatter_seq, scatter_tok)
         return self.llm(
             embeds, positions, kv_caches=kv_caches, write_pos=write_pos,
             kv_valid=kv_valid, kv_positions=kv_positions, kv_lengths=kv_lengths,
+            act_int8=act_int8,
         )
 
     def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:

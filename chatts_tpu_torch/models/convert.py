@@ -4,9 +4,9 @@
 numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a
 ``ChatTSModel`` holding the same values.  Every layout the JAX package
 produces is accepted: unfused (``init_params``), fused (``maybe_fuse``), int4
-(``quantize_params(bits=4)``, ``init_quantized_params(bits=4)``), Qwen2 qkv
-bias, Qwen3 ``q_norm``/``k_norm``, and a tied, separate or int4 lm_head.
-int8 weights (``kernel_q``) are not ported yet and raise.
+and int8 (``quantize_params``, ``init_quantized_params``, both ``bits``),
+Qwen2 qkv bias, Qwen3 ``q_norm``/``k_norm``, and a tied, separate or
+quantized lm_head.
 """
 from __future__ import annotations
 
@@ -36,9 +36,10 @@ def _opt(tree: Mapping[str, Any], key: str, device) -> Optional[torch.Tensor]:
 
 
 def dense_from_jax(layer: Mapping[str, Any], device=None) -> Dense:
-    if "kernel_q" in layer:
-        raise NotImplementedError("int8 weight-only layers (kernel_q) are not ported yet")
     bias = _opt(layer, "bias", device)
+    if "kernel_q" in layer:
+        return Dense(kernel_q=to_tensor(layer["kernel_q"], device),
+                     scales=to_tensor(layer["scales"], device), bias=bias)
     if "kernel_q4" in layer:
         return Dense(
             kernel_q4=to_tensor(layer["kernel_q4"], device),

@@ -1,10 +1,12 @@
-"""Weight-only int4 quantization.
+"""Weight-only int8 and int4 quantization.
 
-Counterpart of ``chatts_tpu/models/quantize.py`` for its int4 tier: the
-packed (in/2, out) int8 nibbles plus (in/128, out) f32 group scales of
-``ops/int4_matmul.py``.  The int8 tier is not ported yet; a projection whose
-shape does not tile for int4 (the JAX package falls back to int8 there)
-raises.
+Counterpart of ``chatts_tpu/models/quantize.py``, with its two tiers:
+- int8: ``kernel_q`` (in, out) int8 plus per-column ``scales`` (out,) f32,
+  W = kernel_q * scales;
+- int4: the packed (in/2, out) int8 nibbles plus (in/128, out) f32 group
+  scales of ``ops/int4_matmul.py``.  A projection whose shape does not tile
+  for the int4 kernel (IN or OUT not a multiple of 128) falls back to int8,
+  as in the reference.
 """
 from __future__ import annotations
 
@@ -25,20 +27,38 @@ QUANT_TARGETS = (
 
 
 def _check_bits(bits: int) -> None:
-    if bits != 4:
-        raise NotImplementedError(f"only bits=4 is ported; got bits={bits}")
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
 
 
-def _check_int4_shape(in_dim: int, out_dim: int) -> None:
-    if in_dim % DEFAULT_GROUP or out_dim % 128:
-        raise ValueError(
-            f"a {in_dim}->{out_dim} projection does not tile for int4 (IN and OUT "
-            f"must be multiples of 128); the int8 fallback is not ported")
+def _int4_tiles(in_dim: int, out_dim: int) -> bool:
+    """Whether the int4 kernels take a projection of this shape (the
+    reference's ``int4_matmul.supported``)."""
+    return in_dim % DEFAULT_GROUP == 0 and out_dim % 128 == 0
+
+
+def quantize_dense(dense: Dense) -> Dense:
+    """A float Dense -> an int8 Dense with the same bias: per-column scales
+    max |W| / 127 (1 for an all-zero column), codes rounded half to even."""
+    kernel = dense.kernel.float()
+    amax = kernel.abs().amax(dim=0)
+    scales = amax / torch.full_like(amax, 127.0)  # IEEE division on the card too
+    scales = torch.where(scales == 0, 1.0, scales)
+    q = torch.clamp(torch.round(kernel / scales), -127, 127).to(torch.int8)
+    return Dense(kernel_q=q, scales=scales, bias=dense.bias)
+
+
+def dequantize_dense(dense: Dense, dtype=torch.bfloat16) -> Dense:
+    """An int8 Dense -> a float Dense holding kernel_q * scales in ``dtype``."""
+    kernel = (dense.kernel_q.float() * dense.scales[None, :]).to(dtype)
+    return Dense(kernel.contiguous(), bias=dense.bias)
 
 
 def quantize_dense_int4(dense: Dense, group_size: int = DEFAULT_GROUP) -> Dense:
-    """A float Dense -> an int4 Dense with the same bias."""
-    _check_int4_shape(dense.in_features, dense.out_features)
+    """A float Dense -> an int4 Dense with the same bias, or an int8 one
+    where the shape does not tile for the int4 kernels."""
+    if not _int4_tiles(dense.in_features, dense.out_features):
+        return quantize_dense(dense)
     packed, scales = pack_int4(dense.kernel, group_size)
     return Dense(kernel_q4=packed, scales4=scales, bias=dense.bias)
 
@@ -46,16 +66,18 @@ def quantize_dense_int4(dense: Dense, group_size: int = DEFAULT_GROUP) -> Dense:
 @torch.no_grad()
 def quantize_llm(llm: QwenModel, quantize_lm_head: bool = True, bits: int = 4) -> QwenModel:
     """Quantize every decoder projection (norms and embeddings stay), and the
-    separate lm_head into ``lm_head_q``, in place."""
+    separate lm_head into ``lm_head_q``, in place: bits=8 per-column int8,
+    bits=4 group-128 int4."""
     _check_bits(bits)
+    qfn = quantize_dense_int4 if bits == 4 else quantize_dense
     for layer in llm.layers:
         for group in (layer.self_attn, layer.mlp):
             for name in QUANT_TARGETS:
                 sub = getattr(group, name, None)
                 if isinstance(sub, Dense) and sub.kernel is not None:
-                    setattr(group, name, quantize_dense_int4(sub))
+                    setattr(group, name, qfn(sub))
     if quantize_lm_head and llm.lm_head is not None:
-        llm.lm_head_q = quantize_dense_int4(Dense(llm.lm_head))
+        llm.lm_head_q = qfn(Dense(llm.lm_head))
         llm.lm_head = None
     return llm
 
@@ -63,26 +85,34 @@ def quantize_llm(llm: QwenModel, quantize_lm_head: bool = True, bits: int = 4) -
 @torch.no_grad()
 def init_quantized_params(cfg: ChatTSConfig, generator: torch.Generator, device,
                           bits: int = 4, fused: bool = True) -> ChatTSModel:
-    """A random ChatTS model built directly in the int4 layout on ``device``,
-    with no bf16 intermediate (random packed bytes, scales 1 / (7 sqrt(in))
-    as in ``chatts_tpu.models.quantize.init_quantized_params``).  For
-    capacity and speed runs at real widths; ``generator`` lives on
-    ``device``."""
+    """A random ChatTS model built directly in the quantized layout on
+    ``device``, with no bf16 intermediate, as
+    ``chatts_tpu.models.quantize.init_quantized_params`` builds it: int4
+    projections are random packed bytes with scales 1 / (7 sqrt(in)); int8
+    ones (bits=8, or a shape that does not tile for int4) random codes in
+    [-127, 127] with scales 1 / (127 sqrt(in)).  For capacity and speed runs
+    at real widths; ``generator`` lives on ``device``."""
     _check_bits(bits)
     lcfg = cfg.llm
     h, kvh, d, hid = (lcfg.num_attention_heads, lcfg.num_key_value_heads,
                       lcfg.head_dim, lcfg.hidden_size)
     bf16 = torch.bfloat16
 
+    def rand_int8(shape) -> torch.Tensor:
+        return torch.randint(-128, 128, shape, generator=generator, device=device,
+                             dtype=torch.int8)
+
     def qdense(fan_in: int, fan_out: int, bias: bool) -> Dense:
-        _check_int4_shape(fan_in, fan_out)
-        return Dense(
-            kernel_q4=torch.randint(-128, 128, (fan_in // 2, fan_out), generator=generator,
-                                    device=device, dtype=torch.int8),
-            scales4=torch.full((fan_in // DEFAULT_GROUP, fan_out),
-                               1.0 / (7 * math.sqrt(fan_in)), device=device),
-            bias=torch.zeros(fan_out, dtype=bf16, device=device) if bias else None,
-        )
+        b = torch.zeros(fan_out, dtype=bf16, device=device) if bias else None
+        if bits == 4 and _int4_tiles(fan_in, fan_out):
+            return Dense(kernel_q4=rand_int8((fan_in // 2, fan_out)),
+                         scales4=torch.full((fan_in // DEFAULT_GROUP, fan_out),
+                                            1.0 / (7 * math.sqrt(fan_in)), device=device),
+                         bias=b)
+        return Dense(kernel_q=torch.clamp(rand_int8((fan_in, fan_out)), min=-127),
+                     scales=torch.full((fan_out,), 1.0 / (127 * math.sqrt(fan_in)),
+                                       device=device),
+                     bias=b)
 
     def ones(n: int) -> torch.Tensor:
         return torch.ones(n, dtype=bf16, device=device)

@@ -10,10 +10,11 @@ layout, so the two packages load the same arrays without transposes
 written in place: prefill writes the prompt block, each decode step writes one
 position per (row, head) with one indexed assignment.
 
-On CUDA tensors the three hot spots are the port's kernels: prefill attention
+On CUDA tensors the hot spots are the port's kernels: prefill attention
 (``ops/flash_attention.py``), decode attention
 (``ops/ragged_decode_attention.py``) and every int4 projection
-(``ops/int4_matmul.py``).  On CPU tensors each runs its plain version.
+(``ops/int4_matmul.py``: ``int4_matmul``, or ``int4_matmul_a8`` for a
+prefill with ``act_int8``).  On CPU tensors each runs its plain version.
 
 A layer cache is a (k, v) pair of float tensors, or the int8 4-tuple
 (k_q, v_q, k_scale, v_scale) of ``runtime/kv_cache.py``.  With an int8 cache
@@ -21,8 +22,11 @@ prefill writes codes and scales but attends over the unquantized fresh
 block, as the reference does; decode writes the new token's codes and scales
 and attends through ``ragged_decode_attention_int8``.
 
-Recent-KV decode, chunked prefill, int8 weights and int8 activations are not
-ported yet.
+``act_int8`` (prefill only, as in the reference) quantizes each projection's
+input rows to int8: int4 weights then take ``int4_matmul_a8`` and int8
+weights an int8 x int8 -> int32 product; float weights ignore it.
+
+Recent-KV decode and chunked prefill are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from torch import nn
 
 from chatts_tpu.core.config import QwenConfig
 from chatts_tpu_torch.ops.attention import attention
-from chatts_tpu_torch.ops.int4_matmul import int4_matmul
+from chatts_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_a8
 from chatts_tpu_torch.ops.ragged_decode_attention import (
     ragged_decode_attention,
     ragged_decode_attention_int8,
@@ -74,15 +78,46 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
-def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 over the head dim, one scale per (..., position): the
-    port of ``qwen._quantize_kv``.  x (B, KVH, T, D) -> (int8 codes, f32
-    scales (B, KVH, T)).  ``torch.round`` rounds half to even, as
-    ``jnp.round`` does."""
+def quantize_acts(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the last axis, one scale per row: the port of
+    ``qwen._quantize_acts`` (and of ``_quantize_kv``, the same arithmetic).
+    x (..., K) -> (int8 codes, f32 scales (...)).  ``torch.round`` rounds
+    half to even, as ``jnp.round`` does, so the same f32 input gives the
+    same codes and scales, on the CPU and on the card."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    amax = xf.abs().amax(dim=-1)
+    # A tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
+    # multiply by its reciprocal, which can round the other way.
+    scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
     return q, scale
+
+
+# K/V (B, KVH, T, D) -> codes and scales (B, KVH, T), per position.
+quantize_kv = quantize_acts
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) as the f32 product, not rounded to the operands'
+    type: ``jnp.dot(x, w, preferred_element_type=float32)``.  On the card a
+    bf16 or f16 pair takes cuBLAS's f32-output GEMM (``torch.mm`` with
+    ``out_dtype``, which that PyTorch registers only for CUDA); anything else
+    multiplies the operands cast to f32."""
+    if x.device.type == "cuda" and x.dtype == w.dtype and x.dtype in (
+            torch.bfloat16, torch.float16):
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+def _int8_matmul(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(R, K) int8 @ (K, N) int8 -> (R, N) int32, exact.  ``torch._int_mm``
+    takes more than 16 rows on the card, so fewer are padded with zero rows
+    and cut off after."""
+    r = xq.shape[0]
+    if r <= 16:
+        xq = F.pad(xq, (0, 0, 0, 17 - r))
+    return torch._int_mm(xq, w)[:r]
 
 
 def embed_tokens(table: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
@@ -94,61 +129,90 @@ def _frozen(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
 
 
 class Dense(nn.Module):
-    """One projection: the port of ``qwen._dense`` for float and int4 weights.
+    """One projection: the port of ``qwen._dense``.
 
-    Float: ``kernel`` (in, out).  int4: ``kernel_q4`` (in/2, out) int8 and
-    ``scales4`` (in/128, out) f32, optionally GPTQ ``zeros4`` (groups, out)
-    and ``perm4`` (in,) applied in plain PyTorch around the kernel.  The
-    result is rounded as the reference rounds it: the int4 product is cast to
-    x's type, then to f32, then the bias is added in f32, then the sum is
-    cast to x's type.  (For bf16 float weights torch.matmul rounds its
-    product to bf16 before the bias; the reference adds the bias to the f32
-    product.  The main path's projections are int4.)"""
+    - Float: ``kernel`` (in, out).
+    - int4: ``kernel_q4`` (in/2, out) int8 and ``scales4`` (in/128, out)
+      f32, optionally GPTQ ``zeros4`` (groups, out) and ``perm4`` (in,)
+      applied in plain PyTorch around the kernel.
+    - int8: ``kernel_q`` (in, out) int8 and per-column ``scales`` (out,)
+      f32, W = kernel_q * scales.
+
+    Results are rounded as the reference rounds them: float and int8
+    products are f32 (``matmul_f32``); the int4 kernels return x's type, which
+    is then cast to f32; the bias is added in f32 and the sum cast to x's
+    type.  ``act_int8`` quantizes the rows of x first (``quantize_acts``)."""
 
     def __init__(self, kernel: Optional[torch.Tensor] = None, *,
                  kernel_q4: Optional[torch.Tensor] = None,
                  scales4: Optional[torch.Tensor] = None,
                  zeros4: Optional[torch.Tensor] = None,
                  perm4: Optional[torch.Tensor] = None,
+                 kernel_q: Optional[torch.Tensor] = None,
+                 scales: Optional[torch.Tensor] = None,
                  bias: Optional[torch.Tensor] = None):
         super().__init__()
-        if (kernel is None) == (kernel_q4 is None):
-            raise ValueError("Dense takes either a float kernel or kernel_q4 + scales4")
+        if sum(w is not None for w in (kernel, kernel_q4, kernel_q)) != 1:
+            raise ValueError("Dense takes one of a float kernel, kernel_q4 + scales4 "
+                             "or kernel_q + scales")
         if kernel_q4 is not None and scales4 is None:
             raise ValueError("kernel_q4 needs scales4")
+        if kernel_q is not None and scales is None:
+            raise ValueError("kernel_q needs scales")
+        if kernel_q is not None:
+            # Column-major strides, the same (in, out) values: cuBLASLt's int8
+            # GEMM behind torch._int_mm takes its second operand only so.
+            kernel_q = kernel_q.t().contiguous().t()
         self.kernel = _frozen(kernel)
         self.bias = _frozen(bias)
         for name, t in (("kernel_q4", kernel_q4), ("scales4", scales4),
-                        ("zeros4", zeros4), ("perm4", perm4)):
+                        ("zeros4", zeros4), ("perm4", perm4),
+                        ("kernel_q", kernel_q), ("scales", scales)):
             self.register_buffer(name, t)
 
     @property
     def in_features(self) -> int:
-        if self.kernel is not None:
-            return self.kernel.shape[0]
-        return 2 * self.kernel_q4.shape[0]
+        if self.kernel_q4 is not None:
+            return 2 * self.kernel_q4.shape[0]
+        return self._weight.shape[0]
 
     @property
     def out_features(self) -> int:
-        w = self.kernel if self.kernel is not None else self.kernel_q4
-        return w.shape[1]
+        return self._weight.shape[1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def _weight(self) -> torch.Tensor:
+        return next(w for w in (self.kernel, self.kernel_q4, self.kernel_q) if w is not None)
+
+    def forward(self, x: torch.Tensor, act_int8: bool = False) -> torch.Tensor:
+        lead = x.shape[:-1]
         if self.kernel_q4 is not None:
-            lead = x.shape[:-1]
             x2 = x.reshape(-1, x.shape[-1])
             if self.perm4 is not None:
                 x2 = x2.index_select(1, self.perm4.long())
-            out = int4_matmul(x2.contiguous(), self.kernel_q4, self.scales4).float()
+            if act_int8:
+                xq, xs = quantize_acts(x2)
+                y = int4_matmul_a8(xq, xs, self.kernel_q4, self.scales4, out_dtype=x.dtype)
+            else:
+                y = int4_matmul(x2.contiguous(), self.kernel_q4, self.scales4)
+            out = y.float()
             if self.zeros4 is not None:
                 # Asymmetric GPTQ zero-points: W = s*(code-8) + s*(8-z); the
-                # second term needs only each group's activation sum.
+                # second term needs only each group's activation sum, taken
+                # from the unquantized rows.
                 g = self.zeros4.shape[0]
                 rs = x2.float().reshape(x2.shape[0], g, -1).sum(dim=-1)
                 out = out + torch.matmul(rs, self.zeros4.float())
             out = out.reshape(*lead, out.shape[-1])
+        elif self.kernel_q is not None:
+            if act_int8:
+                xq, xs = quantize_acts(x.reshape(-1, x.shape[-1]))
+                out = _int8_matmul(xq, self.kernel_q).float() * xs[:, None] * self.scales
+                out = out.reshape(*lead, out.shape[-1])
+            else:
+                out = matmul_f32(x, self.kernel_q.to(x.dtype)) * self.scales
         else:
-            out = torch.matmul(x, self.kernel).float()
+            out = matmul_f32(x, self.kernel)
         if self.bias is not None:
             out = out + self.bias.float()
         return out.to(x.dtype)
@@ -189,14 +253,17 @@ class Attention(nn.Module):
         kv_valid: Optional[torch.Tensor],  # (B, S) bool
         kv_positions: Optional[torch.Tensor],  # (B, S) int32
         kv_lengths: Optional[torch.Tensor],  # (B,) int32 for a decode step
+        act_int8: bool = False,
     ) -> Tuple[torch.Tensor, Optional[LayerCache]]:
         cfg = self.cfg
         b, t, _ = x.shape
         h, kvh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         if self.qkv_proj is not None:
-            q, k, v = self.qkv_proj(x).split([h * d, kvh * d, kvh * d], dim=-1)
+            q, k, v = self.qkv_proj(x, act_int8).split([h * d, kvh * d, kvh * d], dim=-1)
         else:
-            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+            q = self.q_proj(x, act_int8)
+            k = self.k_proj(x, act_int8)
+            v = self.v_proj(x, act_int8)
         q = q.reshape(b, t, h, d)
         k = k.reshape(b, t, kvh, d)
         v = v.reshape(b, t, kvh, d).contiguous()
@@ -261,7 +328,7 @@ class Attention(nn.Module):
                 q, k, v, q_positions=positions, kv_positions=kv_positions,
                 kv_valid=kv_valid, scale=scale,
             )
-        return self.o_proj(out.reshape(b, t, h * d)), kv_cache
+        return self.o_proj(out.reshape(b, t, h * d), act_int8), kv_cache
 
 
 class MLP(nn.Module):
@@ -275,12 +342,12 @@ class MLP(nn.Module):
         self.gate_up_proj, self.gate_proj, self.up_proj = gate_up_proj, gate_proj, up_proj
         self.down_proj = down_proj
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act_int8: bool = False) -> torch.Tensor:
         if self.gate_up_proj is not None:
-            gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
+            gate, up = self.gate_up_proj(x, act_int8).chunk(2, dim=-1)
         else:
-            gate, up = self.gate_proj(x), self.up_proj(x)
-        return self.down_proj(F.silu(gate) * up)
+            gate, up = self.gate_proj(x, act_int8), self.up_proj(x, act_int8)
+        return self.down_proj(F.silu(gate) * up, act_int8)
 
 
 class DecoderLayer(nn.Module):
@@ -294,14 +361,14 @@ class DecoderLayer(nn.Module):
         self.post_attention_layernorm = _frozen(post_attention_layernorm)
 
     def forward(self, x, positions, rope, kv_cache, write_pos, kv_valid,
-                kv_positions, kv_lengths):
+                kv_positions, kv_lengths, act_int8: bool = False):
         eps = self.cfg.rms_norm_eps
         attn_out, kv_cache = self.self_attn(
             rms_norm(x, self.input_layernorm, eps), positions, rope,
-            kv_cache, write_pos, kv_valid, kv_positions, kv_lengths,
+            kv_cache, write_pos, kv_valid, kv_positions, kv_lengths, act_int8,
         )
         x = x + attn_out
-        x = x + self.mlp(rms_norm(x, self.post_attention_layernorm, eps))
+        x = x + self.mlp(rms_norm(x, self.post_attention_layernorm, eps), act_int8)
         return x, kv_cache
 
 
@@ -334,6 +401,7 @@ class QwenModel(nn.Module):
         kv_valid: Optional[torch.Tensor] = None,
         kv_positions: Optional[torch.Tensor] = None,
         kv_lengths: Optional[torch.Tensor] = None,
+        act_int8: bool = False,
     ) -> Tuple[torch.Tensor, Optional[List[LayerCache]]]:
         """Run the decoder stack; returns (hidden (B, T, hidden), caches).
 
@@ -341,7 +409,8 @@ class QwenModel(nn.Module):
         kv_positions default to all-valid / the query positions.  With caches
         and no write_pos this is prefill: the block is written at offset 0.
         With write_pos (B, 1) this is one decode step: kv_lengths (B,) is the
-        cache length after the write.  Caches are updated in place."""
+        cache length after the write.  Caches are updated in place.
+        ``act_int8`` quantizes every projection's input rows (prefill)."""
         b, t, _ = inputs_embeds.shape
         positions = positions.to(torch.int32)
         decode = kv_caches is not None and write_pos is not None
@@ -362,16 +431,18 @@ class QwenModel(nn.Module):
         for i, layer in enumerate(self.layers):
             cache = kv_caches[i] if kv_caches is not None else None
             x, _ = layer(x, positions, rope, cache, write_pos, kv_valid,
-                         kv_positions, kv_lengths)
+                         kv_positions, kv_lengths, act_int8)
         return rms_norm(x, self.norm, self.cfg.rms_norm_eps), kv_caches
 
     def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """hidden (B, T, hidden) -> logits (B, T, vocab), f32."""
+        """hidden (B, T, hidden) -> logits (B, T, vocab), f32.  A quantized
+        head returns hidden's type cast to f32, a float head the f32 product,
+        as the reference does."""
         if self.lm_head_q is not None:
             return self.lm_head_q(hidden).float()
         if self.cfg.tie_word_embeddings or self.lm_head is None:
-            return torch.matmul(hidden, self.embed_tokens.t()).float()
-        return torch.matmul(hidden, self.lm_head).float()
+            return matmul_f32(hidden, self.embed_tokens.t())
+        return matmul_f32(hidden, self.lm_head)
 
 
 def fuse_projections(model: QwenModel) -> QwenModel:

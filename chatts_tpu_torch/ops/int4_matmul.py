@@ -1,18 +1,20 @@
-"""Weight-only int4 matmul: the CUDA kernel ``csrc/int4_matmul.cu``, its plain
-PyTorch version, and the pack/unpack helpers.
+"""int4 matmuls: the CUDA kernels ``csrc/int4_matmul.cu`` (weight-only) and
+``csrc/int4_matmul_a8.cu`` (int8 activations), their plain PyTorch versions,
+and the pack/unpack helpers.
 
-Replaces ``chatts_tpu/ops/int4_matmul.py::int4_matmul``.  The packed layout is
-the JAX package's, unchanged:
+Replaces ``chatts_tpu/ops/int4_matmul.py::int4_matmul`` and
+``::int4_matmul_a8``.  The packed layout is the JAX package's, unchanged:
 
   logical W (IN, OUT)  ->  packed (IN//2, OUT) int8, where
       packed[i, j] = (W[2i, j] & 0xF) | (W[2i+1, j] << 4)
   scales (IN//G, OUT) float32, group g covering logical rows [g*G, (g+1)*G),
   G = 128.
 
-``int4_matmul`` runs the plain version for CPU tensors and launches the kernel
-for CUDA tensors (bf16 x, G = 128, IN and OUT multiples of 128); a CUDA call
-the kernel does not take raises.  ``int4_matmul.launches`` counts the calls
-that launched the kernel.
+``int4_matmul`` and ``int4_matmul_a8`` run the plain version for CPU tensors
+and launch their kernel for CUDA tensors (G = 128, IN and OUT multiples of
+128; bf16 x, or int8 x_q with a bf16 result); a CUDA call the kernel does not
+take raises.  Each wrapper's ``launches`` counts the calls that launched its
+kernel.
 """
 from __future__ import annotations
 
@@ -34,6 +36,12 @@ _SIGNATURES = {
         ctypes.c_longlong, [ctypes.c_int] * 3,
     ),
 }
+_SIGNATURES_A8 = {
+    "chatts_int4_matmul_a8": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    ),
+}
 
 
 def pack_int4(
@@ -46,7 +54,10 @@ def pack_int4(
     if in_dim % g != 0:
         raise ValueError(f"IN {in_dim} not a multiple of group_size {g}")
     w3 = w.float().reshape(in_dim // g, g, out_dim)
-    scales = torch.clamp(w3.abs().amax(dim=1) / 7.0, min=1e-8)
+    amax = w3.abs().amax(dim=1)
+    # A tensor divisor, so the card divides too (a Python scalar divisor is
+    # a reciprocal multiply there).
+    scales = torch.clamp(amax / torch.full_like(amax, 7.0), min=1e-8)
     q = torch.clamp(torch.round(w3 / scales[:, None, :]), -7, 7)
     return pack_from_int4_values(q.to(torch.int8).reshape(in_dim, out_dim), scales)
 
@@ -90,32 +101,33 @@ def int4_matmul_reference(
     return torch.matmul(x, dequantize(packed, scales, x.dtype))
 
 
-def _check(x, packed, scales) -> None:
+def _check(x, packed, scales, what: str = "int4_matmul",
+           x_dtype=torch.bfloat16) -> None:
     if x.dim() != 2 or packed.dim() != 2 or scales.dim() != 2:
-        raise ValueError("int4_matmul: x, packed and scales must be 2-D")
+        raise ValueError(f"{what}: x, packed and scales must be 2-D")
     r, in_dim = x.shape
     out_dim = packed.shape[1]
     if any(t.device != x.device for t in (packed, scales)):
-        raise ValueError("int4_matmul: all inputs must be on one device")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"int4_matmul: the kernel takes bf16 x, got {x.dtype}")
+        raise ValueError(f"{what}: all inputs must be on one device")
+    if x.dtype != x_dtype:
+        raise ValueError(f"{what}: the kernel takes {x_dtype} x, got {x.dtype}")
     if packed.dtype != torch.int8 or scales.dtype != torch.float32:
-        raise ValueError("int4_matmul: packed must be int8 and scales float32")
+        raise ValueError(f"{what}: packed must be int8 and scales float32")
     if in_dim % DEFAULT_GROUP or out_dim % 128:
-        raise ValueError(f"int4_matmul: IN {in_dim} and OUT {out_dim} must be "
+        raise ValueError(f"{what}: IN {in_dim} and OUT {out_dim} must be "
                          "multiples of 128")
     if packed.shape != (in_dim // 2, out_dim) or scales.shape != (
             in_dim // DEFAULT_GROUP, out_dim):
-        raise ValueError(f"int4_matmul: the kernel takes group {DEFAULT_GROUP}; got x "
+        raise ValueError(f"{what}: the kernel takes group {DEFAULT_GROUP}; got x "
                          f"{tuple(x.shape)} packed {tuple(packed.shape)} scales "
                          f"{tuple(scales.shape)}")
     for t in (x, packed, scales):
         if not t.is_contiguous():
-            raise ValueError("int4_matmul: inputs must be contiguous")
+            raise ValueError(f"{what}: inputs must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError("int4_matmul: inputs must be 16-byte aligned")
+            raise ValueError(f"{what}: inputs must be 16-byte aligned")
     if r < 1:
-        raise ValueError("int4_matmul: x has no rows")
+        raise ValueError(f"{what}: x has no rows")
 
 
 def int4_matmul(
@@ -145,3 +157,59 @@ def int4_matmul(
 
 
 int4_matmul.launches = 0
+
+
+def int4_matmul_a8_reference(
+    x_q: torch.Tensor, x_scale: torch.Tensor, packed: torch.Tensor,
+    scales: torch.Tensor, out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Plain version, in the JAX kernel's order: per 128-row group the f32
+    product of the integer values (exact: a group's sum is at most
+    128 * 127 * 8 < 2**24), times the group's scales, added to an f32
+    accumulator; then the row scales, and one rounding to ``out_dtype``.
+    One group at a time, so no (R, groups, OUT) intermediate is made."""
+    in_dim = x_q.shape[1]
+    g = in_dim // scales.shape[0]
+    xf = x_q.float()
+    acc = torch.zeros((x_q.shape[0], packed.shape[1]), dtype=torch.float32,
+                      device=x_q.device)
+    for i in range(scales.shape[0]):
+        w = unpack_values(packed[i * g // 2:(i + 1) * g // 2]).float()
+        acc += torch.matmul(xf[:, i * g:(i + 1) * g], w) * scales[i]
+    return (acc * x_scale.float()[:, None]).to(out_dtype)
+
+
+def int4_matmul_a8(
+    x_q: torch.Tensor,  # (R, IN) int8, quantized per row
+    x_scale: torch.Tensor,  # (R,) float32
+    packed: torch.Tensor,  # (IN//2, OUT) int8
+    scales: torch.Tensor,  # (IN//G, OUT) float32
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """y = diag(x_scale) @ (x_q @ dequantize(packed, scales)) -> (R, OUT) in
+    ``out_dtype``; the kernel gives bf16."""
+    if x_q.device.type == "cpu":
+        return int4_matmul_a8_reference(x_q, x_scale, packed, scales, out_dtype)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"int4_matmul_a8: no kernel for device {x_q.device}")
+    _check(x_q, packed, scales, "int4_matmul_a8", torch.int8)
+    r, in_dim = x_q.shape
+    if (x_scale.shape != (r,) or x_scale.dtype != torch.float32
+            or x_scale.device != x_q.device or not x_scale.is_contiguous()):
+        raise ValueError(f"int4_matmul_a8: x_scale must be contiguous float32 ({r},) "
+                         f"on {x_q.device}, got {x_scale.dtype} {tuple(x_scale.shape)}")
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"int4_matmul_a8: the kernel gives bf16, not {out_dtype}")
+    out_dim = packed.shape[1]
+    lib = build.load("int4_matmul_a8", _SIGNATURES_A8)
+    y = torch.empty((r, out_dim), dtype=torch.bfloat16, device=x_q.device)
+    err = lib.chatts_int4_matmul_a8(
+        x_q.data_ptr(), x_scale.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+        y.data_ptr(), r, in_dim, out_dim, build.stream_handle(x_q.device),
+    )
+    int4_matmul_a8.launches += 1
+    build.check_launch(err, "int4_matmul_a8")
+    return y
+
+
+int4_matmul_a8.launches = 0

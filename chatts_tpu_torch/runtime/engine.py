@@ -7,7 +7,9 @@ per-step-scatter decode, ``decode_recent_kv=False``).  ``generate`` takes a
 1. allocates a head-major KV cache of ``prompt + max_new_tokens`` rounded up
    to 256 positions;
 2. prefills the whole prompt block (TS encoder, patch merge, decoder) and
-   samples the first token from ``hidden[seq_lens - 1]``;
+   samples the first token from ``hidden[seq_lens - 1]``; with
+   ``prefill_act_int8`` the prefill's projections quantize their input rows
+   to int8 (``Dense(act_int8=True)``), and decode stays in x's type;
 3. decodes ``decode_chunk`` steps at a time.  Finished rows emit ``pad_id``
    and keep their length; EOS and the done mask are computed on the device,
    and the host syncs once per chunk.  The steps run as a Python loop (a CUDA
@@ -71,6 +73,7 @@ class InferenceEngine:
         decode_chunk: int = 64,
         pad_id: int = 0,
         fuse: bool = True,
+        prefill_act_int8: bool = False,
     ):
         self.device = torch.device(device)
         if isinstance(params_or_model, ChatTSModel):
@@ -84,6 +87,7 @@ class InferenceEngine:
         self.cache_dtype = cache_dtype
         self.decode_chunk = decode_chunk
         self.pad_id = pad_id
+        self.prefill_act_int8 = prefill_act_int8
 
     def _tensor(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
@@ -135,6 +139,7 @@ class InferenceEngine:
             kv_caches=caches,
             kv_valid=kv_positions < seq_lens[:, None],
             kv_positions=kv_positions,
+            act_int8=self.prefill_act_int8,
         )
         last_idx = (seq_lens.long() - 1)[:, None, None].expand(b, 1, hidden.shape[-1])
         logits = self.model.compute_logits(hidden.gather(1, last_idx))[:, 0]

@@ -33,8 +33,7 @@ What differs from the reference, and why:
   scan) is not ported yet.  ``prefill_chunk`` raises at construction, and a
   live-slot admission that is not block-eligible fails its requests with a
   ``NotImplementedError`` message; neither quietly takes another path.
-- ``prefill_act_int8`` needs kernel B5, which is not ported yet, and raises.
-  ``mixed_admission`` (which no caller turns off: admissions while slots
+- ``mixed_admission`` (which no caller turns off: admissions while slots
   decode always take the block round), ``mixed_npt`` (scan-sliced only) and
   ``admission_pad_to_class`` (it pads each wave to its length class to bound
   XLA compiles, and would only add pad tokens here) are not options here.
@@ -185,19 +184,22 @@ def _block_prefill_merge(
     adm_temp, adm_topp,  # (A,) f32
     adm_budget,  # (A,) int32: max_tokens of each block row
     generator: torch.Generator,
+    act_int8: bool = False,
 ):
     """The admission's prompt block: one self-contained prefill over the
     (A, T) block, each landing row's prompt K/V (codes and scales in int8
     mode) copied into positions [0, T) of its slot, the first token of
     every block row sampled from its hidden state at seq_len - 1, and the
     landing rows merged into the decode state.  Returns the first tokens
-    (A,) int32.  The port of ``_prefill_batch`` and ``_block_prefill_merge``."""
+    (A,) int32.  ``act_int8`` quantizes the prefill's projection inputs
+    (``ServeEngine(prefill_act_int8=True)``); decode never does.  The port of
+    ``_prefill_batch`` and ``_block_prefill_merge``."""
     a, t, _ = embeds.shape
     positions = torch.arange(t, dtype=torch.int32, device=embeds.device)[None].repeat(a, 1)
     kv_valid = positions < seq_lens[:, None]
     block = _block_caches(caches, a, t)
     hidden, _ = model.llm(embeds, positions, kv_caches=block, kv_valid=kv_valid,
-                          kv_positions=positions)
+                          kv_positions=positions, act_int8=act_int8)
     # Positions past the cache capacity are padding (prompt + max_tokens fit
     # the capacity), so a block wider than the cache copies what fits.
     n = min(t, caches[0][0].shape[2])
@@ -260,7 +262,8 @@ def _decode_all_slots(model, chunk_size, caches, tokens, cur_lens, active, tempe
 
 def _block_admission_round(model, chunk_size, caches, tokens, cur_lens, active,
                            temperature, top_p, eos_ids, budget, src, dst, embeds,
-                           seq_lens, adm_temp, adm_topp, adm_budget, generator):
+                           seq_lens, adm_temp, adm_topp, adm_budget, generator,
+                           act_int8=False):
     """One fused round: the admission's prompt block, then the decode chunk
     with the admitted rows live from its first step.  Device liveness of the
     new rows uses the global EOS set, a subset of each request's host-side
@@ -270,7 +273,7 @@ def _block_admission_round(model, chunk_size, caches, tokens, cur_lens, active,
     b = tokens.shape[0]
     first = _block_prefill_merge(model, caches, tokens, cur_lens, temperature, top_p,
                                  budget, src, dst, embeds, seq_lens, adm_temp, adm_topp,
-                                 adm_budget, generator)
+                                 adm_budget, generator, act_int8)
     first_eos = (first[:, None] == eos_ids[None, :]).any(dim=1)
     active = active.clone()
     active[dst] = (~first_eos & (adm_budget > 1))[src]
@@ -314,10 +317,6 @@ class ServeEngine:
             raise NotImplementedError(
                 "prefill_chunk (chunked, scan-sliced admission) is not ported yet; "
                 "see ROADMAP.md")
-        if prefill_act_int8:
-            raise NotImplementedError(
-                "prefill_act_int8 needs kernel B5 (int4_matmul_a8), which is not "
-                "ported yet; see ROADMAP.md")
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # The loop thread sets this device, which needs an index.
@@ -339,6 +338,9 @@ class ServeEngine:
         self.max_batch_size = max_batch_size
         self.max_model_len = max_model_len
         self.decode_chunk = decode_chunk
+        # int8 activations for every admission's prompt block (B5 for int4
+        # weights); decode stays in the model's type.
+        self.prefill_act_int8 = prefill_act_int8
         # Max rows per block admission wave; overflow waits for the next.
         self._a_bucket_cfg = admission_bucket
         # Length-classed admission: each wave takes only requests from the
@@ -416,9 +418,10 @@ class ServeEngine:
     ) -> None:
         """Run the admission shapes of real traffic once, so the first real
         requests find the kernels built and the allocator warm: per bucket,
-        monolithic bursts of max_batch_size, 4, 2 and 1 rows, then (with
-        every block-admission row count next to a decoding runner.  Failures
-        are printed, not raised, as in the reference."""
+        monolithic bursts of max_batch_size, 4, 2 and 1 rows, then every
+        block-admission row count next to a decoding runner.  Every admission
+        prefills as real ones do, with ``prefill_act_int8`` when it is set.
+        Failures are printed, not raised, as in the reference."""
         self.start()
         for bucket in sorted(prefill_buckets):
             # ~1 token per short word; leave headroom for the template and
@@ -730,7 +733,7 @@ class ServeEngine:
             self._tensor(keep_rows, torch.int64), self._tensor(slots, torch.int64),
             embeds, self._tensor(seq_lens, torch.int32), self._tensor(temp, torch.float32),
             self._tensor(topp, torch.float32), self._tensor(budget, torch.int32),
-            self.generator)
+            self.generator, self.prefill_act_int8)
         self._finalize_admission(reqs, slots, keep_rows, first.cpu().numpy())
         # Monolithic admissions run outside the round loop and block on the
         # first-token fetch; they are logged as their own round kind.
@@ -814,7 +817,7 @@ class ServeEngine:
         st = self._pending_block
         self._pending_block = None
         adm = (st["src"], st["dst"], st["embeds"], st["seq_lens"], st["temp"],
-               st["topp"], st["budget"], self.generator)
+               st["topp"], st["budget"], self.generator, self.prefill_act_int8)
         rows = st["embeds"].shape[0]
         if self.block_early_emit:
             first = _block_prefill_merge(

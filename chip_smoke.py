@@ -5,14 +5,17 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
+It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
 
   0. environment: card, power limit, torch, CUDA, nvcc;
   1. build: nvcc time and each kernel's registers and spills;
   2. each kernel against its plain PyTorch version at the main paths' shapes,
-     with both times (CUDA events);
+     with both times (CUDA events); the int8-activation matmul (B5) also
+     beside the bf16 int4 matmul at the same rows;
   3. the ChatTS-14B widths at 2 layers, int4 weights: logits of the kernel
      path on the card against the plain path on the CPU in f32;
+  3c. the same with int8-activation prefill (``act_int8``), against the
+     plain a8 path on the CPU in f32, and beside the card's bf16 prefill;
   3b. the same widths with an int8 KV cache through ``ServeEngine``: one
      monolithic admission and 16 decode steps on the card, their logits held
      against the same schedule on the CPU (plain versions, f32, the same int8
@@ -26,7 +29,11 @@ It builds the four CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      32, early emit) behind ``ChatTSServer`` on 127.0.0.1.  Two waves of 8
      bench-like chat requests with two series each (the second wave joins
      while the first decodes, one request streams), twice, token-identical,
-     every kernel of the path launched.
+     every kernel of the path launched;
+  6. phases 4 and 5 again with ``prefill_act_int8=True`` on the same weights:
+     ``InferenceEngine`` greedy twice and the same two serving runs, each
+     pair token-identical, B5 launched once per int4 projection per prefill
+     and never in decode or for the head.
 
 It prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero; there
@@ -61,7 +68,10 @@ INT8_ROW_RTOL = 2e-2
 # two decoder layers of bf16 activations (8-bit mantissa) through rms_norm,
 # attention and the MLP.  The kernels keep the int4 weights exact in f32, and
 # the difference measured on an H100 was 0.34% of the largest logit; allow
-# 1.5% of the largest plain logit.
+# 1.5% of the largest plain logit.  Phase 3c holds the int8-activation
+# prefill to the same rule: its codes come from bf16 activations on the card
+# and f32 ones on the CPU, so a code may differ by one step (1/127 of its
+# row's largest value), the same order as a bf16 rounding.
 LOGIT_RTOL_OF_MAX = 1.5e-2
 # Phase 3b adds the int8 KV cache on both sides.  The codes are rounded from
 # bf16 activations on the card and f32 ones on the CPU, so a code may differ
@@ -69,6 +79,14 @@ LOGIT_RTOL_OF_MAX = 1.5e-2
 # rounding), and decode reads the quantized cache.  The same 1.5% of the
 # largest plain logit holds.
 SERVE_LOGIT_RTOL_OF_MAX = 1.5e-2
+# B5 against its plain version, both on the card: every group's int32 sum is
+# exact (at most 128 * 127 * 8 < 2**24), and both add f32(sum) * s_g in group
+# order and round once to bf16, so they differ by at most one bf16 ulp of the
+# plain result (2**-7 of its magnitude at most).
+A8_ULP_RTOL = 2.0 ** -7
+# Projections of one decoder layer at the 14B int4 shape (fused qkv and
+# gate_up): each prefill launches B5 this many times a layer.
+INT4_PROJECTIONS_PER_LAYER = 4
 
 SEED = 0
 
@@ -159,6 +177,35 @@ def rotating(make, nbytes: int, min_total: int = 256 << 20):
     the 50 MB L2 cache, so a timed call finds its data cold, as it would in
     the model (every layer has its own weights and cache)."""
     return [make(i) for i in range(max(1, math.ceil(min_total / max(nbytes, 1))))]
+
+
+def kernel_wrappers():
+    """Every kernel's wrapper by name; each counts its launches."""
+    from chatts_tpu_torch.ops import flash_attention as fa
+    from chatts_tpu_torch.ops import int4_matmul as i4
+    from chatts_tpu_torch.ops import ragged_decode_attention as rda
+
+    return {"flash_attention": fa.flash_attention,
+            "ragged_decode_attention": rda.ragged_decode_attention,
+            "ragged_decode_attention_int8": rda.ragged_decode_attention_int8,
+            "int4_matmul": i4.int4_matmul,
+            "int4_matmul_a8": i4.int4_matmul_a8}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches(path: str, required) -> dict:
+    """Every kernel's launches since ``reset_launches``; raises unless each
+    kernel in ``required`` launched."""
+    launches = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    log(f"  kernel launches on the {path} path: {launches}")
+    for name in required:
+        if launches[name] < 1:
+            raise AssertionError(f"the {path} path never launched {name}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +412,66 @@ def phase_kernels():
             torch.cuda.empty_cache()
         results["int4_matmul"] = dict(
             max_abs_err=max(errs), ms=decode_ms, plain_ms=decode_plain)
+
+        # B5, the int8-activation matmul, at the projection shapes an a8
+        # prefill runs (the head stays bf16 x int4): a one-row admission of
+        # a short prompt, a serving wave (8 x 512) and the batch (4 x 1280).
+        # The bf16 int4 matmul at the same rows stands beside it.
+        errs, layer_ms, layer_plain = [], 0.0, 0.0
+        for name in ("qkv", "o", "gate_up", "down"):
+            in_dim, out_dim = shapes[name]
+
+            def make_weights(_):
+                packed = torch.randint(-128, 128, (in_dim // 2, out_dim), generator=gen,
+                                       device=dev, dtype=torch.int8)
+                packed[0, :7] = -120  # 0x88: both nibbles -8
+                scales = (torch.rand((in_dim // 128, out_dim), generator=gen, device=dev)
+                          + 0.5) / (7 * math.sqrt(in_dim))
+                return packed, scales
+
+            weights = rotating(make_weights, in_dim * out_dim // 2)
+            for r in (37, 4096, 5120):
+                x_q = torch.randint(-127, 128, (r, in_dim), generator=gen, device=dev,
+                                    dtype=torch.int8)
+                x_scale = (torch.rand((r,), generator=gen, device=dev) + 0.5) / 127
+                got = i4.int4_matmul_a8(x_q, x_scale, *weights[0])
+                ref = i4.int4_matmul_a8_reference(x_q, x_scale, *weights[0])
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs()
+                if not torch.isfinite(got.float()).all() or bool(
+                        (err > A8_ULP_RTOL * ref.float().abs()).any()):
+                    raise AssertionError(f"int4_matmul_a8 {name} R={r}: max abs err "
+                                         f"{float(err.max()):.4g} beyond one bf16 ulp")
+                errs.append(float(err.max()))
+                exact = float((got == ref).float().mean())
+                x = torch.randn((r, in_dim), generator=gen, device=dev).to(torch.bfloat16)
+                turn = [0]
+
+                def run_a8(fn, x_q=x_q, x_scale=x_scale):
+                    turn[0] = (turn[0] + 1) % len(weights)
+                    fn(x_q, x_scale, *weights[turn[0]])
+
+                def run_bf16(x=x):
+                    turn[0] = (turn[0] + 1) % len(weights)
+                    i4.int4_matmul(x, *weights[turn[0]])
+
+                ms = time_ms(lambda: run_a8(i4.int4_matmul_a8))
+                plain = time_ms(lambda: run_a8(i4.int4_matmul_a8_reference), target_s=0.1)
+                bf16_ms = time_ms(run_bf16)
+                if r == 4096:
+                    layer_ms += ms
+                    layer_plain += plain
+                tops = 2 * r * in_dim * out_dim / (ms * 1e9)
+                log(f"  int4_matmul_a8 {name} {in_dim}->{out_dim} R={r}: max_abs_err "
+                    f"{errs[-1]:.3g} ({exact:.4%} bit-equal), kernel {ms:.3f} ms "
+                    f"({tops:.0f} TOP/s), plain {plain:.3f} ms; int4_matmul (bf16 x) "
+                    f"{bf16_ms:.3f} ms")
+            del weights
+            torch.cuda.empty_cache()
+        # ms / plain_ms: one layer's four projections in a serving wave's
+        # prefill (R = 4096).
+        results["int4_matmul_a8"] = dict(
+            max_abs_err=max(errs), ms=layer_ms, plain_ms=layer_plain)
     return results
 
 
@@ -425,7 +532,7 @@ def make_batch(cfg, specs, seed: int):
     return ChatTSProcessor(WordTokenizer(), cfg)(texts, series)
 
 
-def tail_logits(model, batch, device, n: int):
+def tail_logits(model, batch, device, n: int, act_int8: bool = False):
     """Logits (B, n, vocab) at each row's last n prompt positions (the last
     one at index n - 1), from one monolithic forward of the batch."""
     import torch
@@ -444,6 +551,7 @@ def tail_logits(model, batch, device, n: int):
             scatter_tok=tensor(batch.scatter_tok, torch.int64),
             kv_valid=positions < seq_lens[:, None],
             kv_positions=positions,
+            act_int8=act_int8,
         )
         pos = seq_lens[:, None] - n + torch.arange(n, device=device)[None, :]
         idx = pos[:, :, None].expand(-1, -1, hidden.shape[-1])
@@ -492,6 +600,47 @@ def phase_model():
             raise AssertionError("argmax differs where the top-2 margin exceeds the tolerance")
         torch.cuda.empty_cache()
         return dict(max_abs_logit_err=err, tolerance=tol)
+
+
+def phase_model_a8():
+    import torch
+
+    from chatts_tpu_torch.models.quantize import init_quantized_params
+    from chatts_tpu_torch.ops import int4_matmul as i4
+
+    dev = torch.device("cuda", 0)
+    with Phase("3c", "ChatTS-14B widths, 2 layers, int4, act_int8 prefill: B5 path (card, "
+                     "bf16) against the plain a8 path (CPU, f32)"):
+        cfg = chatts_14b_config(num_layers=2)
+        model = init_quantized_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        batch = make_batch(cfg, [(250, [256]), (200, [800]), (150, [1024, 256]), (270, [300])],
+                           seed=SEED)
+        n = 32
+        i4.int4_matmul_a8.launches = 0
+        got = tail_logits(model, batch, dev, n, act_int8=True).cpu()
+        if i4.int4_matmul_a8.launches != INT4_PROJECTIONS_PER_LAYER * cfg.llm.num_hidden_layers:
+            raise AssertionError(f"the a8 prefill launched B5 {i4.int4_matmul_a8.launches} "
+                                 "times, not once per int4 projection")
+        bf16 = tail_logits(model, batch, dev, n).cpu()
+        model.to("cpu").float()
+        ref = tail_logits(model, batch, torch.device("cpu"), n, act_int8=True)
+        del model
+        if not torch.isfinite(got).all():
+            raise AssertionError("non-finite logits on the card")
+        err = float((got - ref).abs().max())
+        tol = LOGIT_RTOL_OF_MAX * float(ref.abs().max())
+        vs_bf16 = float((got - bf16).abs().max()) / float(bf16.abs().max())
+        agree = float((got.argmax(-1) == bf16.argmax(-1)).float().mean())
+        log(f"  prompt tokens {batch.seq_lens.tolist()}, padded to {batch.input_ids.shape[1]}; "
+            f"max |logit diff| against the plain a8 path {err:.4g} (tolerance {tol:.4g} = "
+            f"{LOGIT_RTOL_OF_MAX} x max |plain logit| {float(ref.abs().max()):.4g})")
+        log(f"  a8 against the card's bf16 prefill: max |logit diff| {vs_bf16:.4g} of the "
+            f"largest logit; argmax agrees at {agree:.1%} of the last {n} positions "
+            f"(near-ties: not gated)")
+        if err > tol:
+            raise AssertionError(f"a8 logits differ by {err:.4g} > {tol:.4g}")
+        torch.cuda.empty_cache()
+        return dict(max_abs_logit_err=err, tolerance=tol, of_max_vs_bf16=vs_bf16)
 
 
 class LogitRecorder:
@@ -605,20 +754,20 @@ def phase_serving_model():
         torch.cuda.empty_cache()
 
 
+def slice_batch(cfg):
+    """Phase 4's batch: 4 prompts of 512 to 1,300 tokens with 1 or 2 series."""
+    return make_batch(cfg, [(500, [256]), (1050, [2000, 1000]), (700, [1500]),
+                            (900, [256, 700])], seed=SEED + 1)
+
+
 def phase_slice(smi: str):
     import torch
 
     from chatts_tpu_torch.models.quantize import init_quantized_params
-    from chatts_tpu_torch.ops import flash_attention as fa
-    from chatts_tpu_torch.ops import int4_matmul as i4
-    from chatts_tpu_torch.ops import ragged_decode_attention as rda
     from chatts_tpu_torch.runtime.engine import InferenceEngine
     from chatts_tpu_torch.shared import GenerationConfig
 
     dev = torch.device("cuda", 0)
-    wrappers = {"flash_attention": fa.flash_attention,
-                "ragged_decode_attention": rda.ragged_decode_attention,
-                "int4_matmul": i4.int4_matmul}
     with Phase(4, "slice at full size: ChatTS-14B shape, 48 layers, int4, generate"):
         cfg = chatts_14b_config(num_layers=48)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -630,8 +779,7 @@ def phase_slice(smi: str):
         log(f"  random int4 weights on the card: {weight_gb:.2f} GB in "
             f"{time.perf_counter() - start:.1f} s")
         engine = InferenceEngine(model, cfg, device=dev, cache_dtype=torch.bfloat16)
-        batch = make_batch(cfg, [(500, [256]), (1050, [2000, 1000]), (700, [1500]),
-                                 (900, [256, 700])], seed=SEED + 1)
+        batch = slice_batch(cfg)
         lens = batch.seq_lens.tolist()
         log(f"  prompt tokens {lens}, padded to {batch.input_ids.shape[1]}")
         if min(lens) < 512 or max(lens) > 1300:
@@ -640,20 +788,17 @@ def phase_slice(smi: str):
         greedy = GenerationConfig(max_new_tokens=n_new, greedy=True)
         sampled = GenerationConfig(max_new_tokens=n_new, temperature=0.2)
 
-        for fn in wrappers.values():
-            fn.launches = 0
+        reset_launches()
         g1 = engine.generate(batch, greedy)
         g2 = engine.generate(batch, greedy)
         s1 = engine.generate(batch, sampled,
                              generator=torch.Generator(device=dev).manual_seed(SEED + 2))
         s2 = engine.generate(batch, sampled,
                              generator=torch.Generator(device=dev).manual_seed(SEED + 2))
-        launches = {name: fn.launches for name, fn in wrappers.items()}
-
-        log(f"  kernel launches during the 4 generate calls: {launches}")
-        for name, count in launches.items():
-            if count < 1:
-                raise AssertionError(f"the main path never launched {name}")
+        launches = read_launches("batch", ("flash_attention", "ragged_decode_attention",
+                                           "int4_matmul"))
+        if launches["int4_matmul_a8"]:
+            raise AssertionError("the bf16 prefill launched the int8-activation matmul")
         for r in (g1, g2, s1, s2):
             if [len(t) for t in r.token_ids] != [n_new] * len(lens):
                 raise AssertionError(f"expected {n_new} tokens a row, got "
@@ -680,7 +825,55 @@ def phase_slice(smi: str):
         log("  slice stats: " + json.dumps(stats))
         del engine
         torch.cuda.empty_cache()
-    return launches, model, cfg
+    return launches, model, cfg, g2
+
+
+def phase_slice_a8(smi: str, model, cfg, bf16_run):
+    """Phase 4's batch again, with int8-activation prefill."""
+    import torch
+
+    from chatts_tpu_torch.runtime.engine import InferenceEngine
+    from chatts_tpu_torch.shared import GenerationConfig
+
+    dev = torch.device("cuda", 0)
+    with Phase("6a", "act_int8 slice at full size: ChatTS-14B shape, 48 layers, int4, "
+                     "InferenceEngine(prefill_act_int8=True)"):
+        engine = InferenceEngine(model, cfg, device=dev, cache_dtype=torch.bfloat16,
+                                 prefill_act_int8=True)
+        batch = slice_batch(cfg)
+        lens = batch.seq_lens.tolist()
+        n_new = 64
+        greedy = GenerationConfig(max_new_tokens=n_new, greedy=True)
+        reset_launches()
+        g1 = engine.generate(batch, greedy)
+        g2 = engine.generate(batch, greedy)
+        launches = read_launches("batch_a8", ("flash_attention", "ragged_decode_attention",
+                                              "int4_matmul", "int4_matmul_a8"))
+        want = 2 * INT4_PROJECTIONS_PER_LAYER * cfg.llm.num_hidden_layers
+        if launches["int4_matmul_a8"] != want:
+            raise AssertionError(f"B5 launched {launches['int4_matmul_a8']} times, not {want}: "
+                                 "once per int4 projection per prefill, none in decode or "
+                                 "for the head")
+        for r in (g1, g2):
+            if [len(t) for t in r.token_ids] != [n_new] * len(lens):
+                raise AssertionError(f"expected {n_new} tokens a row, got "
+                                     f"{[len(t) for t in r.token_ids]}")
+            if any(not 0 <= tok < cfg.llm.vocab_size for row in r.token_ids for tok in row):
+                raise AssertionError("token id outside the vocabulary")
+        if g1.token_ids != g2.token_ids:
+            raise AssertionError("greedy generation with act_int8 is not deterministic")
+        first_agree = sum(a[0] == b[0] for a, b in zip(g2.token_ids, bf16_run.token_ids))
+        stats = dict(batch=len(lens), prompt_tokens=lens, new_tokens=n_new,
+                     ttft_s=[g1.ttft_s, g2.ttft_s], tpot_s=[g1.tpot_s, g2.tpot_s],
+                     bf16_prefill_ttft_s=bf16_run.ttft_s, card=smi)
+        log(f"  TTFT {g2.ttft_s * 1e3:.1f} ms with act_int8 against {bf16_run.ttft_s * 1e3:.1f} ms "
+            f"with the bf16 prefill (phase 4, greedy, second run); TPOT {g2.tpot_s * 1e3:.2f} ms; "
+            f"first tokens equal to phase 4's in {first_agree}/{len(lens)} rows (near-ties: "
+            f"not gated); card {smi}")
+        log("  a8 slice stats: " + json.dumps(stats))
+        del engine
+        torch.cuda.empty_cache()
+    return launches
 
 
 class WaveGate:
@@ -735,34 +928,35 @@ def _post_chat(port: int, body: dict, timeout: float = 240.0) -> dict:
                 completion_tokens=data["usage"]["completion_tokens"])
 
 
-def phase_serving(smi: str, model, cfg):
+def phase_serving(smi: str, model, cfg, act_int8: bool = False):
+    """Phase 5, or with ``act_int8`` phase 6b: the same schedule with
+    int8-activation prefill."""
     import concurrent.futures
     import urllib.request
 
     import numpy as np
     import torch
 
-    from chatts_tpu_torch.ops import flash_attention as fa
-    from chatts_tpu_torch.ops import int4_matmul as i4
-    from chatts_tpu_torch.ops import ragged_decode_attention as rda
     from chatts_tpu_torch.serve.scheduler import ServeEngine
     from chatts_tpu_torch.serve.server import ChatTSServer
     from chatts_tpu_torch.shared import ChatTSProcessor
 
     dev = torch.device("cuda", 0)
-    wrappers = {"flash_attention": fa.flash_attention,
-                "ragged_decode_attention_int8": rda.ragged_decode_attention_int8,
-                "int4_matmul": i4.int4_matmul}
+    path = "serving_a8" if act_int8 else "serving"
+    required = ("flash_attention", "ragged_decode_attention_int8", "int4_matmul") + (
+        ("int4_matmul_a8",) if act_int8 else ())
     wave, n_new = 8, 64
-    with Phase(5, "serving slice at full size: ChatTS-14B, 48 layers, int4, int8 KV, "
-                  "ServeEngine behind ChatTSServer"):
+    with Phase("6b" if act_int8 else 5,
+               f"{'act_int8 ' if act_int8 else ''}serving slice at full size: ChatTS-14B, "
+               f"48 layers, int4, int8 KV, ServeEngine"
+               f"{'(prefill_act_int8=True)' if act_int8 else ''} behind ChatTSServer"):
         torch.cuda.reset_peak_memory_stats(dev)
         tokenizer = WordTokenizer()
         # bench.py's 14B serving engine (bench.py:843-859).
         engine = ServeEngine(model, cfg, ChatTSProcessor(tokenizer, cfg), device=dev,
                              max_batch_size=24, max_model_len=1024, cache_dtype=torch.int8,
                              decode_chunk=32, fuse=False, block_early_emit=True,
-                             admission_bucket=8)
+                             admission_bucket=8, prefill_act_int8=act_int8)
         gate = WaveGate(engine, wave)
         server = ChatTSServer(engine, tokenizer, host="127.0.0.1", port=0)
         rng = np.random.default_rng(SEED + 5)
@@ -788,8 +982,7 @@ def phase_serving(smi: str, model, cfg):
                 raise RuntimeError("the server did not come up")
             port = server._httpd.server_address[1]
             with concurrent.futures.ThreadPoolExecutor(2 * wave) as pool:
-                for fn in wrappers.values():
-                    fn.launches = 0
+                reset_launches()
                 for run in range(2):
                     start = time.perf_counter()
                     n_before = len(gate.all)
@@ -807,7 +1000,7 @@ def phase_serving(smi: str, model, cfg):
                     wall = time.perf_counter() - start
                     reqs = gate.all[n_before:]
                     runs.append((results, reqs, wall))
-                launches = {name: fn.launches for name, fn in wrappers.items()}
+                launches = read_launches(path, required)
             stats = engine.stats()
             with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
                                         timeout=60) as r:
@@ -816,10 +1009,12 @@ def phase_serving(smi: str, model, cfg):
             server.shutdown()
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
-        log(f"  kernel launches during the two runs: {launches}")
-        for name, count in launches.items():
-            if count < 1:
-                raise AssertionError(f"the serving path never launched {name}")
+        admissions = sum(stats.get(k, 0) for k in ("rounds_mono", "rounds_block_pre",
+                                                   "rounds_block"))
+        want = INT4_PROJECTIONS_PER_LAYER * cfg.llm.num_hidden_layers * admissions * act_int8
+        if launches["int4_matmul_a8"] != want:
+            raise AssertionError(f"B5 launched {launches['int4_matmul_a8']} times over "
+                                 f"{admissions} admissions, not {want}")
         for results, reqs, _ in runs:
             for res in results:
                 if (res["finish"] != "length" or res["completion_tokens"] != n_new
@@ -859,7 +1054,7 @@ def phase_serving(smi: str, model, cfg):
         log(f"  rounds (both runs): {json.dumps(rounds)}")
         log(f"  prompt tokens {sorted({r.prompt_tokens for r in runs[0][1]})}; peak memory "
             f"{peak_gb:.2f} GB; card {smi}")
-        log("  serving stats: " + json.dumps(dict(runs=summary, rounds=rounds,
+        log(f"  {path} stats: " + json.dumps(dict(runs=summary, rounds=rounds,
                                                   peak_memory_gb=peak_gb, card=smi)))
         del engine
         torch.cuda.empty_cache()
@@ -871,6 +1066,7 @@ REPLACES = {
     "ragged_decode_attention": "chatts_tpu/ops/ragged_decode_attention.py:123",
     "ragged_decode_attention_int8": "chatts_tpu/ops/ragged_decode_attention.py:376",
     "int4_matmul": "chatts_tpu/ops/int4_matmul.py:291",
+    "int4_matmul_a8": "chatts_tpu/ops/int4_matmul.py:176",
 }
 
 
@@ -887,13 +1083,17 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     phase_model()
+    phase_model_a8()
     phase_serving_model()
-    batch_launches, model, cfg = phase_slice(smi)
-    serve_launches = phase_serving(smi, model, cfg)
-    # Each path counted from 0: "launches" is a kernel's sum over both paths,
+    paths = {}
+    paths["batch"], model, cfg, bf16_run = phase_slice(smi)
+    paths["serving"] = phase_serving(smi, model, cfg)
+    paths["batch_a8"] = phase_slice_a8(smi, model, cfg, bf16_run)
+    paths["serving_a8"] = phase_serving(smi, model, cfg, act_int8=True)
+    # Each path counted from 0: "launches" is a kernel's sum over the paths,
     # and "launches_by_path" says which path launched what.
-    by_path = {name: {"batch": batch_launches.get(name, 0),
-                      "serving": serve_launches.get(name, 0)} for name in REPLACES}
+    by_path = {name: {path: counts[name] for path, counts in paths.items()}
+               for name in REPLACES}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"chatts_tpu_torch/csrc/{name}.cu",
          "replaces": REPLACES[name], "launches": sum(by_path[name].values()),

@@ -16,12 +16,21 @@ The int8 decode attention is held tighter, per (row, head), to 2e-2 of that
 row's largest output: both sides compute in f32 and round once to bf16 (one
 ulp, at most 2**-7 of the row's largest), and a long row's outputs are too
 small for the shared absolute tolerance to see one wrong 128-key tile.
+
+The int8-activation matmul is held to one bf16 ulp of its plain version
+(2**-7 of each output): every group's int32 sum is exact, and both add
+f32(sum) * s_g in group order and round once.  The int8-weight projection
+on the card is held to one bf16 ulp of the same projection on the CPU: with
+int8 activations its products are exact integers; weight-only, its f32 sums
+run in another order, so where an output cancels to near zero it may differ
+by 1e-4 of the largest output.
 """
 import math
 
 import pytest
 import torch
 
+from chatts_tpu_torch.models.qwen import Dense
 from chatts_tpu_torch.ops import flash_attention as fa
 from chatts_tpu_torch.ops import int4_matmul as i4
 from chatts_tpu_torch.ops import ragged_decode_attention as rda
@@ -153,3 +162,91 @@ def test_torch_int4_kernel_matches_plain(cuda, r, in_dim, out_dim):
     torch.cuda.synchronize()
     assert i4.int4_matmul.launches == before + 1
     _close(got, i4.int4_matmul_reference(x, packed, scales))
+
+
+def _within_one_ulp(got, ref, atol=0.0):
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs()
+    assert (err <= 2.0 ** -7 * ref.abs() + atol).all(), float(err.max())
+
+
+@pytest.mark.parametrize("r", [1, 17, 130, 300])
+@pytest.mark.parametrize("in_dim,out_dim", [(128, 128), (640, 384), (1152, 256)])
+def test_torch_int4_a8_kernel_matches_plain(cuda, r, in_dim, out_dim):
+    gen = torch.Generator(device=cuda).manual_seed(r + in_dim)
+    x_q = torch.randint(-127, 128, (r, in_dim), generator=gen, device=cuda, dtype=torch.int8)
+    x_scale = (torch.rand((r,), generator=gen, device=cuda) + 0.5) / 127
+    packed = torch.randint(-128, 128, (in_dim // 2, out_dim), generator=gen, device=cuda,
+                           dtype=torch.int8)
+    packed[0, :9] = -120  # 0x88: both nibbles -8, as GPTQ imports carry
+    scales = (torch.rand((in_dim // 128, out_dim), generator=gen, device=cuda) + 0.5) \
+        / (7 * math.sqrt(in_dim))
+    before = i4.int4_matmul_a8.launches
+    got = i4.int4_matmul_a8(x_q, x_scale, packed, scales)
+    torch.cuda.synchronize()
+    assert i4.int4_matmul_a8.launches == before + 1
+    assert got.shape == (r, out_dim) and got.dtype == torch.bfloat16
+    ref = i4.int4_matmul_a8_reference(x_q, x_scale, packed, scales)
+    _within_one_ulp(got, ref)
+    # The -8 nibbles count as -8: with row 0 of x_q set to 1 and the rest 0,
+    # row 0 of the product is the first group's weights summed.
+    one = torch.zeros_like(x_q)
+    one[0, :2] = 1
+    got1 = i4.int4_matmul_a8(one, torch.ones_like(x_scale), packed, scales)
+    want1 = (i4.unpack_values(packed[:1]).sum(dim=0).float() * scales[0]).to(torch.bfloat16)
+    assert float(want1[0]) == float(-16 * scales[0, 0].to(torch.bfloat16))
+    _within_one_ulp(got1[0], want1)
+
+
+def test_torch_int4_a8_kernel_refuses_what_it_does_not_take(cuda):
+    x_q = torch.zeros((4, 256), device=cuda, dtype=torch.int8)
+    x_scale = torch.ones((4,), device=cuda)
+    packed = torch.zeros((128, 256), device=cuda, dtype=torch.int8)
+    scales = torch.ones((2, 256), device=cuda)
+    with pytest.raises(ValueError, match="int8"):
+        i4.int4_matmul_a8(x_q.to(torch.bfloat16), x_scale, packed, scales)
+    with pytest.raises(ValueError, match="x_scale"):
+        i4.int4_matmul_a8(x_q, x_scale[:3], packed, scales)
+    with pytest.raises(ValueError, match="bf16"):
+        i4.int4_matmul_a8(x_q, x_scale, packed, scales, out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_torch_quantizers_on_the_card_match_the_cpu(cuda, dtype):
+    """Activation (and KV) codes and scales, int8 and int4 weight
+    quantization: the card's results equal the CPU's (and so the JAX
+    package's) to the bit."""
+    from chatts_tpu_torch.models import quantize
+    from chatts_tpu_torch.models.qwen import quantize_acts
+
+    gen = torch.Generator().manual_seed(7)
+    x = (torch.randn((512, 1024), generator=gen) * 3).to(dtype)
+    for got, want in zip(quantize_acts(x.to(cuda)), quantize_acts(x)):
+        assert torch.equal(got.cpu(), want)
+    w = torch.randn((256, 384), generator=gen) / 10
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(i4.pack_int4(w.to(cuda)), i4.pack_int4(w)))
+    q_gpu = quantize.quantize_dense(Dense(w.to(cuda)))
+    q_cpu = quantize.quantize_dense(Dense(w))
+    assert torch.equal(q_gpu.kernel_q.cpu(), q_cpu.kernel_q)
+    assert torch.equal(q_gpu.scales.cpu(), q_cpu.scales)
+
+
+@pytest.mark.parametrize("rows", [3, 40])
+@pytest.mark.parametrize("act_int8", [False, True], ids=["weight_only", "act_int8"])
+def test_torch_int8_dense_on_the_card(cuda, rows, act_int8):
+    """An int8-weight projection (cuBLAS's f32-output bf16 GEMM, or the int8
+    GEMM behind torch._int_mm with its rows padded past 16) against the same
+    projection on the CPU."""
+    gen = torch.Generator().manual_seed(rows)
+    dense = Dense(kernel_q=torch.randint(-127, 128, (256, 384), generator=gen,
+                                         dtype=torch.int8),
+                  scales=torch.rand((384,), generator=gen) / 100,
+                  bias=torch.randn((384,), generator=gen).to(torch.bfloat16))
+    x = torch.randn((2, rows, 256), generator=gen).to(torch.bfloat16)
+    want = dense(x, act_int8)
+    got = dense.to(cuda)(x.to(cuda), act_int8)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (2, rows, 384)
+    _within_one_ulp(got.cpu(), want,
+                    0.0 if act_int8 else 1e-4 * float(want.float().abs().max()))

@@ -3,6 +3,8 @@
 
 Tolerance 1e-4 (rtol and atol) in f32: two layers of f32 matmuls, norms and
 softmax whose sums run in a different order in the two frameworks."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +18,8 @@ from chatts_tpu.models import quantize as jquant
 from chatts_tpu.processor.processor import ChatTSProcessor
 from chatts_tpu_torch.models import chatts as tchatts
 from chatts_tpu_torch.models import quantize as tquant
-from chatts_tpu_torch.models.convert import from_jax_params, qwen_from_jax
+from chatts_tpu_torch.models.convert import from_jax_params, qwen_from_jax, to_tensor
+from chatts_tpu_torch.models.qwen import Dense, QwenModel
 from chatts_tpu_torch.runtime import kv_cache as tkv
 from tests.helpers import FakeTokenizer, random_series
 
@@ -37,7 +40,7 @@ def _randomize(tree, rng):
 
 def _config(qwen3):
     # head_dim 64 keeps every projection a multiple of 128 wide, so int4 needs
-    # no int8 fallback (which the port does not have) even unfused.
+    # no int8 fallback even unfused.
     return tiny_config(vocab_size=512, hidden_size=128, intermediate_size=256,
                        num_attention_heads=4, num_key_value_heads=2, head_dim=64,
                        qwen3=qwen3)
@@ -212,5 +215,41 @@ def test_torch_init_quantized_params_builds_the_int4_layout(fused):
                           torch.from_numpy(positions))
     logits = model.compute_logits(hidden)
     assert logits.shape == (2, 12, cfg.llm.vocab_size) and torch.isfinite(logits).all()
-    with pytest.raises(NotImplementedError):
-        tquant.init_quantized_params(cfg, torch.Generator(), "cpu", bits=8)
+    # bits=8 is the int8 tier (tests/test_torch_int8_weights.py); no other.
+    with pytest.raises(ValueError, match="bits"):
+        tquant.init_quantized_params(cfg, torch.Generator(), "cpu", bits=3)
+
+
+@pytest.mark.parametrize("case", ["dense_bias", "lm_head", "tied"])
+def test_torch_bf16_products_are_f32_like_jax(case):
+    """bf16 weights and activations: a float projection adds its bias to the
+    f32 product before the one rounding to bf16, and a float head returns the
+    f32 product, as the reference's ``preferred_element_type=float32`` does.
+    A product rounded to bf16 first is off by up to half a bf16 ulp of the
+    output (about 0.1 at a projection's magnitude 16 to 32, 0.01 to 0.03 at a
+    logit's 2 to 10).  Tolerance 1e-5 of the largest output: the same f32
+    products, summed in another order."""
+    rng = np.random.default_rng(11)
+    hid, out = 128, 256
+    x = jnp.asarray(rng.normal(0, 1, (3, 5, hid)).astype(np.float32), jnp.bfloat16)
+    w = jnp.asarray(rng.normal(0, 2.0, (hid, out)).astype(np.float32), jnp.bfloat16)
+    if case == "dense_bias":
+        bias = jnp.asarray(rng.normal(0, 4.0, (out,)).astype(np.float32), jnp.bfloat16)
+        want = jqwen._dense(x, {"kernel": w, "bias": bias})
+        got = Dense(to_tensor(w), bias=to_tensor(bias))(to_tensor(x))
+        assert got.dtype == torch.bfloat16
+    else:
+        lcfg = dataclasses.replace(_config(qwen3=False).llm, vocab_size=out,
+                                   hidden_size=hid, tie_word_embeddings=case == "tied")
+        table = jnp.asarray(rng.normal(0, 0.5, (out, hid)).astype(np.float32), jnp.bfloat16)
+        params = {"embed_tokens": table}
+        if case == "lm_head":
+            params["lm_head"] = w
+        want = jqwen.compute_logits(params, lcfg, x)
+        model = QwenModel(lcfg, to_tensor(table), [], to_tensor(jnp.ones((hid,))),
+                          lm_head=to_tensor(w) if case == "lm_head" else None)
+        got = model.compute_logits(to_tensor(x))
+        assert got.dtype == torch.float32
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())

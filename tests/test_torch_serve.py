@@ -214,8 +214,6 @@ def test_torch_serve_rejects_over_long_alone(setup):
 def test_torch_serve_refuses_unported_paths(setup):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_engine(setup, prefill_chunk=64)
-    with pytest.raises(NotImplementedError, match="B5"):
-        make_engine(setup, prefill_act_int8=True)
     # A live-slot admission that is not block-eligible would take the
     # scan-sliced mixed path: its requests fail, the live slot goes on.
     with make_engine(setup) as eng:
