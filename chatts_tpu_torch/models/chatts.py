@@ -1,7 +1,7 @@
 """ChatTS = Qwen2/Qwen3 decoder + time-series patch encoder + embedding merge.
 
 Counterpart of ``chatts_tpu/models/chatts.py``.  The processor
-(``chatts_tpu.processor.processor``, reused by import) computes on the host
+(``chatts_tpu_torch/processor/processor.py``) computes on the host
 where each (series, patch) embedding goes: ``scatter_seq``/``scatter_tok``,
 with padded patch slots pointing out of bounds.
 """
@@ -12,7 +12,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from chatts_tpu.core.config import ChatTSConfig
+from chatts_tpu_torch.core.config import ChatTSConfig
 from chatts_tpu_torch.models.qwen import QwenModel, embed_tokens, fuse_projections
 from chatts_tpu_torch.models.ts_encoder import TSEncoder
 

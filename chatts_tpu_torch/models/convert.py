@@ -15,7 +15,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from chatts_tpu.core.config import ChatTSConfig, QwenConfig, TSEncoderConfig
+from chatts_tpu_torch.core.config import ChatTSConfig, QwenConfig, TSEncoderConfig
 from chatts_tpu_torch.models.chatts import ChatTSModel
 from chatts_tpu_torch.models.qwen import MLP, Attention, DecoderLayer, Dense, QwenModel
 from chatts_tpu_torch.models.ts_encoder import TSEncoder

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from chatts_tpu.core.config import ChatTSConfig
+from chatts_tpu_torch.core.config import ChatTSConfig
 from chatts_tpu_torch.models.chatts import ChatTSModel
 from chatts_tpu_torch.models.qwen import MLP, Attention, DecoderLayer, Dense, QwenModel
 from chatts_tpu_torch.models.ts_encoder import TSEncoder

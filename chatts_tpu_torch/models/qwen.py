@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from chatts_tpu.core.config import QwenConfig
+from chatts_tpu_torch.core.config import QwenConfig
 from chatts_tpu_torch.ops.attention import attention
 from chatts_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_a8
 from chatts_tpu_torch.ops.ragged_decode_attention import (

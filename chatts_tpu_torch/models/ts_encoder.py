@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from chatts_tpu.core.config import TSEncoderConfig
+from chatts_tpu_torch.core.config import TSEncoderConfig
 
 
 @contextlib.contextmanager

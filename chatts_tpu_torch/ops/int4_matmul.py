@@ -30,12 +30,27 @@ DEFAULT_GROUP = 128
 _SIGNATURES = {
     "chatts_int4_matmul": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     ),
     "chatts_int4_matmul_workspace_bytes": (
-        ctypes.c_longlong, [ctypes.c_int] * 3,
+        ctypes.c_longlong, [ctypes.c_int] * 4,
     ),
 }
+
+# The paths of ``csrc/int4_matmul.cu``: the tensor-core kernel in its
+# streaming configuration (all rows up to 64 in one block row, 64-row tiles
+# above) and its GEMM configuration (128 x 128 tiles).
+STREAM, GEMM = 1, 2
+PATHS = {"stream": STREAM, "gemm": GEMM}
+
+# The band, from the device times of both paths at every R in
+# ``chip_smoke.py`` phase 2, at the ChatTS-14B projection shapes (H100 80GB
+# HBM3, 700 W): the two lie within 4% of each other from R = 640 up;
+# streaming is the faster at R = 640 on the four layer projections (the
+# head runs on the last positions only) and the GEMM at R = 4096 and 5120
+# on most of them.
+STREAM_MAX_ROWS = 640
+
 _SIGNATURES_A8 = {
     "chatts_int4_matmul_a8": (
         ctypes.c_int,
@@ -97,8 +112,34 @@ def int4_matmul_reference(
     x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor
 ) -> torch.Tensor:
     """Plain version: dequantize to x's type, then one matmul (f32
-    accumulation, result in x's type), as the JAX package does off the TPU."""
+    accumulation, result in x's type), as the JAX package does off the TPU.
+    The wrapper runs it for CPU tensors."""
     return torch.matmul(x, dequantize(packed, scales, x.dtype))
+
+
+def _grouped_f32(xf: torch.Tensor, packed: torch.Tensor,
+                 scales: torch.Tensor) -> torch.Tensor:
+    """sum over groups g of (xf[:, g] @ q[g]) * s_g, in f32, in group order:
+    each group's product, times its scales, added to an f32 accumulator (the
+    multiply and the add rounded apart).  One group at a time, so no
+    (R, groups, OUT) intermediate is made."""
+    g = xf.shape[1] // scales.shape[0]
+    acc = torch.zeros((xf.shape[0], packed.shape[1]), dtype=torch.float32,
+                      device=xf.device)
+    for i in range(scales.shape[0]):
+        w = unpack_values(packed[i * g // 2:(i + 1) * g // 2]).float()
+        acc += torch.matmul(xf[:, i * g:(i + 1) * g], w) * scales[i]
+    return acc
+
+
+def int4_matmul_grouped_reference(
+    x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of the kernel's own arithmetic, in the TPU kernel's
+    order (``chatts_tpu/ops/int4_matmul.py::_kernel``): per 128-row group the
+    f32 product of x and the integer values (every product exact), times the
+    group's scales, added to an f32 accumulator; one rounding to x's type."""
+    return _grouped_f32(x.float(), packed, scales).to(x.dtype)
 
 
 def _check(x, packed, scales, what: str = "int4_matmul",
@@ -130,6 +171,39 @@ def _check(x, packed, scales, what: str = "int4_matmul",
         raise ValueError(f"{what}: x has no rows")
 
 
+def int4_path(r: int) -> int:
+    """The kernel's path for R rows: streaming up to STREAM_MAX_ROWS, the
+    GEMM above."""
+    return STREAM if r <= STREAM_MAX_ROWS else GEMM
+
+
+def int4_matmul_on_path(
+    x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, path: int
+) -> torch.Tensor:
+    """Launch the kernel on ``path`` for CUDA tensors (``int4_matmul`` picks
+    the path by R; this entry lets the card's tests and ``chip_smoke.py``
+    hold every path against the plain versions)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"int4_matmul: no kernel for device {x.device}")
+    _check(x, packed, scales)
+    r, in_dim = x.shape
+    if path not in PATHS.values():
+        raise ValueError(f"int4_matmul: no path {path}")
+    out_dim = packed.shape[1]
+    lib = build.load("int4_matmul", _SIGNATURES)
+    y = torch.empty((r, out_dim), dtype=x.dtype, device=x.device)
+    ws_bytes = lib.chatts_int4_matmul_workspace_bytes(r, in_dim, out_dim, path)
+    ws = torch.empty(ws_bytes // 4, dtype=torch.float32, device=x.device) if ws_bytes else None
+    err = lib.chatts_int4_matmul(
+        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(), r, in_dim, out_dim, path,
+        build.stream_handle(x.device),
+    )
+    int4_matmul.launches += 1
+    build.check_launch(err, "int4_matmul")
+    return y
+
+
 def int4_matmul(
     x: torch.Tensor,  # (R, IN)
     packed: torch.Tensor,  # (IN//2, OUT) int8
@@ -138,22 +212,7 @@ def int4_matmul(
     """y = x @ dequantize(packed, scales) -> (R, OUT) in x's type."""
     if x.device.type == "cpu":
         return int4_matmul_reference(x, packed, scales)
-    if x.device.type != "cuda":
-        raise ValueError(f"int4_matmul: no kernel for device {x.device}")
-    _check(x, packed, scales)
-    r, in_dim = x.shape
-    out_dim = packed.shape[1]
-    lib = build.load("int4_matmul", _SIGNATURES)
-    y = torch.empty((r, out_dim), dtype=x.dtype, device=x.device)
-    ws_bytes = lib.chatts_int4_matmul_workspace_bytes(r, in_dim, out_dim)
-    ws = torch.empty(ws_bytes // 4, dtype=torch.float32, device=x.device)
-    err = lib.chatts_int4_matmul(
-        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), y.data_ptr(),
-        ws.data_ptr(), r, in_dim, out_dim, build.stream_handle(x.device),
-    )
-    int4_matmul.launches += 1
-    build.check_launch(err, "int4_matmul")
-    return y
+    return int4_matmul_on_path(x, packed, scales, int4_path(x.shape[0]))
 
 
 int4_matmul.launches = 0
@@ -166,16 +225,8 @@ def int4_matmul_a8_reference(
     """Plain version, in the JAX kernel's order: per 128-row group the f32
     product of the integer values (exact: a group's sum is at most
     128 * 127 * 8 < 2**24), times the group's scales, added to an f32
-    accumulator; then the row scales, and one rounding to ``out_dtype``.
-    One group at a time, so no (R, groups, OUT) intermediate is made."""
-    in_dim = x_q.shape[1]
-    g = in_dim // scales.shape[0]
-    xf = x_q.float()
-    acc = torch.zeros((x_q.shape[0], packed.shape[1]), dtype=torch.float32,
-                      device=x_q.device)
-    for i in range(scales.shape[0]):
-        w = unpack_values(packed[i * g // 2:(i + 1) * g // 2]).float()
-        acc += torch.matmul(xf[:, i * g:(i + 1) * g], w) * scales[i]
+    accumulator; then the row scales, and one rounding to ``out_dtype``."""
+    acc = _grouped_f32(x_q.float(), packed, scales)
     return (acc * x_scale.float()[:, None]).to(out_dtype)
 
 

@@ -2,7 +2,7 @@
 
 Counterpart of ``chatts_tpu/runtime/engine.py::InferenceEngine`` (its
 per-step-scatter decode, ``decode_recent_kv=False``).  ``generate`` takes a
-``ProcessedBatch`` from the reused ``chatts_tpu.processor.processor`` and:
+``ProcessedBatch`` from the port's ``processor/processor.py`` and:
 
 1. allocates a head-major KV cache of ``prompt + max_new_tokens`` rounded up
    to 256 positions;
@@ -26,8 +26,8 @@ from typing import Any, List, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from chatts_tpu.core.config import ChatTSConfig, GenerationConfig
-from chatts_tpu.processor.processor import ProcessedBatch
+from chatts_tpu_torch.core.config import ChatTSConfig, GenerationConfig
+from chatts_tpu_torch.processor.processor import ProcessedBatch
 from chatts_tpu_torch.models.chatts import ChatTSModel, maybe_fuse
 from chatts_tpu_torch.models.convert import from_jax_params
 from chatts_tpu_torch.models.qwen import embed_tokens
@@ -61,14 +61,15 @@ def _sync(device: torch.device) -> None:
 
 
 class InferenceEngine:
-    """Owns the model on ``device`` and the generation loop."""
+    """Owns the model on ``device`` (the card unless the caller asks for
+    the CPU) and the generation loop."""
 
     def __init__(
         self,
         params_or_model: Union[ChatTSModel, Mapping[str, Any]],
         cfg: ChatTSConfig,
         *,
-        device,
+        device="cuda",
         cache_dtype=torch.bfloat16,
         decode_chunk: int = 64,
         pad_id: int = 0,

@@ -15,7 +15,7 @@ from typing import List, Tuple
 
 import torch
 
-from chatts_tpu.core.config import QwenConfig
+from chatts_tpu_torch.core.config import QwenConfig
 
 LayerCache = Tuple[torch.Tensor, ...]
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from chatts_tpu.core.config import GenerationConfig
+from chatts_tpu_torch.core.config import GenerationConfig
 
 NEG_INF = torch.finfo(torch.float32).min
 

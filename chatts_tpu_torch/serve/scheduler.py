@@ -12,7 +12,8 @@ Round forms, as in the reference:
   first tokens are sampled;
 - **pure decode round**: every live slot advances ``decode_chunk`` steps on
   the device, with EOS and the token budget checked there; the host syncs
-  once per round, on a packed (B, chunk + 1) result;
+  once per round, on a packed (B, chunk + 1) result.  On the card every
+  round replays a CUDA graph of one step, captured in the first;
 - **block admission** (slots live, ``a * T <= block_token_budget``): the
   whole admission prefills as one block, its rows merge into the decode
   state, then either the round ends there and the first tokens stream at
@@ -55,10 +56,10 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from chatts_tpu.core import encoding
-from chatts_tpu.core.config import ChatTSConfig
-from chatts_tpu.processor.processor import ChatTSProcessor
-from chatts_tpu.utils.profiling import MetricsAggregator
+from chatts_tpu_torch.core import encoding
+from chatts_tpu_torch.core.config import ChatTSConfig
+from chatts_tpu_torch.processor.processor import ChatTSProcessor
+from chatts_tpu_torch.utils.profiling import MetricsAggregator
 from chatts_tpu_torch.models.chatts import ChatTSModel, maybe_fuse
 from chatts_tpu_torch.models.convert import from_jax_params
 from chatts_tpu_torch.models.qwen import embed_tokens
@@ -217,47 +218,99 @@ def _block_prefill_merge(
     return first
 
 
+def _decode_step(llm, caches, tokens, cur_lens, active, live, budget, temperature, top_p,
+                 eos_ids, generator):
+    """One decode step of every slot: each writes its new K/V at cur_len and
+    attends the first cur_len + 1 positions.  Inactive slots attend one
+    position and write at their stale cur_len, which admission keeps inside
+    the capacity (prompt + max_tokens <= max_model_len).  Returns (emitted
+    (B,) int32, -1 where a slot did not emit; then the next tokens, cur_lens,
+    budget and live)."""
+    positions = cur_lens[:, None]
+    hidden, _ = llm(
+        embed_tokens(llm.embed_tokens, tokens[:, None]), positions,
+        kv_caches=caches, write_pos=positions,
+        kv_lengths=torch.where(active, cur_lens + 1, 1),
+    )
+    logits = llm.compute_logits(hidden)[:, 0]
+    next_tok = sampling.sample_per_slot(logits, generator, temperature, top_p)
+    emitted = torch.where(live, next_tok, -1)
+    hit_eos = (next_tok[:, None] == eos_ids[None, :]).any(dim=1)
+    budget = budget - live.to(budget.dtype)
+    tokens = torch.where(live, next_tok, tokens)
+    cur_lens = cur_lens + live.to(cur_lens.dtype)
+    live = live & ~hit_eos & (budget > 0)
+    return emitted, tokens, cur_lens, budget, live
+
+
 def _decode_scan(model: ChatTSModel, chunk_size: int, caches, tokens, cur_lens, active,
-                 temperature, top_p, eos_ids, budget, generator: torch.Generator):
+                 temperature, top_p, eos_ids, budget, generator):
     """Advance every active slot ``chunk_size`` decode steps: the port of
     the reference's non-recent ``_decode_scan`` as a loop on the device.
-
-    Each step writes the slot's new K/V at cur_len and attends the first
-    cur_len + 1 positions.  Inactive slots attend one position and write at
-    their stale cur_len, which admission keeps inside the capacity
-    (prompt + max_tokens <= max_model_len).  Returns (tokens, cur_lens,
-    budget, emitted (B, chunk) int32 with -1 where a slot did not emit,
-    live (B,) bool)."""
-    llm = model.llm
+    Returns (tokens, cur_lens, budget, emitted (B, chunk) int32, live (B,)
+    bool)."""
     live = active & (budget > 0)
     emitted = []
     for _ in range(chunk_size):
-        positions = cur_lens[:, None]
-        hidden, _ = llm(
-            embed_tokens(llm.embed_tokens, tokens[:, None]), positions,
-            kv_caches=caches, write_pos=positions,
-            kv_lengths=torch.where(active, cur_lens + 1, 1),
-        )
-        logits = llm.compute_logits(hidden)[:, 0]
-        next_tok = sampling.sample_per_slot(logits, generator, temperature, top_p)
-        emitted.append(torch.where(live, next_tok, -1))
-        hit_eos = (next_tok[:, None] == eos_ids[None, :]).any(dim=1)
-        budget = budget - live.to(budget.dtype)
-        tokens = torch.where(live, next_tok, tokens)
-        cur_lens = cur_lens + live.to(cur_lens.dtype)
-        live = live & ~hit_eos & (budget > 0)
+        emit, tokens, cur_lens, budget, live = _decode_step(
+            model.llm, caches, tokens, cur_lens, active, live, budget, temperature, top_p,
+            eos_ids, generator)
+        emitted.append(emit)
     return tokens, cur_lens, budget, torch.stack(emitted, dim=1), live
 
 
 def _decode_all_slots(model, chunk_size, caches, tokens, cur_lens, active, temperature,
                       top_p, eos_ids, budget, generator):
-    """A pure decode round.  The host fetches one packed (B, chunk + 1) int32
-    array: the emitted tokens, then the live flag."""
-    tokens, cur_lens, budget, emitted, live = _decode_scan(
+    """A pure decode round, ``tokens``, ``cur_lens`` and ``budget`` written
+    back in place.  Returns the one packed (B, chunk + 1) int32 array the
+    host fetches: the emitted tokens, then the live flag."""
+    new_tokens, new_lens, new_budget, emitted, live = _decode_scan(
         model, chunk_size, caches, tokens, cur_lens, active, temperature, top_p,
         eos_ids, budget, generator)
-    packed = torch.cat([emitted, live[:, None].to(torch.int32)], dim=1)
-    return tokens, cur_lens, budget, packed
+    for state, new in ((tokens, new_tokens), (cur_lens, new_lens), (budget, new_budget)):
+        state.copy_(new)
+    return torch.cat([emitted, live[:, None].to(torch.int32)], dim=1)
+
+
+class _DecodeStepGraph:
+    """One decode step of every slot captured in a CUDA graph, over state
+    tensors that never move: a round replays it ``chunk`` times, each replay
+    writing its emitted tokens into the next column of ``emitted``.  Eager, a
+    step's few thousand launches cost more host time than the card's work
+    (PERF.md); a replay is one launch."""
+
+    def __init__(self, model, chunk_size, caches, tokens, cur_lens, active, temperature,
+                 top_p, eos_ids, budget, generator):
+        b, dev = tokens.shape[0], tokens.device
+        self.chunk_size = chunk_size
+        self.state = (tokens, cur_lens, budget)
+        self.active, self.budget = active, budget
+        self.live = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.emitted = torch.zeros((b, chunk_size), dtype=torch.int32, device=dev)
+        self.column = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+        # One eager step first, so that every kernel of the step is built and
+        # loaded and the allocator is warm before the capture.  It updates no
+        # state and draws from a generator of its own; its K/V writes are the
+        # ones the round's first step makes.
+        _decode_step(model.llm, caches, tokens, cur_lens, active, self.live, budget,
+                     temperature, top_p, eos_ids, torch.Generator(device=dev))
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            emit, *new = _decode_step(model.llm, caches, tokens, cur_lens, active, self.live,
+                                      budget, temperature, top_p, eos_ids, generator)
+            self.emitted.scatter_(1, self.column, emit[:, None])
+            self.column += 1
+            for state, value in zip((*self.state, self.live), new):
+                state.copy_(value)
+
+    def round(self) -> torch.Tensor:
+        """A pure decode round, as ``_decode_all_slots`` computes it."""
+        torch.logical_and(self.active, self.budget > 0, out=self.live)
+        self.column.zero_()
+        for _ in range(self.chunk_size):
+            self.graph.replay()
+        return torch.cat([self.emitted, self.live[:, None].to(torch.int32)], dim=1)
 
 
 def _block_admission_round(model, chunk_size, caches, tokens, cur_lens, active,
@@ -291,7 +344,8 @@ def _block_admission_round(model, chunk_size, caches, tokens, cur_lens, active,
 # ---------------------------------------------------------------------------
 
 class ServeEngine:
-    """Slot-based continuous-batching engine with a background step loop."""
+    """Slot-based continuous-batching engine with a background step loop, on
+    ``device`` (the card unless the caller asks for the CPU)."""
 
     def __init__(
         self,
@@ -299,7 +353,7 @@ class ServeEngine:
         cfg: ChatTSConfig,
         processor: ChatTSProcessor,
         *,
-        device,
+        device="cuda",
         max_batch_size: int = 8,
         max_model_len: int = 6144,  # reference serving default ~6000
         cache_dtype=torch.bfloat16,
@@ -372,12 +426,17 @@ class ServeEngine:
             self.temperature = torch.zeros((b,), dtype=torch.float32, device=dev)
             self.top_p = torch.ones((b,), dtype=torch.float32, device=dev)
             self.budget = torch.zeros((b,), dtype=torch.int32, device=dev)
+            # Device mirror of live_host, uploaded only when it changes.
+            self._active_dev = torch.zeros((b,), dtype=torch.bool, device=dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
+        # These state tensors never move: rounds update them in place.  On
+        # the card every decode round replays a CUDA graph of one step over
+        # them, captured in the first.
+        self._decode_graph: Optional[_DecodeStepGraph] = None
+        self.decode_graph_capture_s = 0.0
 
         self.slots: List[Optional[Request]] = [None] * b
         self.live_host = np.zeros((b,), bool)
-        # Device mirror of live_host, uploaded only when it changes.
-        self._active_dev: Optional[torch.Tensor] = None
         self._active_key: Optional[bytes] = None
         # A staged block admission, dispatched as the next round.
         self._pending_block: Optional[Dict[str, Any]] = None
@@ -824,10 +883,13 @@ class ServeEngine:
                 self.model, self.caches, self.tokens, self.cur_lens, self.temperature,
                 self.top_p, self.budget, *adm)
             return ("block_pre", first, st, len(st["reqs"]), rows)
-        self.tokens, self.cur_lens, self.budget, packed = _block_admission_round(
+        tokens, cur_lens, budget, packed = _block_admission_round(
             self.model, self.decode_chunk, self.caches, self.tokens, self.cur_lens,
             self._active_device(), self.temperature, self.top_p, self._eos_dev,
             self.budget, *adm)
+        for state, new in ((self.tokens, tokens), (self.cur_lens, cur_lens),
+                           (self.budget, budget)):
+            state.copy_(new)
         return ("block", packed, st, len(st["reqs"]), rows)
 
     def _complete_round(self, handle) -> None:
@@ -866,15 +928,23 @@ class ServeEngine:
     def _active_device(self) -> torch.Tensor:
         key = self.live_host.tobytes()
         if self._active_key != key:
-            self._active_dev = self._tensor(self.live_host, torch.bool)
+            self._active_dev.copy_(torch.from_numpy(self.live_host))
             self._active_key = key
         return self._active_dev
 
     def _dispatch_decode(self):
-        self.tokens, self.cur_lens, self.budget, packed = _decode_all_slots(
-            self.model, self.decode_chunk, self.caches, self.tokens, self.cur_lens,
-            self._active_device(), self.temperature, self.top_p, self._eos_dev,
-            self.budget, self.generator)
+        args = (self.model, self.decode_chunk, self.caches, self.tokens, self.cur_lens,
+                self._active_device(), self.temperature, self.top_p, self._eos_dev,
+                self.budget, self.generator)
+        if self.device.type != "cuda":
+            packed = _decode_all_slots(*args)
+        else:
+            if self._decode_graph is None:
+                start = time.perf_counter()
+                self._decode_graph = _DecodeStepGraph(*args)
+                self.decode_graph_capture_s = time.perf_counter() - start
+                self._event("decode_graph_capture", self.decode_graph_capture_s)
+            packed = self._decode_graph.round()
         return ("decode", packed, None, 0, 0)
 
     def _dispatch_round(self):

@@ -10,16 +10,20 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
   0. environment: card, power limit, torch, CUDA, nvcc;
   1. build: nvcc time and each kernel's registers and spills;
   2. each kernel against its plain PyTorch version at the main paths' shapes,
-     with both times (CUDA events); the int8-activation matmul (B5) also
-     beside the bf16 int4 matmul at the same rows;
+     with the device times (CUDA graph replay, CUDA events) of the kernel,
+     the plain version and, where one exists, one PyTorch call computing the
+     same function, and the kernel's bound; the int4 matmul on each of its
+     paths at every R, and the int8-activation matmul (B5) at the rows of
+     an a8 prefill;
   3. the ChatTS-14B widths at 2 layers, int4 weights: logits of the kernel
      path on the card against the plain path on the CPU in f32;
   3c. the same with int8-activation prefill (``act_int8``), against the
      plain a8 path on the CPU in f32, and beside the card's bf16 prefill;
   3b. the same widths with an int8 KV cache through ``ServeEngine``: one
-     monolithic admission and 16 decode steps on the card, their logits held
-     against the same schedule on the CPU (plain versions, f32, the same int8
-     quantization, the card's tokens fed back);
+     monolithic admission and 16 decode steps on the card, run eagerly, their
+     logits held against the same schedule on the CPU (plain versions, f32,
+     the same int8 quantization, the card's tokens fed back); then the same
+     schedule replayed from the engine's decode graph, token-identical;
   4. the batch slice at full size: ChatTS-14B shape (48 layers, int4, random
      weights from a seed), 4 prompts with series, ``InferenceEngine.generate``
      greedy twice and sampled twice, each pair token-identical, every kernel
@@ -29,13 +33,16 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      32, early emit) behind ``ChatTSServer`` on 127.0.0.1.  Two waves of 8
      bench-like chat requests with two series each (the second wave joins
      while the first decodes, one request streams), twice, token-identical,
-     every kernel of the path launched;
+     every kernel of the path launched; then one decode round under
+     ``torch.profiler``, its top kernels by device time;
   6. phases 4 and 5 again with ``prefill_act_int8=True`` on the same weights:
      ``InferenceEngine`` greedy twice and the same two serving runs, each
      pair token-identical, B5 launched once per int4 projection per prefill
      and never in decode or for the head.
 
-It prints a JSON line of per-kernel results, then as its last line
+It prints a JSON line of per-kernel results (the kernel's, the plain
+version's and the library call's device times, the bound and what sets it),
+the card's name and power limit, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero; there
 is no CPU path.
 """
@@ -84,9 +91,33 @@ SERVE_LOGIT_RTOL_OF_MAX = 1.5e-2
 # order and round once to bf16, so they differ by at most one bf16 ulp of the
 # plain result (2**-7 of its magnitude at most).
 A8_ULP_RTOL = 2.0 ** -7
+# int4_matmul against the plain version of its own arithmetic
+# (int4_matmul_grouped_reference: per group an f32 sum, times the scales,
+# added in group order), both on the card: only the order of the f32 sums
+# inside a group differs (tensor cores against cuBLAS), which moves the f32
+# result by a few units of 2**-24 of the row's magnitudes; the one rounding
+# to bf16 may then land one ulp apart (2**-7 of the output at most).
+# |got - ref| <= 2**-7 |ref| + 2**-16 max_row |ref|, the second term for
+# outputs that cancel to near zero.
+INT4_ULP_RTOL = 2.0 ** -7
+INT4_ROW_ATOL = 2.0 ** -16
 # Projections of one decoder layer at the 14B int4 shape (fused qkv and
 # gate_up): each prefill launches B5 this many times a layer.
 INT4_PROJECTIONS_PER_LAYER = 4
+# The 14B int4 projections, and the rows phase 2 times them at: decode (1,
+# 4), serving's decode round (16, 24 slots), admissions (37, 64, 640) and a
+# serving wave's or the batch's prefill (4096, 5120; not the head, which
+# runs on the last positions only).
+INT4_SHAPES = {"qkv": (5120, 7168), "o": (5120, 5120), "gate_up": (5120, 27648),
+               "down": (13824, 5120), "lm_head": (5120, 152064)}
+INT4_ROWS = (1, 4, 16, 24, 37, 64, 640)
+INT4_PREFILL_ROWS = (4096, 5120)
+# One H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W): the
+# least time a call could take is the larger of its bytes over the memory
+# rate and its operations over the peak for their type.
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_S = 989e12
+PEAK_INT8_S = 1979e12
 
 SEED = 0
 
@@ -149,6 +180,47 @@ def time_ms(fn, target_s: float = 0.2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, target_s: float = 0.2) -> float:
+    """Mean device time of ``fn`` in ms, without the host's work per call:
+    up to 20 calls captured in one CUDA graph, replayed between CUDA events
+    after warm-up calls.  A wrapper's Python work per call (checks,
+    allocation, the launch) would otherwise bound a short kernel's time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(side):
+        fn()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    calls = max(1, min(20, int(2.0 / max(start.elapsed_time(end), 1e-3))))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    once = max(start.elapsed_time(end), 1e-3)
+    replays = int(min(50, max(2, target_s * 1e3 / once)))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
 def compare(got, ref, what: str, row_rtol: float = 0.0) -> float:
     """Max abs error; raises unless |got - ref| <= ATOL + RTOL * |ref|, or,
     with ``row_rtol``, unless |got - ref| <= row_rtol * max |ref| over the
@@ -177,6 +249,32 @@ def rotating(make, nbytes: int, min_total: int = 256 << 20):
     the 50 MB L2 cache, so a timed call finds its data cold, as it would in
     the model (every layer has its own weights and cache)."""
     return [make(i) for i in range(max(1, math.ceil(min_total / max(nbytes, 1))))]
+
+
+def bound(nbytes: float, ops: float, peak: float):
+    """(bound_ms, bound_by): the larger of nbytes at the memory rate and ops
+    at ``peak``."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int4_bound(r: int, in_dim: int, out_dim: int):
+    """int4_matmul's bound: packed weights, scales, x and y once each; 2 R IN
+    OUT bf16 operations."""
+    nbytes = in_dim * out_dim // 2 + in_dim // 128 * out_dim * 4 + 2 * r * (in_dim + out_dim)
+    return bound(nbytes, 2.0 * r * in_dim * out_dim, PEAK_BF16_S)
+
+
+def int4pack_library(torch, i4, packed, scales):
+    """``torch._weight_int4pack_mm``'s operands for the same weights:
+    unsigned codes q + 8 in its packed layout (``_convert_weight_to_int4pack``,
+    8 inner K tiles) and (groups, OUT, 2) bf16 scales with zeros 0, which it
+    applies as (code - 8) * scale + zero.  Made once, outside any timing."""
+    codes = (i4.unpack_values(packed) + 8).t().contiguous()  # (OUT, IN), 0..15
+    w = ((codes[:, 0::2] << 4) | codes[:, 1::2]).to(torch.uint8)
+    w = torch._convert_weight_to_int4pack(w.contiguous(), 8)
+    sz = torch.stack([scales, torch.zeros_like(scales)], dim=-1).to(torch.bfloat16)
+    return w, sz.contiguous()
 
 
 def kernel_wrappers():
@@ -263,8 +361,125 @@ def _flash_case(torch, gen, t: int, dev):
     return q, k, v, pos, kv_valid.contiguous()
 
 
+def _library_ms(torch, out, ref, call, what: str, rows=None) -> float:
+    """The device time of ``call``, one PyTorch call computing the kernel's
+    function, after its output ``out`` is held against the plain version
+    (on ``rows`` only, where given)."""
+    torch.cuda.synchronize()
+    if rows is not None:
+        out, ref = out[rows], ref[rows]
+    compare(out, ref, f"{what}, library call")
+    return graph_ms(call)
+
+
+def _int4_weights(torch, gen, dev, in_dim: int, out_dim: int):
+    """Random packed weights with some 0x88 bytes (both nibbles -8), and
+    scales that keep the outputs near 1."""
+    packed = torch.randint(-128, 128, (in_dim // 2, out_dim), generator=gen, device=dev,
+                           dtype=torch.int8)
+    packed[0, :7] = -120  # 0x88
+    scales = (torch.rand((in_dim // 128, out_dim), generator=gen, device=dev) + 0.5) \
+        / (7 * math.sqrt(in_dim))
+    return packed, scales
+
+
+def _int4_close(got, ref, what: str) -> None:
+    """Raises unless |got - ref| <= INT4_ULP_RTOL |ref| + INT4_ROW_ATOL
+    max_row |ref|."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    tol = INT4_ULP_RTOL * ref.abs() + INT4_ROW_ATOL * ref.abs().amax(dim=-1, keepdim=True)
+    if not torch.isfinite(got).all() or bool((err > tol).any()):
+        raise AssertionError(f"{what}: max abs err {float(err.max()):.4g} against the grouped "
+                             f"plain version, beyond one bf16 ulp")
+
+
+def phase_int4(torch, gen, dev):
+    """int4_matmul at the 14B projection shapes: every path the kernel has at
+    each R, held against both plain versions (the grouped one to one bf16
+    ulp, the dequantizing one to the shared tolerance) and run twice to the
+    bit; the times of every path, of the plain version, of
+    ``torch._weight_int4pack_mm`` and the bound.  Returns the JSON entry:
+    the sums over the five shapes at R = 24, one serving decode step's
+    projections of a layer and the head."""
+    from chatts_tpu_torch.ops import int4_matmul as i4
+
+    names = {v: k for k, v in i4.PATHS.items()}
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    errs, library_note = [], None
+    for name, (in_dim, out_dim) in INT4_SHAPES.items():
+        weights = rotating(lambda _: _int4_weights(torch, gen, dev, in_dim, out_dim),
+                           in_dim * out_dim // 2)
+        try:
+            packs = [int4pack_library(torch, i4, *w) for w in weights]
+        except (RuntimeError, AttributeError) as exc:  # the op is missing on this build
+            packs, library_note = None, f"none: torch._weight_int4pack_mm failed ({exc})"
+        turn = [0]
+
+        def cycled(fn, x):
+            def run():
+                turn[0] = (turn[0] + 1) % len(weights)
+                return fn(x, turn[0])
+            return run
+
+        for r in INT4_ROWS + (INT4_PREFILL_ROWS if name != "lm_head" else ()):
+            x = torch.randn((r, in_dim), generator=gen, device=dev).to(torch.bfloat16)
+            grouped = i4.int4_matmul_grouped_reference(x, *weights[0])
+            plain_out = i4.int4_matmul_reference(x, *weights[0])
+            times = {}
+            for path in i4.PATHS.values():
+                got = i4.int4_matmul_on_path(x, *weights[0], path)
+                again = i4.int4_matmul_on_path(x, *weights[0], path)
+                torch.cuda.synchronize()
+                what = f"int4 {name} R={r} {names[path]}"
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{what}: two calls differ")
+                errs.append(compare(got, plain_out, what))
+                _int4_close(got, grouped, what)
+                times[path] = graph_ms(cycled(
+                    lambda x, i, path=path: i4.int4_matmul_on_path(x, *weights[i], path), x))
+            got = i4.int4_matmul(x, *weights[0])
+            torch.cuda.synchronize()
+            if not torch.equal(got, i4.int4_matmul_on_path(x, *weights[0], i4.int4_path(r))):
+                raise AssertionError(f"int4 {name} R={r}: int4_matmul left its path")
+            ms = times[i4.int4_path(r)]
+            eager = time_ms(cycled(lambda x, i: i4.int4_matmul(x, *weights[i]), x))
+            plain = graph_ms(cycled(lambda x, i: i4.int4_matmul_reference(x, *weights[i]), x))
+            lib = None
+            if packs is not None:
+                def library(x, i):
+                    return torch._weight_int4pack_mm(x, packs[i][0], 128, packs[i][1])
+
+                try:
+                    lib = _library_ms(torch, library(x, 0), plain_out, cycled(library, x),
+                                      f"int4 {name} R={r}")
+                except (RuntimeError, AssertionError) as exc:
+                    packs, library_note = None, f"none: torch._weight_int4pack_mm: {exc}"
+            bound_ms, bound_by = int4_bound(r, in_dim, out_dim)
+            paths = ", ".join(f"{names[p]} {t:.4f}" for p, t in times.items())
+            log(f"  int4_matmul {name} {in_dim}->{out_dim} R={r}: kernel {ms:.4f} ms "
+                f"({names[i4.int4_path(r)]}; paths: {paths}; eager {eager:.4f}), plain "
+                f"{plain:.3f} ms, int4pack_mm {'none' if lib is None else f'{lib:.4f} ms'}, bound "
+                f"{bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} of it), "
+                f"max_abs_err {errs[-1]:.3g}")
+            if r == 24:
+                total["ms"] += ms
+                total["plain_ms"] += plain
+                total["bound_ms"] += bound_ms
+                total["library_ms"] = None if lib is None or total["library_ms"] is None \
+                    else total["library_ms"] + lib
+        del weights, packs
+        torch.cuda.empty_cache()
+    if library_note:
+        log(f"  int4_matmul library call: {library_note}")
+    return dict(max_abs_err=max(errs), bound_by="bytes", library_note=library_note, **total)
+
+
 def phase_kernels():
     import torch
+    import torch.nn.functional as F
 
     from chatts_tpu_torch.ops import flash_attention as fa
     from chatts_tpu_torch.ops import int4_matmul as i4
@@ -273,8 +488,11 @@ def phase_kernels():
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
+    none_a8 = ("none: no one PyTorch call applies per-group weight scales to an "
+               "int8 x int4 product")
     with Phase(2, "kernels against their plain versions (bf16)"):
-        # Flash prefill attention.
+        # Flash prefill attention.  The library call: SDPA with GQA and the
+        # boolean mask kv_valid & kv_pos <= q_pos, on head-major views.
         errs, times = [], {}
         for t in (640, 1152, 600):
             q, k, v, pos, kv_valid = _flash_case(torch, gen, t, dev)
@@ -285,13 +503,30 @@ def phase_kernels():
             errs.append(compare(got, ref, f"flash T=S={t}"))
             if got[3, :5].abs().max() != 0:
                 raise AssertionError("flash: a query with no valid key did not give 0")
-            ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
-            plain = time_ms(lambda: fa.flash_attention_reference(q, k, v, **kw))
-            times[t] = (ms, plain)
+            ms = graph_ms(lambda: fa.flash_attention(q, k, v, **kw))
+            eager = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+            plain = graph_ms(lambda: fa.flash_attention_reference(q, k, v, **kw))
+            mask = kv_valid[:, None, None, :] & (pos[:, None, None, :] <= pos[:, None, :, None])
+            qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
+
+            lib = _library_ms(torch, sdpa().transpose(1, 2), ref, sdpa, f"flash T=S={t}",
+                              rows=mask[:, 0].any(-1))
+            # q, k, v, both position arrays and kv_valid read once, the output
+            # written once; 4 D operations a head for each (query, visible key).
+            b, _, h, d = q.shape
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 8 * pos.numel() + kv_valid.numel()
+            bound_ms, bound_by = bound(nbytes, 4.0 * d * h * int(mask.sum()), PEAK_BF16_S)
+            times[t] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+                            bound_by=bound_by)
             log(f"  flash_attention B=4 H=40 KVH=8 D=128 T=S={t}: max_abs_err "
-                f"{errs[-1]:.3g}, kernel {ms:.3f} ms, plain {plain:.3f} ms")
-        results["flash_attention"] = dict(
-            max_abs_err=max(errs), ms=times[1152][0], plain_ms=times[1152][1])
+                f"{errs[-1]:.3g}, kernel {ms:.3f} ms (eager {eager:.3f}), plain {plain:.3f} ms, "
+                f"sdpa {lib:.3f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} of it)")
+        results["flash_attention"] = dict(max_abs_err=max(errs), **times[1152])
 
         # Ragged decode attention.
         b, h, kvh, d, cap = 4, 40, 8, 128, 2048
@@ -315,13 +550,31 @@ def phase_kernels():
                 fn(q, *caches[turn[0]], lengths)
             return run
 
-        ms = time_ms(cycle(rda.ragged_decode_attention))
-        plain = time_ms(cycle(rda.ragged_decode_attention_reference))
+        ms = graph_ms(cycle(rda.ragged_decode_attention))
+        eager = time_ms(cycle(rda.ragged_decode_attention))
+        plain = graph_ms(cycle(rda.ragged_decode_attention_reference))
+        # The library call: SDPA with q as (B, H, 1, D), the head-major cache
+        # as it is and a length mask (every length here is at least 1).
+        lmask = (torch.arange(cap, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+
+        def sdpa_decode(q, k, v, _lengths):
+            return F.scaled_dot_product_attention(q[:, :, None, :], k, v, attn_mask=lmask,
+                                                  enable_gqa=True)[:, :, 0]
+
+        lib = _library_ms(torch, sdpa_decode(q, *caches[0], lengths), ref, cycle(sdpa_decode),
+                          "ragged decode")
+        # The cache up to each row's length, q, the lengths and the output once;
+        # 4 D operations a head for each position.
+        n_pos = int(lengths.sum())
+        bound_ms, bound_by = bound(2 * 2 * n_pos * kvh * d + 2 * 2 * q.numel() + 4 * b,
+                                   4.0 * d * h * n_pos, PEAK_BF16_S)
         log(f"  ragged_decode_attention B=4 H=40 KVH=8 D=128 S=2048 lengths "
-            f"[1,255,257,2048]: max_abs_err {err:.3g}, kernel {ms:.3f} ms, "
-            f"plain {plain:.3f} ms")
+            f"[1,255,257,2048]: max_abs_err {err:.3g}, kernel {ms:.3f} ms (eager {eager:.3f}), "
+            f"plain {plain:.3f} ms, sdpa {lib:.3f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}; {bound_ms / ms:.1%} of it)")
         results["ragged_decode_attention"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain)
+            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+            bound_by=bound_by)
 
         # Ragged decode attention over the int8 cache, at the serving shape
         # (24 slots, cap 1024) and at the engine's default cap of 6144.
@@ -361,75 +614,42 @@ def phase_kernels():
                     fn(q, *caches8[turn[0]], lengths)
                 return run
 
-            ms = time_ms(cycle8(rda.ragged_decode_attention_int8))
-            plain = time_ms(cycle8(rda.ragged_decode_attention_int8_reference))
+            ms = graph_ms(cycle8(rda.ragged_decode_attention_int8))
+            eager = time_ms(cycle8(rda.ragged_decode_attention_int8))
+            plain = graph_ms(cycle8(rda.ragged_decode_attention_int8_reference))
+            # Codes and scales up to each row's length, q, lengths, output.
+            n_pos = sum(lens)
+            bound_ms, bound_by = bound(2 * n_pos * kvh * (d + 4) + 2 * 2 * q.numel() + 4 * b,
+                                       4.0 * d * h * n_pos, PEAK_BF16_S)
             log(f"  ragged_decode_attention_int8 B={b} H=40 KVH=8 D=128 S={cap} lengths "
                 f"{min(lens)}..{max(lens)} (mean {sum(lens) / b:.0f}): max_abs_err {err:.3g} "
                 f"({of_row:.3g} of its row's largest; tolerance {INT8_ROW_RTOL}), "
-                f"kernel {ms:.3f} ms, plain {plain:.3f} ms")
+                f"kernel {ms:.3f} ms (eager {eager:.3f}), plain {plain:.3f} ms, bound "
+                f"{bound_ms:.4f} ms "
+                f"({bound_by}; {bound_ms / ms:.1%} of it)")
             if cap == 1024:
                 results["ragged_decode_attention_int8"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain)
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=None,
+                    library_note="none: no one PyTorch call applies per-position K and V "
+                                 "scales inside attention")
             else:
                 results["ragged_decode_attention_int8"]["max_abs_err"] = max(
                     err, results["ragged_decode_attention_int8"]["max_abs_err"])
             del caches8
             torch.cuda.empty_cache()
 
-        # int4 matmul at the 14B projection shapes.
-        shapes = {"qkv": (5120, 7168), "o": (5120, 5120), "gate_up": (5120, 27648),
-                  "down": (13824, 5120), "lm_head": (5120, 152064)}
-        errs, decode_ms, decode_plain = [], 0.0, 0.0
-        for name, (in_dim, out_dim) in shapes.items():
-            def make_weights(_):
-                packed = torch.randint(-128, 128, (in_dim // 2, out_dim), generator=gen,
-                                       device=dev, dtype=torch.int8)
-                scales = (torch.rand((in_dim // 128, out_dim), generator=gen, device=dev)
-                          + 0.5) / (7 * math.sqrt(in_dim))
-                return packed, scales
-
-            weights = rotating(make_weights, in_dim * out_dim // 2)
-            for r in (1, 4, 37, 640):
-                x = torch.randn((r, in_dim), generator=gen, device=dev).to(torch.bfloat16)
-                got = i4.int4_matmul(x, *weights[0])
-                ref = i4.int4_matmul_reference(x, *weights[0])
-                torch.cuda.synchronize()
-                errs.append(compare(got, ref, f"int4 {name} R={r}"))
-                turn = [0]
-
-                def run(fn, x=x):
-                    turn[0] = (turn[0] + 1) % len(weights)
-                    fn(x, *weights[turn[0]])
-
-                ms = time_ms(lambda: run(i4.int4_matmul))
-                plain = time_ms(lambda: run(i4.int4_matmul_reference))
-                if r == 4:
-                    decode_ms += ms
-                    decode_plain += plain
-                log(f"  int4_matmul {name} {in_dim}->{out_dim} R={r}: max_abs_err "
-                    f"{errs[-1]:.3g}, kernel {ms:.3f} ms, plain {plain:.3f} ms")
-            del weights
-            torch.cuda.empty_cache()
-        results["int4_matmul"] = dict(
-            max_abs_err=max(errs), ms=decode_ms, plain_ms=decode_plain)
+        results["int4_matmul"] = phase_int4(torch, gen, dev)
 
         # B5, the int8-activation matmul, at the projection shapes an a8
         # prefill runs (the head stays bf16 x int4): a one-row admission of
         # a short prompt, a serving wave (8 x 512) and the batch (4 x 1280).
-        # The bf16 int4 matmul at the same rows stands beside it.
-        errs, layer_ms, layer_plain = [], 0.0, 0.0
+        # phase_int4 times the bf16 int4 matmul at the same rows.
+        errs, layer = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
         for name in ("qkv", "o", "gate_up", "down"):
-            in_dim, out_dim = shapes[name]
-
-            def make_weights(_):
-                packed = torch.randint(-128, 128, (in_dim // 2, out_dim), generator=gen,
-                                       device=dev, dtype=torch.int8)
-                packed[0, :7] = -120  # 0x88: both nibbles -8
-                scales = (torch.rand((in_dim // 128, out_dim), generator=gen, device=dev)
-                          + 0.5) / (7 * math.sqrt(in_dim))
-                return packed, scales
-
-            weights = rotating(make_weights, in_dim * out_dim // 2)
+            in_dim, out_dim = INT4_SHAPES[name]
+            weights = rotating(lambda _: _int4_weights(torch, gen, dev, in_dim, out_dim),
+                               in_dim * out_dim // 2)
             for r in (37, 4096, 5120):
                 x_q = torch.randint(-127, 128, (r, in_dim), generator=gen, device=dev,
                                     dtype=torch.int8)
@@ -444,34 +664,35 @@ def phase_kernels():
                                          f"{float(err.max()):.4g} beyond one bf16 ulp")
                 errs.append(float(err.max()))
                 exact = float((got == ref).float().mean())
-                x = torch.randn((r, in_dim), generator=gen, device=dev).to(torch.bfloat16)
                 turn = [0]
 
                 def run_a8(fn, x_q=x_q, x_scale=x_scale):
                     turn[0] = (turn[0] + 1) % len(weights)
                     fn(x_q, x_scale, *weights[turn[0]])
 
-                def run_bf16(x=x):
-                    turn[0] = (turn[0] + 1) % len(weights)
-                    i4.int4_matmul(x, *weights[turn[0]])
-
-                ms = time_ms(lambda: run_a8(i4.int4_matmul_a8))
-                plain = time_ms(lambda: run_a8(i4.int4_matmul_a8_reference), target_s=0.1)
-                bf16_ms = time_ms(run_bf16)
+                ms = graph_ms(lambda: run_a8(i4.int4_matmul_a8))
+                eager = time_ms(lambda: run_a8(i4.int4_matmul_a8))
+                plain = graph_ms(lambda: run_a8(i4.int4_matmul_a8_reference), target_s=0.1)
+                # Packed weights, scales, int8 x, row scales and the bf16
+                # output once; 2 R IN OUT int8 operations.
+                bound_ms, _ = bound(in_dim * out_dim // 2 + in_dim // 128 * out_dim * 4
+                                    + r * (in_dim + 4) + 2 * r * out_dim,
+                                    2.0 * r * in_dim * out_dim, PEAK_INT8_S)
                 if r == 4096:
-                    layer_ms += ms
-                    layer_plain += plain
+                    layer["ms"] += ms
+                    layer["plain_ms"] += plain
+                    layer["bound_ms"] += bound_ms
                 tops = 2 * r * in_dim * out_dim / (ms * 1e9)
                 log(f"  int4_matmul_a8 {name} {in_dim}->{out_dim} R={r}: max_abs_err "
                     f"{errs[-1]:.3g} ({exact:.4%} bit-equal), kernel {ms:.3f} ms "
-                    f"({tops:.0f} TOP/s), plain {plain:.3f} ms; int4_matmul (bf16 x) "
-                    f"{bf16_ms:.3f} ms")
+                    f"({tops:.0f} TOP/s; eager {eager:.3f}), plain {plain:.3f} ms, bound {bound_ms:.4f} ms "
+                    f"({bound_ms / ms:.1%} of it)")
             del weights
             torch.cuda.empty_cache()
-        # ms / plain_ms: one layer's four projections in a serving wave's
-        # prefill (R = 4096).
+        # One layer's four projections in a serving wave's prefill (R = 4096).
         results["int4_matmul_a8"] = dict(
-            max_abs_err=max(errs), ms=layer_ms, plain_ms=layer_plain)
+            max_abs_err=max(errs), bound_by="operations", library_ms=None,
+            library_note=none_a8, **layer)
     return results
 
 
@@ -482,7 +703,7 @@ def phase_kernels():
 def chatts_14b_config(num_layers: int):
     """ChatTS-14B: Qwen2.5-14B widths plus a 5-layer TS encoder (the shape
     ``bench.py`` pins for the 14B model)."""
-    from chatts_tpu_torch.shared import ChatTSConfig, QwenConfig, TSEncoderConfig
+    from chatts_tpu_torch.core.config import ChatTSConfig, QwenConfig, TSEncoderConfig
 
     vocab = 152064
     return ChatTSConfig(
@@ -520,7 +741,7 @@ def make_batch(cfg, specs, seed: int):
     random-walk series; ``specs`` is a list of (words, [series lengths])."""
     import numpy as np
 
-    from chatts_tpu_torch.shared import ChatTSProcessor
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
 
     rng = np.random.default_rng(seed)
     texts, series = [], []
@@ -660,6 +881,19 @@ class LogitRecorder:
         del self.llm.compute_logits
 
 
+class EagerDecodeRounds:
+    """Stands in for ``ServeEngine``'s decode graph: each round runs its
+    steps eagerly, as on the CPU, so that Python wrappers see every step."""
+
+    def __init__(self, *args):
+        self.args = args
+
+    def round(self):
+        from chatts_tpu_torch.serve import scheduler
+
+        return scheduler._decode_all_slots(*self.args)
+
+
 def phase_serving_model():
     import numpy as np
     import torch
@@ -667,8 +901,9 @@ def phase_serving_model():
     from chatts_tpu_torch.models.qwen import embed_tokens
     from chatts_tpu_torch.models.quantize import init_quantized_params
     from chatts_tpu_torch.runtime import kv_cache
+    from chatts_tpu_torch.serve import scheduler
     from chatts_tpu_torch.serve.scheduler import Request, SamplingParams, ServeEngine
-    from chatts_tpu_torch.shared import ChatTSProcessor
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
 
     dev = torch.device("cuda", 0)
     n_steps = 16
@@ -679,35 +914,53 @@ def phase_serving_model():
         proc = ChatTSProcessor(WordTokenizer(), cfg)
         rng = np.random.default_rng(SEED + 3)
         # Every prompt under 256 tokens: one length class, one admission.
-        specs = [(150, [256]), (100, [512, 256]), (200, [300]), (60, [800])]
-        reqs = []
-        for i, (n_words, lengths) in enumerate(specs):
+        specs = []
+        for n_words, lengths in [(150, [256]), (100, [512, 256]), (200, [300]), (60, [800])]:
             holes = " ".join(f"series {j}: <ts><ts/>" for j in range(len(lengths)))
             words = " ".join(f"w{int(x)}" for x in rng.integers(0, 10 ** 6, n_words))
-            reqs.append(Request(f"Please analyze {holes} and then answer. {words}",
-                                [rng.normal(0.0, 10.0, size=n).cumsum() for n in lengths],
-                                SamplingParams(max_tokens=n_steps + 1, temperature=0.0)))
-        engine = ServeEngine(model, cfg, proc, device=dev, max_batch_size=len(reqs),
-                             max_model_len=1024, cache_dtype=torch.int8,
-                             decode_chunk=n_steps, fuse=False)
-        recorder = LogitRecorder(model.llm)
-        engine.waiting.requeue(reqs)  # one monolithic admission of all four
-        with engine:
-            deadline = time.time() + 300
-            while any(r.finished_s is None and r.error is None for r in reqs):
-                if time.time() > deadline:
-                    raise TimeoutError("phase 3b requests did not finish")
-                time.sleep(0.01)
-        recorder.remove()
-        for r in reqs:
-            if r.error or len(r.output_tokens) != n_steps + 1:
-                raise AssertionError(f"phase 3b request: error {r.error}, "
-                                     f"{len(r.output_tokens)} tokens")
-        stats = engine.stats()
-        if stats.get("rounds_mono") != 1 or stats.get("rounds_decode") != 1:
-            raise AssertionError(f"phase 3b ran another schedule: {stats}")
+            specs.append((f"Please analyze {holes} and then answer. {words}",
+                          [rng.normal(0.0, 10.0, size=n).cumsum() for n in lengths]))
+
+        def serve(eager: bool):
+            """The four requests as one admission and one decode round; with
+            ``eager`` the round runs eagerly and every step's logits are
+            recorded, else it replays the engine's CUDA graph."""
+            reqs = [Request(prompt, series,
+                            SamplingParams(max_tokens=n_steps + 1, temperature=0.0))
+                    for prompt, series in specs]
+            engine = ServeEngine(model, cfg, proc, device=dev, max_batch_size=len(reqs),
+                                 max_model_len=1024, cache_dtype=torch.int8,
+                                 decode_chunk=n_steps, fuse=False)
+            graph_class = scheduler._DecodeStepGraph
+            recorder = LogitRecorder(model.llm) if eager else None
+            if eager:
+                scheduler._DecodeStepGraph = EagerDecodeRounds
+            try:
+                engine.waiting.requeue(reqs)  # one monolithic admission of all four
+                with engine:
+                    deadline = time.time() + 300
+                    while any(r.finished_s is None and r.error is None for r in reqs):
+                        if time.time() > deadline:
+                            raise TimeoutError("phase 3b requests did not finish")
+                        time.sleep(0.01)
+            finally:
+                scheduler._DecodeStepGraph = graph_class
+                if recorder is not None:
+                    recorder.remove()
+            for r in reqs:
+                if r.error or len(r.output_tokens) != n_steps + 1:
+                    raise AssertionError(f"phase 3b request: error {r.error}, "
+                                         f"{len(r.output_tokens)} tokens")
+            stats = engine.stats()
+            if stats.get("rounds_mono") != 1 or stats.get("rounds_decode") != 1:
+                raise AssertionError(f"phase 3b ran another schedule: {stats}")
+            return reqs, recorder
+
+        reqs, recorder = serve(eager=True)
         got = recorder.calls  # prefill (4, V), then 16 decode steps (4, V)
-        del engine
+        replayed, _ = serve(eager=False)
+        if [r.output_tokens for r in replayed] != [r.output_tokens for r in reqs]:
+            raise AssertionError("the decode graph served other tokens than the eager round")
 
         # The same schedule on the CPU in f32, the card's tokens fed back.
         model.to("cpu").float()
@@ -748,7 +1001,8 @@ def phase_serving_model():
         log(f"  prompt tokens {batch.seq_lens.tolist()}, padded to {t}; max |logit diff| "
             f"first token {float(errs[0]):.4g}, decode steps {float(errs[1:].max()):.4g} "
             f"(tolerance {tol:.4g} = {SERVE_LOGIT_RTOL_OF_MAX} x max |plain logit| "
-            f"{float(want_t.abs().max()):.4g}); argmax agrees at {float(agree):.0%}")
+            f"{float(want_t.abs().max()):.4g}); argmax agrees at {float(agree):.0%}; the "
+            f"decode graph served the eager round's tokens")
         if float(errs.max()) > tol:
             raise AssertionError(f"int8-KV logits differ by {float(errs.max()):.4g} > {tol:.4g}")
         torch.cuda.empty_cache()
@@ -765,7 +1019,7 @@ def phase_slice(smi: str):
 
     from chatts_tpu_torch.models.quantize import init_quantized_params
     from chatts_tpu_torch.runtime.engine import InferenceEngine
-    from chatts_tpu_torch.shared import GenerationConfig
+    from chatts_tpu_torch.core.config import GenerationConfig
 
     dev = torch.device("cuda", 0)
     with Phase(4, "slice at full size: ChatTS-14B shape, 48 layers, int4, generate"):
@@ -833,7 +1087,7 @@ def phase_slice_a8(smi: str, model, cfg, bf16_run):
     import torch
 
     from chatts_tpu_torch.runtime.engine import InferenceEngine
-    from chatts_tpu_torch.shared import GenerationConfig
+    from chatts_tpu_torch.core.config import GenerationConfig
 
     dev = torch.device("cuda", 0)
     with Phase("6a", "act_int8 slice at full size: ChatTS-14B shape, 48 layers, int4, "
@@ -928,6 +1182,49 @@ def _post_chat(port: int, body: dict, timeout: float = 240.0) -> dict:
                 completion_tokens=data["usage"]["completion_tokens"])
 
 
+def profile_decode_round(torch, engine, live: int = 16) -> dict:
+    """One decode round's kernels under ``torch.profiler``, which does not
+    see inside a CUDA graph's replay: the engine's round function runs once
+    eagerly, from this thread while the engine idles, on copies of its state
+    with ``live`` slots live at the lengths the served requests reached (its
+    K/V writes land past them, in freed slots).  Prints the ten kernels with
+    the most device time (``key_averages``) and the round's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chatts_tpu_torch.serve import scheduler
+
+    dev, b = engine.device, engine.max_batch_size
+    active = torch.arange(b, device=dev) < live
+    budget = torch.full((b,), engine.decode_chunk, dtype=torch.int32, device=dev)
+    args = (engine.model, engine.decode_chunk, engine.caches, engine.tokens.clone(),
+            engine.cur_lens.clone(), active, engine.temperature.clone(), engine.top_p.clone(),
+            engine._eos_dev, budget, torch.Generator(device=dev).manual_seed(SEED))
+    with torch.inference_mode():
+        scheduler._decode_all_slots(*args)
+        budget.fill_(engine.decode_chunk)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            scheduler._decode_all_slots(*args)
+            torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=device_us, reverse=True)
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    log(f"  one decode round ({engine.decode_chunk} steps, {b} slots, {live} live), eager "
+        f"under torch.profiler: {sum(e.count for e in kernels)} kernel launches, "
+        f"{busy_ms:.1f} ms of device time; top kernels:")
+    top = []
+    for e in kernels[:10]:
+        ms = device_us(e) / 1e3
+        top.append(dict(kernel=e.key[:120], ms=ms, launches=e.count))
+        log(f"    {ms:9.2f} ms {ms / max(busy_ms, 1e-9):6.1%} {e.count:6d} x  {e.key[:100]}")
+    return dict(busy_ms=busy_ms, launches=sum(e.count for e in kernels), top=top)
+
+
 def phase_serving(smi: str, model, cfg, act_int8: bool = False):
     """Phase 5, or with ``act_int8`` phase 6b: the same schedule with
     int8-activation prefill."""
@@ -939,7 +1236,7 @@ def phase_serving(smi: str, model, cfg, act_int8: bool = False):
 
     from chatts_tpu_torch.serve.scheduler import ServeEngine
     from chatts_tpu_torch.serve.server import ChatTSServer
-    from chatts_tpu_torch.shared import ChatTSProcessor
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
 
     dev = torch.device("cuda", 0)
     path = "serving_a8" if act_int8 else "serving"
@@ -986,6 +1283,7 @@ def phase_serving(smi: str, model, cfg, act_int8: bool = False):
                 for run in range(2):
                     start = time.perf_counter()
                     n_before = len(gate.all)
+                    log_before = len(engine.round_snapshot())
                     futs = [pool.submit(_post_chat, port, bodies[i]) for i in range(wave)]
                     deadline = time.time() + 600
                     while (len(gate.all) < n_before + wave
@@ -999,12 +1297,15 @@ def phase_serving(smi: str, model, cfg, act_int8: bool = False):
                     results = [f.result(timeout=300) for f in futs]
                     wall = time.perf_counter() - start
                     reqs = gate.all[n_before:]
-                    runs.append((results, reqs, wall))
+                    decode = [r["round_s"] for r in engine.round_snapshot()[log_before:]
+                              if r["kind"] == "decode"]
+                    runs.append((results, reqs, wall, decode))
                 launches = read_launches(path, required)
             stats = engine.stats()
             with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
                                         timeout=60) as r:
                 metrics = json.loads(r.read())
+            profile = None if act_int8 else profile_decode_round(torch, engine)
         finally:
             server.shutdown()
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1015,7 +1316,7 @@ def phase_serving(smi: str, model, cfg, act_int8: bool = False):
         if launches["int4_matmul_a8"] != want:
             raise AssertionError(f"B5 launched {launches['int4_matmul_a8']} times over "
                                  f"{admissions} admissions, not {want}")
-        for results, reqs, _ in runs:
+        for results, reqs, _, _ in runs:
             for res in results:
                 if (res["finish"] != "length" or res["completion_tokens"] != n_new
                         or len(res["ids"]) != n_new):
@@ -1034,7 +1335,7 @@ def phase_serving(smi: str, model, cfg, act_int8: bool = False):
             raise AssertionError("the second run of the schedule gave other tokens")
 
         summary = []
-        for results, reqs, wall in runs:
+        for results, reqs, wall, decode in runs:
             ttft = np.asarray([r.ttft_s for r in reqs]) * 1e3
             first = min(r.first_token_s for r in reqs)
             last = max(r.finished_s for r in reqs)
@@ -1044,18 +1345,23 @@ def phase_serving(smi: str, model, cfg, act_int8: bool = False):
                 ttft_p90_ms=float(np.percentile(ttft, 90)),
                 wave1_ttft_mean_ms=float(ttft[:wave].mean()),
                 wave2_ttft_mean_ms=float(ttft[wave:].mean()),
-                decode_tok_s=decode_tok_s, wall_s=wall))
+                decode_tok_s=decode_tok_s, wall_s=wall,
+                decode_round_ms=[x * 1e3 for x in decode]))
         rounds = {k: v for k, v in stats.items() if k.startswith("round")}
         for i, s in enumerate(summary):
             log(f"  run {i + 1}: TTFT p50 {s['ttft_p50_ms']:.1f} ms, p90 {s['ttft_p90_ms']:.1f} ms "
                 f"(wave 1 mean {s['wave1_ttft_mean_ms']:.1f}, wave 2 mean "
                 f"{s['wave2_ttft_mean_ms']:.1f}); aggregate decode {s['decode_tok_s']:.1f} tok/s; "
-                f"{2 * wave} requests x {n_new} tokens in {s['wall_s']:.2f} s")
-        log(f"  rounds (both runs): {json.dumps(rounds)}")
+                f"{2 * wave} requests x {n_new} tokens in {s['wall_s']:.2f} s; decode rounds "
+                f"{', '.join(f'{x:.1f}' for x in s['decode_round_ms'])} ms")
+        log(f"  rounds (both runs): {json.dumps(rounds)}; every decode round replayed one "
+            f"CUDA graph, captured in the first in {engine.decode_graph_capture_s:.2f} s "
+            f"(launches count a captured kernel once)")
         log(f"  prompt tokens {sorted({r.prompt_tokens for r in runs[0][1]})}; peak memory "
             f"{peak_gb:.2f} GB; card {smi}")
         log(f"  {path} stats: " + json.dumps(dict(runs=summary, rounds=rounds,
-                                                  peak_memory_gb=peak_gb, card=smi)))
+                                                  peak_memory_gb=peak_gb, card=smi,
+                                                  decode_round_profile=profile)))
         del engine
         torch.cuda.empty_cache()
     return launches
@@ -1098,8 +1404,9 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": f"chatts_tpu_torch/csrc/{name}.cu",
          "replaces": REPLACES[name], "launches": sum(by_path[name].values()),
          "launches_by_path": by_path[name],
-         "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
-         "plain_ms": kernels[name]["plain_ms"]}
+         **{key: kernels[name].get(key) for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "library_note")}}
         for name in REPLACES
     ]}))
     log(smi)

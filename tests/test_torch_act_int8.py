@@ -16,14 +16,16 @@ import numpy as np
 import pytest
 import torch
 
-from chatts_tpu.core.config import GenerationConfig
+from chatts_tpu.core import config as jconfig
 from chatts_tpu.models import qwen as jqwen
 from chatts_tpu.ops import int4_matmul as ji4
-from chatts_tpu.processor.processor import ChatTSProcessor
+from chatts_tpu.processor import processor as jprocessor
 from chatts_tpu.runtime.engine import InferenceEngine as JaxEngine
+from chatts_tpu_torch.core.config import GenerationConfig
 from chatts_tpu_torch.models import qwen as tqwen
 from chatts_tpu_torch.models.convert import dense_from_jax, from_jax_params, qwen_from_jax
 from chatts_tpu_torch.ops import int4_matmul as ti4
+from chatts_tpu_torch.processor.processor import ChatTSProcessor
 from chatts_tpu_torch.runtime.engine import InferenceEngine
 from chatts_tpu_torch.serve.scheduler import Request, SamplingParams, ServeEngine
 from tests.helpers import FakeTokenizer
@@ -150,13 +152,14 @@ def test_torch_int4_dense_act_int8_matches_jax(interpret, extras):
 @pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
 def test_torch_qwen_forward_act_int8_matches_jax(interpret, qwen3, fused):
     cfg = _config(qwen3)
-    params = _llm_params(cfg, fused, int4=True, seed=5)
+    jlcfg = _config(qwen3, jconfig).llm
+    params = _llm_params(qwen3, fused, int4=True, seed=5)
     embeds, positions, seq_lens = _inputs(cfg, seed=6)
     kv_valid = positions < seq_lens[:, None]
     args = (jnp.asarray(embeds), jnp.asarray(positions))
-    want, _ = jqwen.forward(params, cfg.llm, *args, kv_valid=jnp.asarray(kv_valid),
+    want, _ = jqwen.forward(params, jlcfg, *args, kv_valid=jnp.asarray(kv_valid),
                             attn_impl="xla", act_int8=True)
-    off, _ = jqwen.forward(params, cfg.llm, *args, kv_valid=jnp.asarray(kv_valid),
+    off, _ = jqwen.forward(params, jlcfg, *args, kv_valid=jnp.asarray(kv_valid),
                            attn_impl="xla")
     want, off = np.asarray(want), np.asarray(off)
     model = qwen_from_jax(params, cfg.llm)
@@ -180,19 +183,19 @@ def _count_calls(monkeypatch, module, name):
 
 def test_torch_greedy_generate_act_int8_matches_jax(interpret, monkeypatch):
     cfg = _engine_config()
-    params = _engine_params(cfg, int4=True, seed=1)
+    params = _engine_params(int4=True, seed=1)
     jax_a8 = _count_calls(monkeypatch, ji4, "int4_matmul_a8")
     port_a8 = _count_calls(monkeypatch, tqwen, "int4_matmul_a8")
-    jax_engine = JaxEngine(params, cfg, cache_dtype=jnp.float32, attn_impl="xla",
-                           decode_recent_kv=False, decode_chunk=4, prefill_act_int8=True)
+    jax_engine = JaxEngine(params, _engine_config(jconfig), cache_dtype=jnp.float32,
+                           attn_impl="xla", decode_recent_kv=False, decode_chunk=4,
+                           prefill_act_int8=True)
     port = InferenceEngine(jax.tree.map(np.asarray, params), cfg, device="cpu",
                            cache_dtype=torch.float32, decode_chunk=4, prefill_act_int8=True)
-    batch = _batch(cfg)
-    gen = GenerationConfig(max_new_tokens=10, greedy=True)
-    want = jax_engine.generate(batch, gen)
+    want = jax_engine.generate(_batch(jprocessor, jconfig),
+                               jconfig.GenerationConfig(max_new_tokens=10, greedy=True))
     assert jax_a8, "the JAX engine did not take its a8 kernel"
     n_before = len(port_a8)
-    got = port.generate(batch, gen)
+    got = port.generate(_batch(), GenerationConfig(max_new_tokens=10, greedy=True))
     # Prefill only: one a8 matmul per int4 projection of each layer
     # (qkv, o, gate_up, down); decode and the head take none.
     assert len(port_a8) - n_before == 4 * cfg.llm.num_hidden_layers
@@ -209,7 +212,7 @@ WAVE = [(f"wave {i} <ts><ts/> joins", [np.arange(8.0) + i], 5 + i) for i in rang
 @pytest.fixture(scope="module")
 def a8_serving():
     cfg = _engine_config()
-    params = jax.tree.map(np.asarray, _engine_params(cfg, int4=True, seed=2))
+    params = jax.tree.map(np.asarray, _engine_params(int4=True, seed=2))
     proc = ChatTSProcessor(FakeTokenizer(), cfg)
     engine = InferenceEngine(params, cfg, device="cpu", cache_dtype=torch.float32,
                              prefill_act_int8=True)

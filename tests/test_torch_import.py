@@ -1,5 +1,6 @@
-"""The PyTorch port imports without JAX and without CUDA, and chip_smoke.py
-refuses to run where there is no card or no checkout."""
+"""The PyTorch port imports without JAX, without the JAX package and without
+CUDA, and chip_smoke.py refuses to run where there is no card or no
+checkout."""
 import json
 import os
 import shutil
@@ -15,10 +16,11 @@ names = ["chatts_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(chatts_tpu_torch.__path__, "chatts_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chatts_tpu.core.config, chatts_tpu.core.encoding, chatts_tpu.processor.processor
 print(json.dumps({
     "modules": names,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+    "jax_package": sorted(m for m in sys.modules
+                          if m == "chatts_tpu" or m.startswith("chatts_tpu.")),
 }))
 """
 
@@ -33,11 +35,14 @@ def test_torch_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["jax"] == []
+    assert report["jax_package"] == []
     # Every kernel module and its build/loader imported on a host without CUDA.
     for name in ("chatts_tpu_torch.kernels.build", "chatts_tpu_torch.ops.flash_attention",
                  "chatts_tpu_torch.ops.ragged_decode_attention",
                  "chatts_tpu_torch.ops.int4_matmul", "chatts_tpu_torch.runtime.engine",
-                 "chatts_tpu_torch.models.convert", "chatts_tpu_torch.shared",
+                 "chatts_tpu_torch.models.convert", "chatts_tpu_torch.core.config",
+                 "chatts_tpu_torch.core.encoding", "chatts_tpu_torch.processor.processor",
+                 "chatts_tpu_torch.utils.native", "chatts_tpu_torch.utils.profiling",
                  "chatts_tpu_torch.serve.scheduler", "chatts_tpu_torch.serve.server"):
         assert name in report["modules"]
 

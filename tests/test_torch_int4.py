@@ -1,6 +1,12 @@
-"""int4 weight-only matmul: the port's packing and plain matmul against JAX
-``ops/int4_matmul.py``.  Packing and dequantization are exact; the matmul
-is f32 on both sides and differs only in summation order (tolerance 1e-5)."""
+"""int4 weight-only matmul: the port's packing and plain matmuls against JAX
+``ops/int4_matmul.py``.  Packing and dequantization are exact; the
+dequantizing matmul is f32 on both sides and differs only in summation order
+(tolerance 1e-5).  The grouped plain version, the kernel's own arithmetic,
+is held to the Pallas kernel with bf16 x: both sum each group's exact
+products in f32, add them times the scales in group order and round once to
+bf16, so they differ by one bf16 ulp at most (2**-7 of the output), plus
+2**-16 of the row's largest output for f32 sums in another order where an
+output cancels to near zero."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,6 +68,24 @@ def test_torch_int4_plain_matmul_matches_pallas_interpret():
     before = ti4.int4_matmul.launches
     np.testing.assert_array_equal(ti4.int4_matmul(*args).numpy(), got.numpy())
     assert ti4.int4_matmul.launches == before
+
+
+@pytest.mark.parametrize("r", [1, 5, 37])
+def test_torch_int4_grouped_plain_matches_pallas_interpret(r):
+    q, scales = _int4_values(10 + r, in_dim=384)
+    q[:2, :7] = -8  # 0x88 bytes
+    packed, _ = ji4.pack_from_int4_values(jnp.asarray(q), jnp.asarray(scales))
+    x = np.random.default_rng(r).normal(0, 1, (r, 384)).astype(np.float32)
+    want = ji4.int4_matmul(jnp.asarray(x, jnp.bfloat16), packed, jnp.asarray(scales),
+                           interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    got = ti4.int4_matmul_grouped_reference(
+        torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(np.asarray(packed)),
+        torch.from_numpy(scales))
+    assert got.dtype == torch.bfloat16 and got.shape == (r, 256)
+    err = np.abs(got.float().numpy() - want)
+    tol = 2.0 ** -7 * np.abs(want) + 2.0 ** -16 * np.abs(want).max(axis=-1, keepdims=True)
+    assert (err <= tol).all(), err.max()
 
 
 def test_torch_int4_wrapper_refuses_other_devices():

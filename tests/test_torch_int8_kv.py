@@ -17,18 +17,18 @@ import numpy as np
 import pytest
 import torch
 
-from chatts_tpu.core.config import GenerationConfig, tiny_config
-from chatts_tpu.models import chatts as jchatts
+from chatts_tpu.core import config as jconfig
 from chatts_tpu.models import qwen as jqwen
 from chatts_tpu.ops import ragged_decode_attention as jrda
-from chatts_tpu.processor.processor import ChatTSProcessor
 from chatts_tpu.runtime.engine import InferenceEngine as JaxEngine
+from chatts_tpu_torch.core import config as tconfig
 from chatts_tpu_torch.models.convert import qwen_from_jax
 from chatts_tpu_torch.models.qwen import quantize_kv
 from chatts_tpu_torch.ops import ragged_decode_attention as trda
 from chatts_tpu_torch.runtime import kv_cache as tkv
 from chatts_tpu_torch.runtime.engine import InferenceEngine
-from tests.helpers import FakeTokenizer
+from tests.test_torch_engine import _config as _engine_config
+from tests.test_torch_engine import _generate_both, _params
 
 TOL = 1e-4
 DECODE_TOL = 2e-3
@@ -82,18 +82,19 @@ def test_torch_ragged_int8_reference_matches_pallas(lengths):
             assert (got[row] == 0).all()
 
 
-def _config():
-    return tiny_config(vocab_size=512, hidden_size=128, intermediate_size=256,
+def _config(m=tconfig):
+    """The tiny config from module ``m``: the port's, or the JAX package's
+    for the JAX side."""
+    return m.tiny_config(vocab_size=512, hidden_size=128, intermediate_size=256,
                        num_attention_heads=4, num_key_value_heads=2, head_dim=64)
 
 
 def test_torch_int8_cache_prefill_then_decode_matches_jax():
     """Prefill writes codes and scales but attends the unquantized block;
     three decode steps write at cur_len and attend the quantized cache."""
-    cfg = _config()
-    lcfg = cfg.llm
+    lcfg, jlcfg = _config().llm, _config(jconfig).llm
     params = jax.tree.map(np.asarray, jqwen.fuse_projections(
-        jqwen.init_params(lcfg, jax.random.PRNGKey(2), dtype=jnp.float32)))
+        jqwen.init_params(jlcfg, jax.random.PRNGKey(2), dtype=jnp.float32)))
     rng = np.random.default_rng(3)
     b, t, cap = 2, 12, 32
     embeds = rng.normal(0, 1, (b, t, lcfg.hidden_size)).astype(np.float32)
@@ -106,7 +107,7 @@ def test_torch_int8_cache_prefill_then_decode_matches_jax():
                 jnp.ones((b, kvh, cap)), jnp.ones((b, kvh, cap)))
                for _ in range(lcfg.num_hidden_layers)]
     jh, jcaches = jqwen.forward(
-        params, lcfg, jnp.asarray(embeds), jnp.asarray(positions), kv_caches=jcaches,
+        params, jlcfg, jnp.asarray(embeds), jnp.asarray(positions), kv_caches=jcaches,
         kv_valid=jnp.asarray(kv_pos < seq_lens[:, None]), kv_positions=jnp.asarray(kv_pos),
         attn_impl="xla")
     model = qwen_from_jax(params, lcfg)
@@ -122,7 +123,7 @@ def test_torch_int8_cache_prefill_then_decode_matches_jax():
         step = rng.normal(0, 1, (b, 1, lcfg.hidden_size)).astype(np.float32)
         pos = cur[:, None]
         jh, jcaches = jqwen.forward(
-            params, lcfg, jnp.asarray(step), jnp.asarray(pos), kv_caches=jcaches,
+            params, jlcfg, jnp.asarray(step), jnp.asarray(pos), kv_caches=jcaches,
             write_pos=jnp.asarray(pos), kv_valid=jnp.asarray(kv_pos <= cur[:, None]),
             kv_positions=jnp.asarray(kv_pos), kv_lengths=jnp.asarray(cur + 1),
             attn_impl="xla")
@@ -132,7 +133,7 @@ def test_torch_int8_cache_prefill_then_decode_matches_jax():
         logits = model.compute_logits(th)
         np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=TOL, atol=DECODE_TOL)
         np.testing.assert_allclose(logits.numpy(), np.asarray(
-            jqwen.compute_logits(params, lcfg, jh)), rtol=TOL, atol=DECODE_TOL)
+            jqwen.compute_logits(params, jlcfg, jh)), rtol=TOL, atol=DECODE_TOL)
         cur = cur + 1
     for jl, tl in zip(jcaches, tcaches):
         assert len(tl) == 4
@@ -145,19 +146,13 @@ def test_torch_int8_cache_prefill_then_decode_matches_jax():
 
 
 def test_torch_int8_batch_engine_greedy_matches_jax():
-    cfg = tiny_config(vocab_size=512, hidden_size=128, intermediate_size=256,
-                      num_attention_heads=4, num_key_value_heads=2, head_dim=32,
-                      patch_size=4)
-    params = jchatts.init_params(cfg, jax.random.PRNGKey(5), dtype=jnp.float32)
-    batch = ChatTSProcessor(FakeTokenizer(), cfg)(
-        ["analyze <ts><ts/> please", "and <ts><ts/> this <ts><ts/> too long prompt"],
-        [np.arange(16.0), np.sin(np.arange(32)) * 10, np.arange(8.0)])
-    gen = GenerationConfig(max_new_tokens=8, greedy=True)
-    want = JaxEngine(params, cfg, cache_dtype=jnp.int8, attn_impl="xla",
-                     decode_recent_kv=False, decode_chunk=4).generate(batch, gen)
-    port = InferenceEngine(jax.tree.map(np.asarray, params), cfg, device="cpu",
+    params = _params(int4=False, seed=5)
+    jax_engine = JaxEngine(params, _engine_config(jconfig), cache_dtype=jnp.int8,
+                           attn_impl="xla", decode_recent_kv=False, decode_chunk=4)
+    port = InferenceEngine(jax.tree.map(np.asarray, params), _engine_config(), device="cpu",
                            cache_dtype=torch.int8, decode_chunk=4)
-    assert port.generate(batch, gen).token_ids == want.token_ids
+    want, got = _generate_both(jax_engine, port, max_new_tokens=8, greedy=True)
+    assert got.token_ids == want.token_ids
 
 
 def test_torch_int8_cache_layout_and_bytes():

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from chatts_tpu.core.config import GenerationConfig
+from chatts_tpu.core import config as jconfig
 from chatts_tpu.models import chatts as jchatts
 from chatts_tpu.models import quantize as jquant
 from chatts_tpu.models import qwen as jqwen
@@ -22,7 +22,8 @@ from chatts_tpu_torch.models import quantize as tquant
 from chatts_tpu_torch.models.convert import dense_from_jax, qwen_from_jax, to_tensor
 from chatts_tpu_torch.models.qwen import Dense
 from chatts_tpu_torch.runtime.engine import InferenceEngine
-from tests.test_torch_engine import _batch, _config as _engine_config
+from tests.test_torch_engine import _config as _engine_config
+from tests.test_torch_engine import _generate_both
 from tests.test_torch_qwen import _config, _inputs, _llm_params
 
 DENSE_TOL = 1e-5
@@ -107,7 +108,7 @@ def test_torch_int8_dense_matches_jax(mode, rows):
 
 def test_torch_quantize_llm_bits8_matches_jax_bytes():
     cfg = _config(qwen3=False)
-    params = _llm_params(cfg, fused=False, int4=False, seed=12)
+    params = _llm_params(False, fused=False, int4=False, seed=12)
     want = jax.tree.map(np.asarray, jquant.quantize_llm(params, bits=8))
     got = tquant.quantize_llm(qwen_from_jax(params, cfg.llm), bits=8)
     for jl, tl in zip(want["layers"], got.layers):
@@ -124,8 +125,8 @@ def test_torch_quantize_llm_int4_falls_back_to_int8_like_jax():
     """head_dim 32 with 2 KV heads makes k_proj and v_proj 64 wide, which
     the int4 kernels do not tile: both packages quantize them to int8."""
     cfg = _engine_config()
-    params = jax.tree.map(np.asarray, jqwen.init_params(cfg.llm, jax.random.PRNGKey(3),
-                                                        dtype=jnp.float32))
+    params = jax.tree.map(np.asarray, jqwen.init_params(
+        _engine_config(jconfig).llm, jax.random.PRNGKey(3), dtype=jnp.float32))
     want = jax.tree.map(np.asarray, jquant.quantize_llm(params, bits=4))
     got = tquant.quantize_llm(qwen_from_jax(params, cfg.llm), bits=4)
     kinds = set()
@@ -145,7 +146,8 @@ def test_torch_init_quantized_params_layout_matches_jax(bits, fused):
     """The same layout, dtypes and scales as the JAX package; bits=4 at
     head_dim 32 falls back to int8 where a projection does not tile."""
     cfg = _engine_config()
-    want = jquant.init_quantized_params(cfg, jax.random.PRNGKey(0), fused=fused, bits=bits)
+    want = jquant.init_quantized_params(_engine_config(jconfig), jax.random.PRNGKey(0),
+                                        fused=fused, bits=bits)
     got = tquant.init_quantized_params(cfg, torch.Generator().manual_seed(0), "cpu",
                                        bits=bits, fused=fused)
     want = jax.tree.map(np.asarray, want["llm"])
@@ -167,14 +169,14 @@ def test_torch_init_quantized_params_layout_matches_jax(bits, fused):
 
 @pytest.mark.parametrize("act_int8", [False, True], ids=["weight_only", "act_int8"])
 def test_torch_int8_forward_matches_jax(act_int8):
-    cfg = _config(qwen3=True)
+    cfg, jlcfg = _config(qwen3=True), _config(True, jconfig).llm
     params = jax.tree.map(np.asarray, jquant.quantize_llm(
-        _llm_params(cfg, fused=True, int4=False, seed=13), bits=8))
+        _llm_params(True, fused=True, int4=False, seed=13), bits=8))
     embeds, positions, seq_lens = _inputs(cfg, seed=14)
     kv_valid = positions < seq_lens[:, None]
-    want, _ = jqwen.forward(params, cfg.llm, jnp.asarray(embeds), jnp.asarray(positions),
+    want, _ = jqwen.forward(params, jlcfg, jnp.asarray(embeds), jnp.asarray(positions),
                             kv_valid=jnp.asarray(kv_valid), attn_impl="xla", act_int8=act_int8)
-    want_logits = np.asarray(jqwen.compute_logits(params, cfg.llm, want))
+    want_logits = np.asarray(jqwen.compute_logits(params, jlcfg, want))
     model = qwen_from_jax(params, cfg.llm)
     got, _ = model(torch.from_numpy(embeds), torch.from_numpy(positions),
                    kv_valid=torch.from_numpy(kv_valid), act_int8=act_int8)
@@ -190,17 +192,18 @@ def test_torch_int8_forward_matches_jax(act_int8):
 def test_torch_int8_greedy_generate_matches_jax(act_int8):
     cfg = _engine_config()
     params = jquant.quantize_params(
-        jchatts.maybe_fuse(jchatts.init_params(cfg, jax.random.PRNGKey(4), dtype=jnp.float32)),
+        jchatts.maybe_fuse(jchatts.init_params(_engine_config(jconfig), jax.random.PRNGKey(4),
+                                               dtype=jnp.float32)),
         bits=8)
     assert all("kernel_q" in sub for layer in params["llm"]["layers"]
                for group in (layer["self_attn"], layer["mlp"])
                for sub in group.values() if isinstance(sub, dict))
-    jax_engine = JaxEngine(params, cfg, cache_dtype=jnp.float32, attn_impl="xla",
-                           decode_recent_kv=False, decode_chunk=4, prefill_act_int8=act_int8)
+    jax_engine = JaxEngine(params, _engine_config(jconfig), cache_dtype=jnp.float32,
+                           attn_impl="xla", decode_recent_kv=False, decode_chunk=4,
+                           prefill_act_int8=act_int8)
     port = InferenceEngine(jax.tree.map(np.asarray, params), cfg, device="cpu",
                            cache_dtype=torch.float32, decode_chunk=4, prefill_act_int8=act_int8)
-    batch = _batch(cfg)
-    gen = GenerationConfig(max_new_tokens=10, greedy=True)
-    got = port.generate(batch, gen).token_ids
-    assert got == jax_engine.generate(batch, gen).token_ids
+    want, got = _generate_both(jax_engine, port, max_new_tokens=10, greedy=True)
+    got = got.token_ids
+    assert got == want.token_ids
     assert all(len(t) == 10 for t in got)

@@ -17,6 +17,9 @@ row's largest output: both sides compute in f32 and round once to bf16 (one
 ulp, at most 2**-7 of the row's largest), and a long row's outputs are too
 small for the shared absolute tolerance to see one wrong 128-key tile.
 
+The int4 matmul is also held, path by path, to one bf16 ulp of the plain
+version of its own arithmetic (see its test).
+
 The int8-activation matmul is held to one bf16 ulp of its plain version
 (2**-7 of each output): every group's int32 sum is exact, and both add
 f32(sum) * s_g in group order and round once.  The int8-weight projection
@@ -148,13 +151,26 @@ def test_torch_ragged_int8_kernel_refuses_what_it_does_not_take(cuda):
         rda.ragged_decode_attention_int8(_bf16(gen, (1, 3, 128), cuda), k, k, ks, ks, lens)
 
 
-@pytest.mark.parametrize("r", [1, 3, 16, 17, 130])
-@pytest.mark.parametrize("in_dim,out_dim", [(128, 128), (640, 384), (1152, 256)])
+INT4_ROWS = [1, 3, 16, 17, 24, 33, 64, 65, 130, 640]
+INT4_SHAPES = [(128, 128), (640, 384), (1152, 256), (5120, 7168)]
+
+
+@pytest.mark.parametrize("r", INT4_ROWS)
+@pytest.mark.parametrize("in_dim,out_dim", INT4_SHAPES)
 def test_torch_int4_kernel_matches_plain(cuda, r, in_dim, out_dim):
-    gen = torch.Generator(device=cuda).manual_seed(r)
+    """Every path of the kernel at R rows.  Against the plain version of its
+    own arithmetic (``int4_matmul_grouped_reference``: per group an f32 sum,
+    times the scales, added in group order) it is held to one bf16 ulp plus
+    2**-16 of the row's largest output: only the order of the f32 sums inside
+    a group differs, and the one rounding to bf16 may land one ulp apart.
+    Against the dequantizing plain version, which rounds each weight to
+    bf16, the shared tolerance holds.  Two calls agree to the bit, and the
+    0x88 bytes count as -8."""
+    gen = torch.Generator(device=cuda).manual_seed(r + in_dim)
     x = _bf16(gen, (r, in_dim), cuda)
     packed = torch.randint(-128, 128, (in_dim // 2, out_dim), generator=gen, device=cuda,
                            dtype=torch.int8)
+    packed[0, :9] = -120  # 0x88: both nibbles -8
     scales = (torch.rand((in_dim // 128, out_dim), generator=gen, device=cuda) + 0.5) \
         / (7 * math.sqrt(in_dim))
     before = i4.int4_matmul.launches
@@ -162,6 +178,29 @@ def test_torch_int4_kernel_matches_plain(cuda, r, in_dim, out_dim):
     torch.cuda.synchronize()
     assert i4.int4_matmul.launches == before + 1
     _close(got, i4.int4_matmul_reference(x, packed, scales))
+    grouped = i4.int4_matmul_grouped_reference(x, packed, scales)
+    row_max = grouped.float().abs().amax(dim=-1, keepdim=True)
+    one = torch.zeros_like(x)
+    one[0, :2] = 1  # row 0 of the product: q[0] + q[1], times the first scales
+    want1 = (-16 * scales[0, :9]).to(torch.bfloat16)
+    for path in i4.PATHS.values():
+        out = i4.int4_matmul_on_path(x, packed, scales, path)
+        assert torch.equal(out, i4.int4_matmul_on_path(x, packed, scales, path))
+        _within_one_ulp(out, grouped, 2.0 ** -16 * row_max)
+        assert torch.equal(i4.int4_matmul_on_path(one, packed, scales, path)[0, :9], want1)
+    assert torch.equal(got, i4.int4_matmul_on_path(x, packed, scales, i4.int4_path(r)))
+
+
+def test_torch_int4_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((17, 256), device=cuda, dtype=torch.bfloat16)
+    packed = torch.zeros((128, 256), device=cuda, dtype=torch.int8)
+    scales = torch.ones((2, 256), device=cuda)
+    with pytest.raises(ValueError, match="no path"):
+        i4.int4_matmul_on_path(x, packed, scales, 0)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        i4.int4_matmul(x[:, :192], packed[:96], scales)
+    with pytest.raises(ValueError, match="bfloat16"):
+        i4.int4_matmul(x.float(), packed, scales)
 
 
 def _within_one_ulp(got, ref, atol=0.0):

@@ -11,15 +11,17 @@ import numpy as np
 import pytest
 import torch
 
-from chatts_tpu.core.config import tiny_config
+from chatts_tpu.core import config as jconfig
 from chatts_tpu.models import chatts as jchatts
 from chatts_tpu.models import qwen as jqwen
 from chatts_tpu.models import quantize as jquant
-from chatts_tpu.processor.processor import ChatTSProcessor
+from chatts_tpu.processor import processor as jprocessor
+from chatts_tpu_torch.core import config as tconfig
 from chatts_tpu_torch.models import chatts as tchatts
 from chatts_tpu_torch.models import quantize as tquant
 from chatts_tpu_torch.models.convert import from_jax_params, qwen_from_jax, to_tensor
 from chatts_tpu_torch.models.qwen import Dense, QwenModel
+from chatts_tpu_torch.processor import processor as tprocessor
 from chatts_tpu_torch.runtime import kv_cache as tkv
 from tests.helpers import FakeTokenizer, random_series
 
@@ -38,16 +40,17 @@ def _randomize(tree, rng):
     return tree
 
 
-def _config(qwen3):
-    # head_dim 64 keeps every projection a multiple of 128 wide, so int4 needs
-    # no int8 fallback even unfused.
-    return tiny_config(vocab_size=512, hidden_size=128, intermediate_size=256,
+def _config(qwen3, m=tconfig):
+    """The tiny config from module ``m``: the port's, or the JAX package's
+    for the JAX side.  head_dim 64 keeps every projection a multiple of 128
+    wide, so int4 needs no int8 fallback even unfused."""
+    return m.tiny_config(vocab_size=512, hidden_size=128, intermediate_size=256,
                        num_attention_heads=4, num_key_value_heads=2, head_dim=64,
                        qwen3=qwen3)
 
 
-def _llm_params(cfg, fused, int4, seed=0):
-    params = jqwen.init_params(cfg.llm, jax.random.PRNGKey(seed), dtype=jnp.float32)
+def _llm_params(qwen3, fused, int4, seed=0):
+    params = jqwen.init_params(_config(qwen3, jconfig).llm, jax.random.PRNGKey(seed), dtype=jnp.float32)
     params = _randomize(jax.tree.map(np.asarray, params), np.random.default_rng(seed))
     if fused:
         params = jqwen.fuse_projections(params)
@@ -74,13 +77,14 @@ def _inputs(cfg, b=2, t=12, seed=1):
 @pytest.mark.parametrize("int4", [False, True], ids=["float", "int4"])
 def test_torch_qwen_forward_matches_jax(qwen3, fused, int4):
     cfg = _config(qwen3)
-    params = _llm_params(cfg, fused, int4)
+    params = _llm_params(qwen3, fused, int4)
     embeds, positions, seq_lens = _inputs(cfg)
     kv_valid = positions < seq_lens[:, None]
 
-    hidden, _ = jqwen.forward(params, cfg.llm, jnp.asarray(embeds), jnp.asarray(positions),
+    jlcfg = _config(qwen3, jconfig).llm
+    hidden, _ = jqwen.forward(params, jlcfg, jnp.asarray(embeds), jnp.asarray(positions),
                               kv_valid=jnp.asarray(kv_valid), attn_impl="xla")
-    want_logits = np.asarray(jqwen.compute_logits(params, cfg.llm, hidden))
+    want_logits = np.asarray(jqwen.compute_logits(params, jlcfg, hidden))
 
     model = qwen_from_jax(params, cfg.llm)
     got_hidden, _ = model(torch.from_numpy(embeds), torch.from_numpy(positions),
@@ -97,8 +101,8 @@ def test_torch_qwen_prefill_then_decode_matches_jax(qwen3, int4):
     at cur_len and attend the cache prefix; hidden states and the caches
     themselves match."""
     cfg = _config(qwen3)
-    lcfg = cfg.llm
-    params = _llm_params(cfg, fused=True, int4=int4, seed=2)
+    lcfg, jlcfg = cfg.llm, _config(qwen3, jconfig).llm
+    params = _llm_params(qwen3, fused=True, int4=int4, seed=2)
     embeds, positions, seq_lens = _inputs(cfg, seed=3)
     b, t = positions.shape
     cap = 32
@@ -107,7 +111,7 @@ def test_torch_qwen_prefill_then_decode_matches_jax(qwen3, int4):
     jcaches = [(jnp.zeros((b, lcfg.num_key_value_heads, cap, lcfg.head_dim)),) * 2
                for _ in range(lcfg.num_hidden_layers)]
     jh, jcaches = jqwen.forward(
-        params, lcfg, jnp.asarray(embeds), jnp.asarray(positions), kv_caches=jcaches,
+        params, jlcfg, jnp.asarray(embeds), jnp.asarray(positions), kv_caches=jcaches,
         kv_valid=jnp.asarray(kv_pos < seq_lens[:, None]), kv_positions=jnp.asarray(kv_pos),
         attn_impl="xla")
     model = qwen_from_jax(params, lcfg)
@@ -124,7 +128,7 @@ def test_torch_qwen_prefill_then_decode_matches_jax(qwen3, int4):
         step = rng.normal(0, 1, (b, 1, lcfg.hidden_size)).astype(np.float32)
         pos = cur[:, None]
         jh, jcaches = jqwen.forward(
-            params, lcfg, jnp.asarray(step), jnp.asarray(pos), kv_caches=jcaches,
+            params, jlcfg, jnp.asarray(step), jnp.asarray(pos), kv_caches=jcaches,
             write_pos=jnp.asarray(pos), kv_valid=jnp.asarray(kv_pos <= cur[:, None]),
             kv_positions=jnp.asarray(kv_pos), kv_lengths=jnp.asarray(cur + 1),
             attn_impl="xla")
@@ -153,26 +157,33 @@ def test_torch_merge_embeddings_drops_out_of_bounds_rows():
 
 
 def test_torch_chatts_input_embeddings_match_jax():
-    cfg = tiny_config(vocab_size=512, hidden_size=64, intermediate_size=128, patch_size=4)
-    params = jchatts.init_params(cfg, jax.random.PRNGKey(6), dtype=jnp.float32)
-    rng = np.random.default_rng(7)
-    batch = ChatTSProcessor(FakeTokenizer(), cfg)(
-        ["look <ts><ts/> here", "and <ts><ts/> then <ts><ts/>"],
-        [random_series(rng, 10), random_series(rng, 17), random_series(rng, 6)])
-    assert (batch.scatter_seq == len(batch.seq_lens)).any()  # padded patch slots
-    args = (batch.input_ids, batch.ts_values, batch.ts_mask, batch.scatter_seq,
-            batch.scatter_tok)
-    want = jchatts.input_embeddings(params, cfg, *(jnp.asarray(a) for a in args))
+    kw = dict(vocab_size=512, hidden_size=64, intermediate_size=128, patch_size=4)
+    jcfg, cfg = jconfig.tiny_config(**kw), tconfig.tiny_config(**kw)
+    params = jchatts.init_params(jcfg, jax.random.PRNGKey(6), dtype=jnp.float32)
+
+    def batch_args(processor, c):
+        rng = np.random.default_rng(7)
+        batch = processor.ChatTSProcessor(FakeTokenizer(), c)(
+            ["look <ts><ts/> here", "and <ts><ts/> then <ts><ts/>"],
+            [random_series(rng, 10), random_series(rng, 17), random_series(rng, 6)])
+        assert (batch.scatter_seq == len(batch.seq_lens)).any()  # padded patch slots
+        return (batch.input_ids, batch.ts_values, batch.ts_mask, batch.scatter_seq,
+                batch.scatter_tok)
+
+    want = jchatts.input_embeddings(params, jcfg, *(jnp.asarray(a) for a in batch_args(
+        jprocessor, jcfg)))
     model = from_jax_params(jax.tree.map(np.asarray, params), cfg)
-    got = model.input_embeddings(*(torch.from_numpy(np.asarray(a)) for a in args))
+    got = model.input_embeddings(*(torch.from_numpy(np.asarray(a)) for a in batch_args(
+        tprocessor, cfg)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_torch_maybe_fuse_keeps_logits():
     cfg = _config(qwen3=False)
-    params = _llm_params(cfg, fused=False, int4=False, seed=8)
+    params = _llm_params(False, fused=False, int4=False, seed=8)
     tree = {"llm": params, "ts_encoder": jax.tree.map(
-        np.asarray, jchatts.init_params(cfg, jax.random.PRNGKey(0))["ts_encoder"])}
+        np.asarray, jchatts.init_params(_config(False, jconfig),
+                                        jax.random.PRNGKey(0))["ts_encoder"])}
     embeds, positions, _ = _inputs(cfg, seed=9)
     model = from_jax_params(tree, cfg)
     before, _ = model.llm(torch.from_numpy(embeds), torch.from_numpy(positions))
@@ -184,7 +195,7 @@ def test_torch_maybe_fuse_keeps_logits():
 
 def test_torch_quantize_llm_matches_jax_bytes():
     cfg = _config(qwen3=False)
-    params = _llm_params(cfg, fused=False, int4=False, seed=10)
+    params = _llm_params(False, fused=False, int4=False, seed=10)
     want = jax.tree.map(np.asarray, jquant.quantize_llm(params, bits=4))
     got = tquant.quantize_llm(qwen_from_jax(params, cfg.llm), bits=4)
     for jl, tl in zip(want["layers"], got.layers):
@@ -239,13 +250,14 @@ def test_torch_bf16_products_are_f32_like_jax(case):
         got = Dense(to_tensor(w), bias=to_tensor(bias))(to_tensor(x))
         assert got.dtype == torch.bfloat16
     else:
-        lcfg = dataclasses.replace(_config(qwen3=False).llm, vocab_size=out,
-                                   hidden_size=hid, tie_word_embeddings=case == "tied")
+        lcfg, jlcfg = (dataclasses.replace(_config(False, m).llm, vocab_size=out,
+                                           hidden_size=hid, tie_word_embeddings=case == "tied")
+                       for m in (tconfig, jconfig))
         table = jnp.asarray(rng.normal(0, 0.5, (out, hid)).astype(np.float32), jnp.bfloat16)
         params = {"embed_tokens": table}
         if case == "lm_head":
             params["lm_head"] = w
-        want = jqwen.compute_logits(params, lcfg, x)
+        want = jqwen.compute_logits(params, jlcfg, x)
         model = QwenModel(lcfg, to_tensor(table), [], to_tensor(jnp.ones((hid,))),
                           lm_head=to_tensor(w) if case == "lm_head" else None)
         got = model.compute_logits(to_tensor(x))

@@ -20,12 +20,14 @@ import numpy as np
 import pytest
 import torch
 
-from chatts_tpu.core.config import GenerationConfig, tiny_config
+from chatts_tpu.core import config as jconfig
 from chatts_tpu.models import chatts
-from chatts_tpu.processor.processor import ChatTSProcessor
+from chatts_tpu.processor import processor as jprocessor
 from chatts_tpu.runtime.engine import InferenceEngine as JaxEngine
 from chatts_tpu.runtime.sampling import sample_per_slot as jax_sample_per_slot
+from chatts_tpu_torch.core import config as tconfig
 from chatts_tpu_torch.models.convert import from_jax_params
+from chatts_tpu_torch.processor.processor import ChatTSProcessor
 from chatts_tpu_torch.runtime.sampling import TOP_K_CAP, sample_per_slot
 from chatts_tpu_torch.serve import scheduler
 from chatts_tpu_torch.serve.scheduler import (
@@ -41,13 +43,17 @@ from tests.helpers import FakeTokenizer
 GREEDY = dict(temperature=0.0)
 
 
+TINY = dict(vocab_size=256, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=2, patch_size=4,
+            max_sequence_length=64, ts_token_start_index=240)
+
+
 @pytest.fixture(scope="module")
 def setup():
-    cfg = tiny_config(vocab_size=256, hidden_size=32, intermediate_size=64,
-                      num_hidden_layers=2, num_attention_heads=4,
-                      num_key_value_heads=2, patch_size=4,
-                      max_sequence_length=64, ts_token_start_index=240)
-    params = chatts.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    """The port's config, processor and model; the JAX weights they hold."""
+    cfg = tconfig.tiny_config(**TINY)
+    params = chatts.init_params(jconfig.tiny_config(**TINY), jax.random.PRNGKey(0),
+                                dtype=jnp.float32)
     proc = ChatTSProcessor(FakeTokenizer(vocab_limit=200), cfg)
     model = from_jax_params(jax.tree.map(np.asarray, params), cfg)
     return cfg, params, proc, model
@@ -86,12 +92,15 @@ PROMPTS = [
 
 @pytest.mark.parametrize("cache", ["f32", "int8"])
 def test_torch_serve_greedy_matches_jax_engine(setup, cache):
-    cfg, params, proc, _ = setup
+    _, params, _, _ = setup
     jdtype, tdtype = {"f32": (jnp.float32, torch.float32),
                       "int8": (jnp.int8, torch.int8)}[cache]
-    jax_engine = JaxEngine(params, cfg, cache_dtype=jdtype, attn_impl="xla",
+    jcfg = jconfig.tiny_config(**TINY)
+    jproc = jprocessor.ChatTSProcessor(FakeTokenizer(vocab_limit=200), jcfg)
+    jax_engine = JaxEngine(params, jcfg, cache_dtype=jdtype, attn_impl="xla",
                            decode_recent_kv=False, decode_chunk=4)
-    want = [jax_engine.generate(proc([p], ts), GenerationConfig(max_new_tokens=7, greedy=True))
+    want = [jax_engine.generate(jproc([p], ts),
+                                jconfig.GenerationConfig(max_new_tokens=7, greedy=True))
             .token_ids[0] for p, ts in PROMPTS]
     with make_engine(setup, cache_dtype=tdtype) as eng:
         reqs = [Request(p, ts, SamplingParams(max_tokens=7, **GREEDY)) for p, ts in PROMPTS]

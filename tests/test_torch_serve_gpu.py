@@ -1,5 +1,6 @@
 """The port's ``ServeEngine`` on the card, built the way a user builds it:
-``device="cuda"``, with no index.
+``device="cuda"`` with no index, or no device at all (the card is the
+default), and its decode rounds replayed from a CUDA graph.
 
 Marked ``gpu``; the test skips where there is no CUDA card.  This file imports
 no JAX, so on a machine without it run it without the repository's conftest:
@@ -16,8 +17,10 @@ from chatts_tpu_torch.models.quantize import init_quantized_params
 from chatts_tpu_torch.ops import flash_attention as fa
 from chatts_tpu_torch.ops import int4_matmul as i4
 from chatts_tpu_torch.ops import ragged_decode_attention as rda
+from chatts_tpu_torch.serve import scheduler
 from chatts_tpu_torch.serve.scheduler import SamplingParams, ServeEngine
-from chatts_tpu_torch.shared import ChatTSProcessor, tiny_config
+from chatts_tpu_torch.core.config import tiny_config
+from chatts_tpu_torch.processor.processor import ChatTSProcessor
 
 pytestmark = pytest.mark.gpu
 
@@ -35,7 +38,8 @@ class WordTokenizer:
         return " ".join(f"t{int(i)}" for i in ids)
 
 
-def test_torch_serve_engine_on_unindexed_cuda_device():
+@pytest.fixture
+def tiny_int4():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     # head_dim 128 and int4 widths that are multiples of 128, as the kernels take.
@@ -44,7 +48,11 @@ def test_torch_serve_engine_on_unindexed_cuda_device():
                       head_dim=128, patch_size=4, max_sequence_length=64,
                       ts_token_start_index=500)
     model = init_quantized_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    proc = ChatTSProcessor(WordTokenizer(), cfg)
+    return cfg, model, ChatTSProcessor(WordTokenizer(), cfg)
+
+
+def test_torch_serve_engine_on_unindexed_cuda_device(tiny_int4):
+    cfg, model, proc = tiny_int4
     wrappers = (fa.flash_attention, i4.int4_matmul, rda.ragged_decode_attention_int8)
     before = [fn.launches for fn in wrappers]
     with ServeEngine(model, cfg, proc, device="cuda", max_batch_size=2, max_model_len=256,
@@ -56,3 +64,38 @@ def test_torch_serve_engine_on_unindexed_cuda_device():
     assert req.finish_reason == "length" and len(req.output_tokens) == 6
     assert all(0 <= t < cfg.llm.vocab_size for t in req.output_tokens)
     assert all(fn.launches > n for fn, n in zip(wrappers, before))
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_torch_serve_decode_graph_matches_eager_rounds(tiny_int4, monkeypatch, temperature):
+    """On the card every decode round replays one CUDA graph, captured in the
+    first.  13 decode steps as four rounds of 4 give the tokens of the same
+    rounds run eagerly (``_decode_all_slots``, the CPU's path), greedy and
+    sampled: the graph draws from the engine's generator as the eager steps
+    do, and the capture's warm-up step draws from none of it."""
+    cfg, model, proc = tiny_int4
+
+    class EagerRounds:
+        def __init__(self, *args):
+            self.args = args
+
+        def round(self):
+            return scheduler._decode_all_slots(*self.args)
+
+    tokens, graphs = {}, {}
+    for form in ("graph", "eager"):
+        if form == "eager":
+            monkeypatch.setattr(scheduler, "_DecodeStepGraph", EagerRounds)
+        with ServeEngine(model, cfg, proc, max_batch_size=2, max_model_len=256,
+                         cache_dtype=torch.int8, decode_chunk=4) as eng:
+            req = eng.generate_sync("check <ts><ts/> the series", [np.sin(np.arange(40.0))],
+                                    SamplingParams(max_tokens=14, temperature=temperature),
+                                    timeout=120)
+        # Read once the loop has stopped: the last round is logged after
+        # the request it finished is marked done.
+        assert req.error is None, req.error
+        assert eng.stats()["rounds_decode"] == 4
+        tokens[form] = req.output_tokens
+        graphs[form] = type(eng._decode_graph).__name__
+    assert graphs == {"graph": "_DecodeStepGraph", "eager": "EagerRounds"}
+    assert len(tokens["graph"]) == 14 and tokens["graph"] == tokens["eager"]

@@ -8,8 +8,9 @@ import numpy as np
 import pytest
 import torch
 
-from chatts_tpu.core.config import TSEncoderConfig
+from chatts_tpu.core import config as jconfig
 from chatts_tpu.models import ts_encoder as jts
+from chatts_tpu_torch.core import config as tconfig
 from chatts_tpu_torch.models import ts_encoder as tts
 from chatts_tpu_torch.models.convert import ts_encoder_from_jax
 
@@ -34,16 +35,17 @@ def _inputs(seed, n=5, lmax=32):
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_torch_ts_encoder_matches_jax(variant):
-    cfg = TSEncoderConfig(patch_size=4, num_layers=3, hidden_size=48,
-                          max_sequence_length=64, embedding_dim=8, **VARIANTS[variant])
-    params = jts.init_params(cfg, jax.random.PRNGKey(3))
+    kw = dict(patch_size=4, num_layers=3, hidden_size=48, max_sequence_length=64,
+              embedding_dim=8, **VARIANTS[variant])
+    jcfg, cfg = jconfig.TSEncoderConfig(**kw), tconfig.TSEncoderConfig(**kw)
+    params = jts.init_params(jcfg, jax.random.PRNGKey(3))
     rng = np.random.default_rng(4)
     # Non-zero biases so the bias path is exercised.
     for layer in params["mlp"]:
         layer["bias"] = rng.normal(0, 0.1, layer["bias"].shape).astype(np.float32)
     values, mask = _inputs(5)
 
-    want, want_cnt, want_mask = jts.forward(params, values, mask, cfg)
+    want, want_cnt, want_mask = jts.forward(params, values, mask, jcfg)
     encoder = ts_encoder_from_jax(jax.tree.map(np.asarray, params), cfg)
     got, got_cnt, got_mask = encoder(torch.from_numpy(values), torch.from_numpy(mask))
 
@@ -61,7 +63,8 @@ def test_torch_pad_with_last_value_matches_jax():
 
 
 def test_torch_ts_encoder_restores_tf32_flags():
-    cfg = TSEncoderConfig(patch_size=4, num_layers=2, hidden_size=16, max_sequence_length=16)
+    cfg = tconfig.TSEncoderConfig(patch_size=4, num_layers=2, hidden_size=16,
+                                  max_sequence_length=16)
     encoder = tts.TSEncoder(cfg).reset_parameters(torch.Generator().manual_seed(0))
     before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     values, mask = _inputs(7, n=2, lmax=16)
