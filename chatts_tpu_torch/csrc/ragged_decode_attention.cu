@@ -1,5 +1,6 @@
 // Ragged decode attention for Hopper (sm_90a): one query token per batch row
-// against a head-major KV cache, reading only each row's valid prefix.
+// against a head-major KV cache, reading only each row's valid prefix, with
+// the KV axis split over blocks (flash-decoding).
 //
 // Replaces chatts_tpu/ops/ragged_decode_attention.py::ragged_decode_attention
 // (Pallas body `_kernel`; the bf16 cache variant).
@@ -12,217 +13,329 @@
 //   A row of length 0 gives 0.
 //
 // What bounds it on the H100: device-memory bandwidth.  Every key and value
-// of the valid prefix is read once and used for G = H / KVH query heads, so
-// the kernel does about G multiply-adds per byte it reads.
+// of the valid prefix is read once and used for G = H / KVH query heads:
+// about G multiply-adds a byte, far below what the CUDA cores do, so the
+// products stay in f32 on the CUDA cores, exactly the reference's arithmetic
+// (the tensor cores would force q and p to bf16).
 //
-// Design: one block of 128 threads per (batch row, kv head), serving all G
-// query heads of that kv head, as the reference does.  128-key tiles of k and
-// v stream into shared memory with cp.async, double-buffered, so the next
-// tile's loads are in flight while the current tile is computed.  In the
-// score phase thread j owns key j of the tile and computes its G scores; in
-// the PV phase thread d owns output column d of all G heads.  Per-head
-// max and sum are block reductions (warp shuffles, then 4 warps through
-// shared memory).  Only ceil(length / 128) tiles are read.
-// With B * KVH blocks (32 at B = 4, KVH = 8) the kernel fills a quarter of the
-// 132 SMs; splitting the KV axis with a logsumexp merge (flash-decoding) is
-// the known cure and later work.
+// What held the first version back: a grid of (KVH, B) blocks (32 blocks for
+// 132 SMs at B = 4) whose time was the longest row's, each block walking its
+// row's tiles one after another; 143 KB of shared memory a block, so one
+// block an SM with one 64 KB tile in flight and a full wait before any
+// compute; three block barriers and two block-wide reductions a tile; a PV
+// loop of 128 dependent steps.
+//
+// Design:
+//   * Grid (splits, KVH, B): block z takes the keys [z * chunk, (z + 1) *
+//     chunk) below the row's length, for all G heads of its kv head.  The
+//     plan comes from the shapes alone (decode_split.cuh); `lengths` is read
+//     only here, on the device.  A block past the length returns at once.
+//   * Inside a block each of the 4 warps walks its own 32-key tiles of the
+//     chunk (tiles warp, warp + 4, ...) with its own running max, sum and
+//     accumulator; the warps meet once, at the end of the chunk.
+//   * No k or v passes through shared memory: a warp's tile sits in its
+//     registers.  For the scores lane j owns key j of the tile and reads its
+//     row with 16 loads of 16 bytes, against q in shared memory (f32, scaled;
+//     broadcast reads), so a score needs no reduction across lanes.  p goes
+//     through 128 bytes a head of the warp's own shared memory.  For the PV
+//     product lane j owns output columns 4j..4j+3 and reads 8 bytes of each
+//     value row (a row of 256 bytes a warp load).  All 48 loads of a tile are
+//     started before anything waits for one (up to 8 heads a kv head; above,
+//     the value rows come 8 at a time), the first tile's before q is staged,
+//     the next tile's keys under this tile's PV product.  The sum of p stays
+//     a per-lane partial until the end.
+//   * The kernel is compiled for each G up to 8 (and for 16 slots, the heads
+//     past G zero, for 9 to 16), so the loops over the heads have no branch
+//     and their multiply-adds overlap: with a run-time bound on the heads
+//     every (16 bytes of a key, head) pair was a branch, two shared-memory
+//     loads and a dependent chain, and a 32-key tile took a warp 9 us.
+//     On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 2; B4 H40
+//     KVH8 S2048, lengths 1/255/257/2048): 0.0143 ms, the first version
+//     0.131 ms, SDPA 0.0244 ms, the byte bound 0.0032 ms.
+//   * Shared memory is 15 KB a block at G = 5 (q, p, the warps' parts), so
+//     several blocks share an SM and their loads overlap.
+//   * With more than one split a block writes its unnormalised accumulator,
+//     max and sum to the workspace and decode_merge_kernel joins them in split
+//     order; with one split the block normalises and writes the output itself.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_split.cuh"
+
 namespace {
 
-constexpr int kD = 128;
-constexpr int kTK = 128;      // keys per tile
+using decode_split::kD;
+using decode_split::kNegInf;
+
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kKPad = 8;      // bf16 padding per key row: conflict-free 16-byte reads
-constexpr float kNegInf = -3.4028234663852886e38f;  // float32 min, as the reference
+constexpr int kTK = 32;  // keys a warp tile
+constexpr unsigned kFull = 0xffffffffu;
 
 template <int MAXG>
 struct Smem {
-  __nv_bfloat16 ks[2][kTK][kD + kKPad];
-  __nv_bfloat16 vs[2][kTK][kD];
-  float qs[MAXG][kD];
-  float ps[MAXG][kTK];
-  float red_max[kWarps][MAXG];
-  float red_sum[kWarps][MAXG];
+  float qs[MAXG][kD];               // q, scaled, f32
+  float ps[kWarps][MAXG][kTK];      // a warp's p of its current tile
+  float acc[kWarps][MAXG][kD];      // the warps' parts, written once at the end
+  float ml[kWarps][MAXG][2];
 };
 
 __device__ __forceinline__ float bf16_lo(unsigned int u) { return __uint_as_float(u << 16); }
 __device__ __forceinline__ float bf16_hi(unsigned int u) { return __uint_as_float(u & 0xffff0000u); }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0 bytes read: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-template <int MAXG>
-__device__ __forceinline__ void load_tile(Smem<MAXG>& sm, int stage, const __nv_bfloat16* kbase,
-                                          const __nv_bfloat16* vbase, int s0, int S) {
-  // 128 keys x 16 chunks of 8 bf16, for k and for v: 16 chunks a thread each.
-#pragma unroll 4
-  for (int i = 0; i < (kTK * kD / 8) / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx >> 4;
-    const int c = (idx & 15) * 8;
-    const int s = s0 + r;
-    const bool in = s < S;
-    const size_t off = static_cast<size_t>(in ? s : 0) * kD + c;
-    cp_async16(&sm.ks[stage][r][c], kbase + off, in);
-    cp_async16(&sm.vs[stage][r][c], vbase + off, in);
-  }
-  cp_async_commit();
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
 }
 
 template <int MAXG>
-__global__ void __launch_bounds__(kThreads) ragged_decode_kernel(
+__global__ void __launch_bounds__(kThreads) ragged_decode_split_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_cache,
     const __nv_bfloat16* __restrict__ v_cache, const int* __restrict__ lengths,
-    __nv_bfloat16* __restrict__ out, int H, int KVH, int S, float scale) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int H, int KVH, int S, float scale,
+    int chunk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<MAXG>& sm = *reinterpret_cast<Smem<MAXG>*>(smem_raw);
 
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
+  const int z = blockIdx.x;
+  const int splits = gridDim.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
   const int G = H / KVH;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int length = min(max(lengths[b], 0), S);
-  const int n_tiles = (length + kTK - 1) / kTK;
+  const int begin = z * chunk;
+  const size_t out0 = (static_cast<size_t>(b) * H + kvh * G) * kD;
+  if (begin >= length) {
+    // Nothing to attend.  The merge skips this part; with one split the
+    // row has length 0 and its output is 0.
+    if (splits == 1) {
+      for (int g = 0; g < G; ++g) out[out0 + g * kD + tid] = __float2bfloat16_rn(0.f);
+    }
+    return;
+  }
+  const int end = min(begin + chunk, length);
 
   const size_t head = static_cast<size_t>(b) * KVH + kvh;
   const __nv_bfloat16* kbase = k_cache + head * S * kD;
   const __nv_bfloat16* vbase = v_cache + head * S * kD;
-  if (n_tiles > 0) load_tile(sm, 0, kbase, vbase, 0, S);
+
+  // A warp's tile in flight, in registers: lane's key row (16 x 16 bytes) and
+  // the lane's 8 bytes of each of kVB value rows.  Every load of a tile is
+  // started before anything waits for one.  A dead key's value row is never
+  // read: the cache past the length may hold anything, and 0 * NaN is NaN.
+  constexpr int kVB = MAXG <= 8 ? kTK : 8;  // value rows loaded at once
+  uint4 kreg[kD / 8];
+  uint2 vreg[kVB];
+  auto load_k = [&](int s0) {
+    const int key = s0 + lane < end ? s0 + lane : s0;
+    const uint4* krow = reinterpret_cast<const uint4*>(kbase + static_cast<size_t>(key) * kD);
+#pragma unroll
+    for (int c = 0; c < kD / 8; ++c) kreg[c] = __ldg(krow + c);
+  };
+  auto load_v = [&](int s0, int j0) {
+    const uint2* vrow = reinterpret_cast<const uint2*>(vbase + static_cast<size_t>(s0) * kD) + lane;
+#pragma unroll
+    for (int j = 0; j < kVB; ++j) {
+      vreg[j] = s0 + j0 + j < end ? __ldg(vrow + (j0 + j) * (kD / 4)) : make_uint2(0u, 0u);
+    }
+  };
+  const int first = begin + warp * kTK;
+  if (first < end) {
+    load_k(first);
+    if (kVB == kTK) load_v(first, 0);
+  }
 
   // Query heads kvh*G .. kvh*G+G-1, scaled in f32.
   for (int i = tid; i < MAXG * kD; i += kThreads) {
     const int g = i / kD;
     const int d = i - g * kD;
-    sm.qs[g][d] = (g < G) ? __bfloat162float(q[(static_cast<size_t>(b) * H + kvh * G + g) * kD + d]) * scale
-                          : 0.f;
+    sm.qs[g][d] = (g < G) ? __bfloat162float(q[out0 + g * kD + d]) * scale : 0.f;
   }
+  __syncthreads();
 
-  float m[MAXG], l[MAXG], acc[MAXG];
+  float m[MAXG], l[MAXG], acc[MAXG][4];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     m[g] = kNegInf;
-    l[g] = 0.f;
-    acc[g] = 0.f;
+    l[g] = 0.f;  // this lane's share of the sum of p
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    const int s0 = t * kTK;
-    cp_async_wait_all();
-    __syncthreads();  // tile t is visible; tile t-1 is no longer read
-    if (t + 1 < n_tiles) load_tile(sm, stage ^ 1, kbase, vbase, s0 + kTK, S);
-
-    // Score phase: thread tid owns key s0 + tid.
+  for (int s0 = first; s0 < end; s0 += kWarps * kTK) {
+    const int next = s0 + kWarps * kTK;
+    // Scores: lane owns key s0 + lane.
+    const bool live = s0 + lane < end;
     float sc[MAXG];
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) sc[g] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < kD; c += 8) {
-      const uint4 u = *reinterpret_cast<const uint4*>(&sm.ks[stage][tid][c]);
+#pragma unroll
+    for (int c = 0; c < kD / 8; ++c) {
+      const uint4 u = kreg[c];
       const float kv[8] = {bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y),
                            bf16_lo(u.z), bf16_hi(u.z), bf16_lo(u.w), bf16_hi(u.w)};
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) {
-        if (g < G) {
-          const float4 q0 = *reinterpret_cast<const float4*>(&sm.qs[g][c]);
-          const float4 q1 = *reinterpret_cast<const float4*>(&sm.qs[g][c + 4]);
-          sc[g] += q0.x * kv[0] + q0.y * kv[1] + q0.z * kv[2] + q0.w * kv[3] +
-                   q1.x * kv[4] + q1.y * kv[5] + q1.z * kv[6] + q1.w * kv[7];
+        const float4 q0 = *reinterpret_cast<const float4*>(&sm.qs[g][c * 8]);
+        const float4 q1 = *reinterpret_cast<const float4*>(&sm.qs[g][c * 8 + 4]);
+        sc[g] += q0.x * kv[0] + q0.y * kv[1] + q0.z * kv[2] + q0.w * kv[3] +
+                 q1.x * kv[4] + q1.y * kv[5] + q1.z * kv[6] + q1.w * kv[7];
+      }
+    }
+    if (next < end) load_k(next);  // the next tile's keys, under this tile's PV
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      const float s = live ? sc[g] : kNegInf;
+      const float m_new = fmaxf(m[g], warp_max(s));
+      const float alpha = expf(m[g] - m_new);
+      const float p = live ? expf(s - m_new) : 0.f;
+      m[g] = m_new;
+      l[g] = l[g] * alpha + p;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][e] *= alpha;
+      sm.ps[warp][g][lane] = p;
+    }
+    __syncwarp();
+
+    // PV: lane owns output columns 4*lane .. 4*lane+3.
+    const int n_live = min(kTK, end - s0);
+#pragma unroll
+    for (int j0 = 0; j0 < kTK; j0 += kVB) {
+      if (kVB < kTK) {
+        if (j0 >= n_live) break;
+        load_v(s0, j0);
+      }
+#pragma unroll
+      for (int j = 0; j < kVB; j += 4) {
+        if (j0 + j < n_live) {  // warp-uniform
+          float vv[4][4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            vv[jj][0] = bf16_lo(vreg[j + jj].x);
+            vv[jj][1] = bf16_hi(vreg[j + jj].x);
+            vv[jj][2] = bf16_lo(vreg[j + jj].y);
+            vv[jj][3] = bf16_hi(vreg[j + jj].y);
+          }
+#pragma unroll
+          for (int g = 0; g < MAXG; ++g) {
+            const float4 p4 = *reinterpret_cast<const float4*>(&sm.ps[warp][g][j0 + j]);
+            const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[g][e] += p[jj] * vv[jj][e];
+          }
         }
       }
     }
-    const bool live = s0 + tid < length;
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      float v = live ? sc[g] : kNegInf;
-      sc[g] = v;
-#pragma unroll
-      for (int off = 16; off >= 1; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-      if (lane == 0) sm.red_max[warp][g] = v;
-    }
-    __syncthreads();
-
-    float alpha[MAXG];
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      float tile_max = sm.red_max[0][g];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) tile_max = fmaxf(tile_max, sm.red_max[w][g]);
-      const float m_new = fmaxf(m[g], tile_max);
-      alpha[g] = expf(m[g] - m_new);
-      m[g] = m_new;
-      float p = live ? expf(sc[g] - m_new) : 0.f;
-      sm.ps[g][tid] = p;
-#pragma unroll
-      for (int off = 16; off >= 1; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
-      if (lane == 0) sm.red_sum[warp][g] = p;
-    }
-    __syncthreads();
-
-    // PV phase: thread tid owns output column d = tid of every head.
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      float tile_sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) tile_sum += sm.red_sum[w][g];
-      l[g] = l[g] * alpha[g] + tile_sum;
-      acc[g] *= alpha[g];
-    }
-    const int n_live = min(kTK, length - s0);
-    for (int j = 0; j < n_live; ++j) {
-      const float vj = __bfloat162float(sm.vs[stage][j][tid]);
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) acc[g] += sm.ps[g][j] * vj;
-    }
+    if (kVB == kTK && next < end) load_v(next, 0);
+    __syncwarp();  // the warp is done with ps before the next tile rewrites it
   }
 
+  // The warps meet: each leaves its part, then thread d joins column d in
+  // warp order.
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
-    if (g < G) {
-      const float denom = l[g] > 0.f ? l[g] : 1.f;
-      out[(static_cast<size_t>(b) * H + kvh * G + g) * kD + tid] = __float2bfloat16_rn(acc[g] / denom);
+    const float sum = warp_sum(l[g]);
+    *reinterpret_cast<float4*>(&sm.acc[warp][g][4 * lane]) =
+        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+    if (lane == 0) {
+      sm.ml[warp][g][0] = m[g];
+      sm.ml[warp][g][1] = sum;
+    }
+  }
+  __syncthreads();
+  const size_t n_parts = static_cast<size_t>(gridDim.z) * KVH * splits;
+  const size_t part = head * splits + z;
+  for (int g = 0; g < G; ++g) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm.ml[w][g][0]);
+    float sum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float e = expf(sm.ml[w][g][0] - mx);
+      sum += sm.ml[w][g][1] * e;
+      a += sm.acc[w][g][tid] * e;
+    }
+    if (splits == 1) {
+      out[out0 + g * kD + tid] = __float2bfloat16_rn(a / (sum > 0.f ? sum : 1.f));
+    } else {
+      decode_split::part_acc(ws, part, G, g)[tid] = a;
+      if (tid == 0) {
+        float* ml = decode_split::part_ml(ws, n_parts, part, G, g);
+        ml[0] = mx;
+        ml[1] = sum;
+      }
     }
   }
 }
 
 template <int MAXG>
-int launch(const void* q, const void* k, const void* v, const void* lengths, void* out, int B,
-           int H, int KVH, int S, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* lengths, void* out, void* ws,
+           int B, int H, int KVH, int S, float scale, int splits, int chunk,
+           cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(Smem<MAXG>));
-  cudaError_t err = cudaFuncSetAttribute(ragged_decode_kernel<MAXG>,
+  cudaError_t err = cudaFuncSetAttribute(ragged_decode_split_kernel<MAXG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(KVH, B);
-  ragged_decode_kernel<MAXG><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(splits, KVH, B);
+  ragged_decode_split_kernel<MAXG><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(out), H, KVH, S, scale);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), H, KVH, S, scale, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  decode_split::decode_merge_kernel<<<dim3(H, B), kD, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(out), H, KVH, S, splits, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (B,H,128), k/v cache (B,KVH,S,128) bf16, contiguous and 16-byte aligned;
-// lengths (B,) int32 on the device.  Requires H % KVH == 0 and H / KVH <= 16.
-// Returns cudaGetLastError(); 1 (cudaErrorInvalidValue) for a group too wide.
+// lengths (B,) int32 on the device.  `splits` blocks of `chunk` keys cover
+// the capacity S (chunk a multiple of 128); workspace holds B * KVH * splits
+// * (H / KVH) * 130 floats (decode_split.cuh has the layout) and may be null
+// with one split.  Requires H % KVH == 0, H / KVH <= 16, B <= 65535.
+// Returns cudaGetLastError(); 1 (cudaErrorInvalidValue) for a group too wide
+// or a plan that does not cover S.
 extern "C" int chatts_ragged_decode_attention(const void* q, const void* k, const void* v,
-                                              const void* lengths, void* out, int B, int H,
-                                              int KVH, int S, float scale, void* stream) {
+                                              const void* lengths, void* out, void* workspace,
+                                              int B, int H, int KVH, int S, float scale,
+                                              int splits, int chunk, void* stream) {
   const int G = H / KVH;
   auto st = static_cast<cudaStream_t>(stream);
-  if (G <= 4) return launch<4>(q, k, v, lengths, out, B, H, KVH, S, scale, st);
-  if (G <= 8) return launch<8>(q, k, v, lengths, out, B, H, KVH, S, scale, st);
-  if (G <= 16) return launch<16>(q, k, v, lengths, out, B, H, KVH, S, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (!decode_split::plan_ok(S, splits, chunk) || (splits > 1 && workspace == nullptr) ||
+      B > 65535 || KVH > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#define CHATTS_DECODE_CASE(N) \
+  case N:                      \
+    return launch<N>(q, k, v, lengths, out, workspace, B, H, KVH, S, scale, splits, chunk, st)
+  switch (G <= 8 ? G : (G <= 16 ? 16 : 0)) {
+    CHATTS_DECODE_CASE(1);
+    CHATTS_DECODE_CASE(2);
+    CHATTS_DECODE_CASE(3);
+    CHATTS_DECODE_CASE(4);
+    CHATTS_DECODE_CASE(5);
+    CHATTS_DECODE_CASE(6);
+    CHATTS_DECODE_CASE(7);
+    CHATTS_DECODE_CASE(8);
+    CHATTS_DECODE_CASE(16);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef CHATTS_DECODE_CASE
 }

@@ -7,7 +7,8 @@ Each ``chatts_tpu_torch/csrc/<name>.cu`` compiles on first use into
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>.so csrc/<name>.cu
 
 The sources have a plain C interface, so no PyTorch header is compiled and a
-build takes seconds.  A library is rebuilt when its source is newer.  The
+build takes seconds.  A library is rebuilt when its source, or any header
+``csrc/*.cuh`` (the kernels may share them), is newer.  The
 compiler's output, with ``-Xptxas -v``'s register and spill counts, is kept
 beside the library as ``lib<name>.log``.
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import glob
 import os
 import shutil
 import subprocess
@@ -73,9 +75,14 @@ def library_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """Whether the library is missing or older than its source or than any
+    shared header."""
     lib = library_path(name)
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(source_path(name)))
+    if not os.path.exists(lib):
+        return True
+    built = os.path.getmtime(lib)
+    sources = [source_path(name), *glob.glob(os.path.join(CSRC_DIR, "*.cuh"))]
+    return any(built < os.path.getmtime(src) for src in sources)
 
 
 def _command(name: str, out: str) -> List[str]:

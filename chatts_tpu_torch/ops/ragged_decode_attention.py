@@ -12,12 +12,19 @@ H100.
 
 Each wrapper runs the plain version for CPU tensors and launches its kernel
 for CUDA tensors; a CUDA call the kernel does not take raises.
-``<wrapper>.launches`` counts the kernel's launches.
+``<wrapper>.launches`` counts the wrapper's calls that launched its kernel
+(one a call, whatever the number of CUDA launches behind it).
+
+The bf16 kernel splits the KV axis over blocks and merges the parts by
+logsumexp (``csrc/decode_split.cuh``).  ``split_plan`` makes the plan from
+the shapes alone, so the wrapper never reads ``lengths`` on the host, and
+``ragged_decode_attention_split_reference`` is the plain version of that
+arithmetic, for the tests and the card's checks; the port never calls it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,8 +34,8 @@ from chatts_tpu_torch.ops.attention import NEG_INF
 _SIGNATURES = {
     "chatts_ragged_decode_attention": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     ),
 }
 _SIGNATURES_INT8 = {
@@ -41,6 +48,27 @@ _SIGNATURES_INT8 = {
 
 HEAD_DIM = 128
 MAX_GROUP = 16
+KEY_TILE = 128  # a chunk is a multiple of this many keys (decode_split.cuh)
+MAX_BLOCKS = 8 * 132  # blocks in the grid: eight for each of the H100's SMs
+MAX_SPLITS = 24  # the merge walks a row's parts one after another
+
+
+def split_plan(s: int, b: int, kvh: int) -> Tuple[int, int]:
+    """(splits, chunk) for a cache of capacity ``s``, from the shapes alone:
+    the lengths stay on the device.
+
+    The rows are usually far shorter than the capacity and a block past its
+    row's length costs next to nothing, so the chunk is one key tile (each of
+    a block's four warps then walks 32 keys), and longer only where the grid
+    of splits x KVH x B blocks would pass MAX_BLOCKS or a row would have more
+    than MAX_SPLITS parts to merge (the merge walks them in order; on an
+    H100 one row of 6,001 keys at capacity 6,144 takes 0.021 ms in 24 parts,
+    SDPA's time, and took longer in 48).  No split starts past the
+    capacity."""
+    tiles = -(-s // KEY_TILE)
+    want = max(1, min(tiles, MAX_SPLITS, MAX_BLOCKS // (b * kvh)))
+    chunk = -(-tiles // want) * KEY_TILE
+    return -(-s // chunk), chunk
 
 
 def ragged_decode_attention_reference(
@@ -64,6 +92,55 @@ def ragged_decode_attention_reference(
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(valid.any(dim=-1)[:, None, None, None], probs, 0.0)
     out = torch.einsum("bkgs,bksd->bkgd", probs, v_cache.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def ragged_decode_attention_split_reference(
+    q: torch.Tensor,  # (B, H, D)
+    k_cache: torch.Tensor,  # (B, KVH, S, D)
+    v_cache: torch.Tensor,  # (B, KVH, S, D)
+    lengths: torch.Tensor,  # (B,) int
+    *,
+    chunk: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The split kernel's arithmetic in plain PyTorch.
+
+    Each chunk of ``chunk`` keys gives, per head, a max, a sum of p and an
+    unnormalised accumulator over its keys below the row's length; a chunk
+    that starts at or past the length gives no part.  The parts are merged by
+    logsumexp in chunk order; a row of length 0 has none and gives 0.
+    ``chunk`` defaults to ``split_plan``'s."""
+    b, h, d = q.shape
+    _, kvh, s, _ = k_cache.shape
+    if scale is None:
+        scale = d ** -0.5
+    if chunk is None:
+        chunk = split_plan(s, b, kvh)[1]
+    qg = q.float().reshape(b, kvh, h // kvh, d) * scale
+    out = torch.zeros((b, kvh, h // kvh, d), dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        length = min(max(int(lengths[bi]), 0), s)
+        parts = []
+        for begin in range(0, s, chunk):
+            if begin >= length:
+                break
+            end = min(begin + chunk, length)
+            sc = torch.einsum("kgd,ksd->kgs", qg[bi], k_cache[bi, :, begin:end].float())
+            m = sc.amax(dim=-1)
+            p = torch.exp(sc - m[..., None])
+            parts.append((m, p.sum(dim=-1),
+                          torch.einsum("kgs,ksd->kgd", p, v_cache[bi, :, begin:end].float())))
+        if not parts:
+            continue
+        m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        l_sum = torch.zeros_like(m_all)
+        acc_sum = torch.zeros_like(out[bi])
+        for m, l, acc in parts:
+            w = torch.exp(m - m_all)
+            l_sum = l_sum + l * w
+            acc_sum = acc_sum + acc * w[..., None]
+        out[bi] = acc_sum / torch.where(l_sum > 0, l_sum, 1.0)[..., None]
     return out.reshape(b, h, d).to(q.dtype)
 
 
@@ -99,6 +176,46 @@ def _check(q, k_cache, v_cache, lengths, scales=(), *,
             raise ValueError(f"{what}: q and the cache must be 16-byte aligned")
 
 
+def ragged_decode_attention_on_plan(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    plan: Tuple[int, int],
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Launch the kernel with ``plan`` = (splits, chunk) for CUDA tensors
+    (``ragged_decode_attention`` takes ``split_plan``'s; this entry lets the
+    card's tests and ``chip_smoke.py`` hold and time other chunks).  Nothing
+    here reads ``lengths`` on the host."""
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_decode_attention: no kernel for device {q.device}")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    _check(q, k_cache, v_cache, lengths)
+    b, h, _ = q.shape
+    _, kvh, s, _ = k_cache.shape
+    splits, chunk = plan
+    if (chunk < KEY_TILE or chunk % KEY_TILE or splits < 1
+            or not (splits - 1) * chunk < s <= splits * chunk):
+        raise ValueError(f"ragged_decode_attention: plan {plan} does not cover capacity {s}")
+    out = torch.empty_like(q)
+    # The parts of the splits: per (row, kv head, split, head) an accumulator
+    # of 128 f32, a max and a sum (decode_split.cuh).
+    workspace = None if splits == 1 else torch.empty(
+        b * kvh * splits * (h // kvh) * (HEAD_DIM + 2), dtype=torch.float32, device=q.device)
+    lib = build.load("ragged_decode_attention", _SIGNATURES)
+    err = lib.chatts_ragged_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), None if workspace is None else workspace.data_ptr(),
+        b, h, kvh, s, float(scale), splits, chunk, build.stream_handle(q.device),
+    )
+    ragged_decode_attention.launches += 1
+    build.check_launch(err, "ragged_decode_attention")
+    return out
+
+
 def ragged_decode_attention(
     q: torch.Tensor,  # (B, H, D) one token per row
     k_cache: torch.Tensor,  # (B, KVH, S, D) head-major
@@ -108,24 +225,11 @@ def ragged_decode_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Returns (B, H, D) in q's type."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return ragged_decode_attention_reference(q, k_cache, v_cache, lengths, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"ragged_decode_attention: no kernel for device {q.device}")
-    _check(q, k_cache, v_cache, lengths)
-    b, h, _ = q.shape
     _, kvh, s, _ = k_cache.shape
-    out = torch.empty_like(q)
-    lib = build.load("ragged_decode_attention", _SIGNATURES)
-    err = lib.chatts_ragged_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, h, kvh, s, float(scale), build.stream_handle(q.device),
-    )
-    ragged_decode_attention.launches += 1
-    build.check_launch(err, "ragged_decode_attention")
-    return out
+    return ragged_decode_attention_on_plan(
+        q, k_cache, v_cache, lengths, split_plan(s, q.shape[0], kvh), scale=scale)
 
 
 ragged_decode_attention.launches = 0

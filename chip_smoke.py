@@ -12,9 +12,11 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
   2. each kernel against its plain PyTorch version at the main paths' shapes,
      with the device times (CUDA graph replay, CUDA events) of the kernel,
      the plain version and, where one exists, one PyTorch call computing the
-     same function, and the kernel's bound; the int4 matmul on each of its
-     paths at every R, and the int8-activation matmul (B5) at the rows of
-     an a8 prefill;
+     same function, and the kernel's bound; the prefill attention with both
+     of its query tiles, beside the plain version of its own tile loop; the
+     decode attention twice to the bit, beside the plain version of its split
+     and merge; the int4 matmul on each of its paths at every R, and the
+     int8-activation matmul (B5) at the rows of an a8 prefill;
   3. the ChatTS-14B widths at 2 layers, int4 weights: logits of the kernel
      path on the card against the plain path on the CPU in f32;
   3c. the same with int8-activation prefill (``act_int8``), against the
@@ -27,7 +29,8 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
   4. the batch slice at full size: ChatTS-14B shape (48 layers, int4, random
      weights from a seed), 4 prompts with series, ``InferenceEngine.generate``
      greedy twice and sampled twice, each pair token-identical, every kernel
-     of the path launched;
+     of the path launched; then one decode step under ``torch.profiler``, its
+     device time and the decode attention's share of it;
   5. the serving slice at full size, on phase 4's weights: ``ServeEngine`` at
      the 14B serving configuration (24 slots, cap 1024, int8 KV, decode chunk
      32, early emit) behind ``ChatTSServer`` on 127.0.0.1.  Two waves of 8
@@ -348,17 +351,22 @@ def phase_build():
                     log(f"  {info.name}: {line.strip()}")
 
 
-def _flash_case(torch, gen, t: int, dev):
-    b, h, kvh, d = 4, 40, 8, 128
+def _flash_case(torch, gen, t: int, dev, b: int = 4, s: int = 0):
+    """B rows of T queries over S keys (S = T unless given) at the 14B head
+    shape.  The queries are the last T positions of S; the rows are valid up
+    to S, S - 37, S - 300 and S / 2 in turn, and every fourth row's first 5
+    keys are invalid: with T = S its queries 0..4 have no valid key."""
+    h, kvh, d = 40, 8, 128
+    s = s or t
     q = torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((b, t, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((b, t, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
-    pos = torch.arange(t, dtype=torch.int32, device=dev)[None].repeat(b, 1).contiguous()
-    seq_lens = torch.tensor([t, t - 37, t - 300, t // 2], device=dev)
-    kv_valid = pos < seq_lens[:, None]
-    # Row 3's first 5 keys are invalid: its queries 0..4 have no valid key.
-    kv_valid[3, :5] = False
-    return q, k, v, pos, kv_valid.contiguous()
+    k = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
+    kv_pos = torch.arange(s, dtype=torch.int32, device=dev)[None].repeat(b, 1).contiguous()
+    q_pos = (kv_pos[:, :t] + (s - t)).contiguous()
+    seq_lens = torch.tensor(([s, s - 37, s - 300, s // 2] * -(-b // 4))[:b], device=dev)
+    kv_valid = kv_pos < seq_lens[:, None]
+    kv_valid[3::4, :5] = False
+    return q, k, v, q_pos, kv_pos, kv_valid.contiguous()
 
 
 def _library_ms(torch, out, ref, call, what: str, rows=None) -> float:
@@ -491,90 +499,156 @@ def phase_kernels():
     none_a8 = ("none: no one PyTorch call applies per-group weight scales to an "
                "int8 x int4 product")
     with Phase(2, "kernels against their plain versions (bf16)"):
-        # Flash prefill attention.  The library call: SDPA with GQA and the
-        # boolean mask kv_valid & kv_pos <= q_pos, on head-major views.
+        # Flash prefill attention: three ragged and aligned lengths, the main
+        # paths' own shapes (the batch prefill, B4 T = S = 1280; a serving
+        # wave, B8 T = S = 512), a chunk of 256 queries over a prefix (T < S,
+        # offset query positions) and one short prompt admitted alone (T = 37:
+        # the 64-row query tile's side of the wrapper's choice).  The library
+        # call: SDPA with GQA and the boolean mask kv_valid & kv_pos <= q_pos,
+        # on head-major views.
         errs, times = [], {}
-        for t in (640, 1152, 600):
-            q, k, v, pos, kv_valid = _flash_case(torch, gen, t, dev)
-            kw = dict(q_positions=pos, kv_positions=pos, kv_valid=kv_valid)
+        for b, t, s_len in ((4, 640, 640), (4, 1152, 1152), (4, 600, 600), (4, 1280, 1280),
+                            (8, 512, 512), (4, 256, 1280), (1, 37, 37)):
+            q, k, v, q_pos, kv_pos, kv_valid = _flash_case(torch, gen, t, dev, b=b, s=s_len)
+            kw = dict(q_positions=q_pos, kv_positions=kv_pos, kv_valid=kv_valid)
+            what = f"flash B={b} T={t} S={s_len}"
             got = fa.flash_attention(q, k, v, **kw)
             ref = fa.flash_attention_reference(q, k, v, **kw)
             torch.cuda.synchronize()
-            errs.append(compare(got, ref, f"flash T=S={t}"))
-            if got[3, :5].abs().max() != 0:
+            errs.append(compare(got, ref, what))
+            if t == s_len and b >= 4 and got[3::4, :5].abs().max() != 0:
                 raise AssertionError("flash: a query with no valid key did not give 0")
-            ms = graph_ms(lambda: fa.flash_attention(q, k, v, **kw))
+            by_tile = {}
+            for block_q in fa.BLOCKS_Q:
+                out = fa.flash_attention_on_tile(q, k, v, **kw, block_q=block_q)
+                again = fa.flash_attention_on_tile(q, k, v, **kw, block_q=block_q)
+                torch.cuda.synchronize()
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{what} tile {block_q}: two calls differ")
+                compare(out, ref, f"{what} tile {block_q}")
+                tiled = fa.flash_attention_tiled_reference(q, k, v, **kw, block_q=block_q)
+                by_tile[block_q] = (
+                    graph_ms(lambda: fa.flash_attention_on_tile(q, k, v, **kw, block_q=block_q)),
+                    float((out.float() - tiled.float()).abs().max()))
+            if not torch.equal(got, fa.flash_attention_on_tile(
+                    q, k, v, **kw, block_q=fa.default_block_q(t))):
+                raise AssertionError(f"{what}: flash_attention left its tile")
+            ms = by_tile[fa.default_block_q(t)][0]
             eager = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
             plain = graph_ms(lambda: fa.flash_attention_reference(q, k, v, **kw))
-            mask = kv_valid[:, None, None, :] & (pos[:, None, None, :] <= pos[:, None, :, None])
+            mask = kv_valid[:, None, None, :] & (kv_pos[:, None, None, :] <= q_pos[:, None, :, None])
             qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
 
             def sdpa():
                 return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                       enable_gqa=True)
 
-            lib = _library_ms(torch, sdpa().transpose(1, 2), ref, sdpa, f"flash T=S={t}",
+            lib = _library_ms(torch, sdpa().transpose(1, 2), ref, sdpa, what,
                               rows=mask[:, 0].any(-1))
             # q, k, v, both position arrays and kv_valid read once, the output
             # written once; 4 D operations a head for each (query, visible key).
-            b, _, h, d = q.shape
-            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 8 * pos.numel() + kv_valid.numel()
-            bound_ms, bound_by = bound(nbytes, 4.0 * d * h * int(mask.sum()), PEAK_BF16_S)
-            times[t] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
-                            bound_by=bound_by)
-            log(f"  flash_attention B=4 H=40 KVH=8 D=128 T=S={t}: max_abs_err "
-                f"{errs[-1]:.3g}, kernel {ms:.3f} ms (eager {eager:.3f}), plain {plain:.3f} ms, "
-                f"sdpa {lib:.3f} ms, "
+            _, _, h, d = q.shape
+            visible = int(mask.sum())
+            nbytes = (2 * (2 * q.numel() + k.numel() + v.numel())
+                      + 4 * (q_pos.numel() + kv_pos.numel()) + kv_valid.numel())
+            bound_ms, bound_by = bound(nbytes, 4.0 * d * h * visible, PEAK_BF16_S)
+            times[(b, t, s_len)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+                                        bound_by=bound_by)
+            tiles = ", ".join(f"{bq} rows {t_ms:.3f} ms (|kernel - tiled plain| {dist:.3g})"
+                              for bq, (t_ms, dist) in by_tile.items())
+            log(f"  flash_attention B={b} H=40 KVH=8 D=128 T={t} S={s_len}: max_abs_err "
+                f"{errs[-1]:.3g}, kernel {ms:.3f} ms ({4.0 * d * h * visible / ms / 1e9:.0f} "
+                f"TFLOP/s of visible work; eager {eager:.3f}; tiles: {tiles}), plain "
+                f"{plain:.3f} ms, sdpa {lib:.3f} ms, "
                 f"bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} of it)")
-        results["flash_attention"] = dict(max_abs_err=max(errs), **times[1152])
+        results["flash_attention"] = dict(max_abs_err=max(errs), **times[(4, 1152, 1152)])
 
-        # Ragged decode attention.
-        b, h, kvh, d, cap = 4, 40, 8, 128, 2048
-        lengths = torch.tensor([1, 255, 257, 2048], dtype=torch.int32, device=dev)
+        # Ragged decode attention (bf16 cache): the case that stands, then
+        # lengths on and beside the plan's chunk boundaries with a row of
+        # length 0, one long row at the engine's default capacity, and G = 7
+        # (28 heads over 4 kv heads, the 7B shape).
+        def chunk_of(b, kvh, cap):
+            return rda.split_plan(cap, b, kvh)[1]
 
-        def make_cache(_):
-            return (torch.randn((b, kvh, cap, d), generator=gen, device=dev).to(torch.bfloat16),
-                    torch.randn((b, kvh, cap, d), generator=gen, device=dev).to(torch.bfloat16))
+        c4 = chunk_of(6, 8, 2048)
+        for name, h, kvh, cap, lens in (
+                ("main", 40, 8, 2048, [1, 255, 257, 2048]),
+                ("boundaries", 40, 8, 2048, [0, c4 - 1, c4, c4 + 1, 3 * c4, 2047]),
+                ("long", 40, 8, 6144, [6001]),
+                ("g7", 28, 4, 2048, [0, 129, 1000, 2048])):
+            b, d = len(lens), 128
+            plan = rda.split_plan(cap, b, kvh)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
 
-        caches = rotating(make_cache, 2 * b * kvh * cap * d * 2)
-        q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
-        got = rda.ragged_decode_attention(q, *caches[0], lengths)
-        ref = rda.ragged_decode_attention_reference(q, *caches[0], lengths)
-        torch.cuda.synchronize()
-        err = compare(got, ref, "ragged decode")
-        turn = [0]
+            def make_cache(_):
+                return (torch.randn((b, kvh, cap, d), generator=gen, device=dev).to(torch.bfloat16),
+                        torch.randn((b, kvh, cap, d), generator=gen, device=dev).to(torch.bfloat16))
 
-        def cycle(fn):
-            def run():
-                turn[0] = (turn[0] + 1) % len(caches)
-                fn(q, *caches[turn[0]], lengths)
-            return run
+            caches = rotating(make_cache, 2 * b * kvh * cap * d * 2)
+            q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+            got = rda.ragged_decode_attention(q, *caches[0], lengths)
+            again = rda.ragged_decode_attention(q, *caches[0], lengths)
+            ref = rda.ragged_decode_attention_reference(q, *caches[0], lengths)
+            split = rda.ragged_decode_attention_split_reference(q, *caches[0], lengths,
+                                                                chunk=plan[1])
+            torch.cuda.synchronize()
+            what = f"ragged decode {name}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: two calls differ")
+            err = compare(got, ref, what)
+            if got[lengths == 0].abs().sum() != 0:
+                raise AssertionError(f"{what}: a row of length 0 did not give 0")
+            of_split = float((got.float() - split.float()).abs().max())
+            turn = [0]
 
-        ms = graph_ms(cycle(rda.ragged_decode_attention))
-        eager = time_ms(cycle(rda.ragged_decode_attention))
-        plain = graph_ms(cycle(rda.ragged_decode_attention_reference))
-        # The library call: SDPA with q as (B, H, 1, D), the head-major cache
-        # as it is and a length mask (every length here is at least 1).
-        lmask = (torch.arange(cap, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+            def cycle(fn):
+                def run():
+                    turn[0] = (turn[0] + 1) % len(caches)
+                    fn(q, *caches[turn[0]], lengths)
+                return run
 
-        def sdpa_decode(q, k, v, _lengths):
-            return F.scaled_dot_product_attention(q[:, :, None, :], k, v, attn_mask=lmask,
-                                                  enable_gqa=True)[:, :, 0]
+            ms = graph_ms(cycle(rda.ragged_decode_attention))
+            eager = time_ms(cycle(rda.ragged_decode_attention))
+            plain = graph_ms(cycle(rda.ragged_decode_attention_reference))
+            # The library call: SDPA with q as (B, H, 1, D), the head-major
+            # cache as it is and a length mask, on the rows of length >= 1.
+            lmask = (torch.arange(cap, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
 
-        lib = _library_ms(torch, sdpa_decode(q, *caches[0], lengths), ref, cycle(sdpa_decode),
-                          "ragged decode")
-        # The cache up to each row's length, q, the lengths and the output once;
-        # 4 D operations a head for each position.
-        n_pos = int(lengths.sum())
-        bound_ms, bound_by = bound(2 * 2 * n_pos * kvh * d + 2 * 2 * q.numel() + 4 * b,
-                                   4.0 * d * h * n_pos, PEAK_BF16_S)
-        log(f"  ragged_decode_attention B=4 H=40 KVH=8 D=128 S=2048 lengths "
-            f"[1,255,257,2048]: max_abs_err {err:.3g}, kernel {ms:.3f} ms (eager {eager:.3f}), "
-            f"plain {plain:.3f} ms, sdpa {lib:.3f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}; {bound_ms / ms:.1%} of it)")
-        results["ragged_decode_attention"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
-            bound_by=bound_by)
+            def sdpa_decode(q, k, v, _lengths):
+                return F.scaled_dot_product_attention(q[:, :, None, :], k, v, attn_mask=lmask,
+                                                      enable_gqa=True)[:, :, 0]
+
+            lib = _library_ms(torch, sdpa_decode(q, *caches[0], lengths), ref,
+                              cycle(sdpa_decode), what, rows=lengths > 0)
+            # The cache up to each row's length, q, the lengths and the output
+            # once; 4 D operations a head for each position.
+            n_pos = sum(lens)
+            bound_ms, bound_by = bound(2 * 2 * n_pos * kvh * d + 2 * 2 * q.numel() + 4 * b,
+                                       4.0 * d * h * n_pos, PEAK_BF16_S)
+            log(f"  ragged_decode_attention {name} B={b} H={h} KVH={kvh} D=128 S={cap} lengths "
+                f"{lens}, {plan[0]} splits of {plan[1]} keys: max_abs_err {err:.3g} (|kernel - "
+                f"split plain| {of_split:.3g}), two calls bit-equal, kernel {ms:.4f} ms (eager "
+                f"{eager:.3f}), plain {plain:.3f} ms, sdpa {lib:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {bound_ms / ms:.1%} of it)")
+            if name == "main":
+                results["ragged_decode_attention"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+                    bound_by=bound_by)
+                # Other chunks at the same shape, for the plan's constants.
+                other = []
+                for chunk in (128, 256, 512, 2048):
+                    alt = (-(-cap // chunk), chunk)
+                    out = rda.ragged_decode_attention_on_plan(q, *caches[0], lengths, alt)
+                    torch.cuda.synchronize()
+                    compare(out, ref, f"{what} chunk {chunk}")
+                    other.append((chunk, graph_ms(cycle(
+                        lambda *a, alt=alt: rda.ragged_decode_attention_on_plan(*a, alt)))))
+                log("    by chunk: " + ", ".join(f"{c} keys {t:.4f} ms" for c, t in other))
+            else:
+                results["ragged_decode_attention"]["max_abs_err"] = max(
+                    err, results["ragged_decode_attention"]["max_abs_err"])
+            del caches
+            torch.cuda.empty_cache()
 
         # Ragged decode attention over the int8 cache, at the serving shape
         # (24 slots, cap 1024) and at the engine's default cap of 6144.
@@ -1077,6 +1151,10 @@ def phase_slice(smi: str):
             f"{len(lens) / g2.tpot_s:.1f} tok/s (greedy, second run; batch {len(lens)}); "
             f"peak memory {peak_gb:.2f} GB; card {smi}")
         log("  slice stats: " + json.dumps(stats))
+        # The decode step's device time (TPOT is host-bound while the step
+        # runs eagerly), outside the launch counts read above.
+        step = profile_batch_decode_step(torch, engine, batch, greedy)
+        log("  batch decode step profile: " + json.dumps(step))
         del engine
         torch.cuda.empty_cache()
     return launches, model, cfg, g2
@@ -1182,14 +1260,40 @@ def _post_chat(port: int, body: dict, timeout: float = 240.0) -> dict:
                 completion_tokens=data["usage"]["completion_tokens"])
 
 
+def device_kernels(prof, what: str, mark=()) -> dict:
+    """The kernels of a ``torch.profiler`` trace by device time
+    (``key_averages``): prints the ten with the most and returns the sums,
+    with the share of the kernels whose name holds one of ``mark``."""
+    from torch.autograd import DeviceType
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=device_us, reverse=True)
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError(f"{what}: the profiler saw no device time")
+    marked = [e for e in kernels if any(m in e.key for m in mark)]
+    marked_ms = sum(device_us(e) for e in marked) / 1e3
+    log(f"  {what}, eager under torch.profiler: {sum(e.count for e in kernels)} kernel "
+        f"launches, {busy_ms:.3f} ms of device time; top kernels:")
+    top = []
+    for e in kernels[:10]:
+        ms = device_us(e) / 1e3
+        top.append(dict(kernel=e.key[:120], ms=ms, launches=e.count))
+        log(f"    {ms:9.3f} ms {ms / busy_ms:6.1%} {e.count:6d} x  {e.key[:100]}")
+    return dict(busy_ms=busy_ms, launches=sum(e.count for e in kernels), top=top,
+                marked_ms=marked_ms, marked_launches=sum(e.count for e in marked))
+
+
 def profile_decode_round(torch, engine, live: int = 16) -> dict:
     """One decode round's kernels under ``torch.profiler``, which does not
     see inside a CUDA graph's replay: the engine's round function runs once
     eagerly, from this thread while the engine idles, on copies of its state
     with ``live`` slots live at the lengths the served requests reached (its
     K/V writes land past them, in freed slots).  Prints the ten kernels with
-    the most device time (``key_averages``) and the round's device time."""
-    from torch.autograd import DeviceType
+    the most device time and the round's device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from chatts_tpu_torch.serve import scheduler
@@ -1207,22 +1311,48 @@ def profile_decode_round(torch, engine, live: int = 16) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             scheduler._decode_all_slots(*args)
             torch.cuda.synchronize()
+    return device_kernels(prof, f"one decode round ({engine.decode_chunk} steps, {b} slots, "
+                                f"{live} live)")
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     key=device_us, reverse=True)
-    busy_ms = sum(device_us(e) for e in kernels) / 1e3
-    log(f"  one decode round ({engine.decode_chunk} steps, {b} slots, {live} live), eager "
-        f"under torch.profiler: {sum(e.count for e in kernels)} kernel launches, "
-        f"{busy_ms:.1f} ms of device time; top kernels:")
-    top = []
-    for e in kernels[:10]:
-        ms = device_us(e) / 1e3
-        top.append(dict(kernel=e.key[:120], ms=ms, launches=e.count))
-        log(f"    {ms:9.2f} ms {ms / max(busy_ms, 1e-9):6.1%} {e.count:6d} x  {e.key[:100]}")
-    return dict(busy_ms=busy_ms, launches=sum(e.count for e in kernels), top=top)
+def profile_batch_decode_step(torch, engine, batch, gen_cfg) -> dict:
+    """One decode step of the batch engine under ``torch.profiler``: the
+    step ``generate`` runs after the prefill, at the batch's prompt lengths,
+    on a cache of ``generate``'s capacity filled with random values.  Returns
+    the step's device time with the bf16 decode attention's share of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chatts_tpu_torch.runtime import kv_cache
+    from chatts_tpu_torch.runtime.engine import default_cache_len
+
+    dev = engine.device
+    b, t = batch.input_ids.shape
+    cache_len = default_cache_len(t, gen_cfg.max_new_tokens)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.inference_mode():
+        caches = kv_cache.allocate(engine.cfg.llm, b, cache_len, engine.cache_dtype, dev)
+        for layer in caches:
+            for part in layer:
+                part.copy_(torch.randn(part.shape, generator=gen, device=dev))
+        tokens = torch.randint(10, 400, (b,), generator=gen, device=dev, dtype=torch.int32)
+        cur_lens = torch.as_tensor(batch.seq_lens, device=dev).to(torch.int32)
+        engine._decode_step(caches, tokens, cur_lens, gen, gen_cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine._decode_step(caches, tokens, cur_lens, gen, gen_cfg)
+            torch.cuda.synchronize()
+    out = device_kernels(prof, f"one batch decode step ({b} rows at {batch.seq_lens.tolist()} "
+                               f"tokens, capacity {cache_len})",
+                         mark=("ragged_decode_split_kernel", "decode_merge_kernel",
+                               "ragged_decode_kernel<"))  # the last: before the split
+    layers = engine.cfg.llm.num_hidden_layers
+    if out["marked_launches"] < layers:
+        raise AssertionError("the batch decode step's profile holds no decode attention")
+    log(f"  batch decode step: {out['busy_ms']:.3f} ms of device time, of it "
+        f"ragged_decode_attention {out['marked_ms']:.3f} ms ({out['marked_ms'] / out['busy_ms']:.1%}) "
+        f"in {out['marked_launches']} launches ({out['marked_ms'] / layers * 1e3:.1f} us a layer)")
+    del caches
+    return out
 
 
 def phase_serving(smi: str, model, cfg, act_int8: bool = False):

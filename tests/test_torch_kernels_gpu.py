@@ -12,6 +12,16 @@ The outputs round to bf16 (one ulp apart at worst), the plain int4 matmul
 rounds each dequantized weight to bf16, and the plain attention rounds
 normalised probabilities where the kernel rounds them against a running max.
 
+The two attention kernels are also held to the plain versions of their own
+arithmetic.  The prefill kernel against ``flash_attention_tiled_reference``
+(the same tiles, skips, sentinel and roundings), per row to 2**-6 of the
+row's largest output: p rounds to bf16 on both sides and may land one ulp
+apart where the f32 exponentials differ in their last bits (2**-8 of p each,
+so at most that share of the row's largest value), and the output rounds to
+bf16 once more.  The decode kernel against
+``ragged_decode_attention_split_reference``, per row to 2**-7 of the row's
+largest output: both are f32 throughout and round once to bf16.
+
 The int8 decode attention is held tighter, per (row, head), to 2e-2 of that
 row's largest output: both sides compute in f32 and round once to bf16 (one
 ulp, at most 2**-7 of the row's largest), and a long row's outputs are too
@@ -88,12 +98,70 @@ def test_torch_flash_kernel_matches_plain(cuda, t, s, h, kvh):
     _close(got, fa.flash_attention_reference(q, k, v, **kw))
 
 
+def _flash_case(name, dev, seed=0):
+    """The CPU tests' prefill cases at the kernel's widths (bf16, D = 128,
+    64-key tiles): (q, k, v, kw)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, h, kvh, d, bk = 2, 10, 2, 128, 64
+    t = s = 5 * bk + 7
+    if name == "offset_chunk":
+        t = bk + 9
+    q, k, v = _bf16(gen, (b, t, h, d), dev), _bf16(gen, (b, s, kvh, d), dev), \
+        _bf16(gen, (b, s, kvh, d), dev)
+    kv_pos = torch.arange(s, device=dev, dtype=torch.int32)[None].repeat(b, 1)
+    q_pos = torch.arange(t, device=dev, dtype=torch.int32)[None].repeat(b, 1) + (s - t)
+    valid = torch.ones((b, s), device=dev, dtype=torch.bool)
+    if name == "no_valid_key":
+        valid[1] = False
+    elif name == "first_tiles_masked":
+        valid[0, :2 * bk + 5] = False
+    elif name == "invalid_tile_in_the_middle":
+        valid[:, bk:2 * bk] = False
+        valid[1, 3 * bk:4 * bk] = False
+    elif name == "offset_chunk":
+        valid[1, s - 11:] = False
+    elif name == "shuffled_keys":
+        perm = torch.randperm(s, generator=gen, device=dev)
+        k, v, kv_pos = k[:, perm].contiguous(), v[:, perm].contiguous(), kv_pos[:, perm]
+        valid[0, :bk] = False
+    else:
+        raise ValueError(name)
+    return q, k, v, dict(q_positions=q_pos.contiguous(), kv_positions=kv_pos.contiguous(),
+                         kv_valid=valid.contiguous())
+
+
+@pytest.mark.parametrize("block_q", [64, 128])
+@pytest.mark.parametrize("case", ["no_valid_key", "first_tiles_masked",
+                                  "invalid_tile_in_the_middle", "offset_chunk",
+                                  "shuffled_keys"])
+def test_torch_flash_kernel_cases(cuda, case, block_q):
+    """Both query tiles of the kernel against the dense plain version and
+    against the plain version of its own arithmetic; two calls bit-equal."""
+    q, k, v, kw = _flash_case(case, cuda)
+    got = fa.flash_attention_on_tile(q, k, v, **kw, block_q=block_q)
+    again = fa.flash_attention_on_tile(q, k, v, **kw, block_q=block_q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, fa.flash_attention_reference(q, k, v, **kw))
+    _close_rows(got, fa.flash_attention_tiled_reference(q, k, v, **kw, block_q=block_q),
+                rtol=2.0 ** -6)
+    visible = (kw["kv_valid"][:, None, :]
+               & (kw["kv_positions"][:, None, :] <= kw["q_positions"][:, :, None])).any(-1)
+    assert (got[~visible] == 0).all()  # no visible key -> 0
+    if block_q == fa.default_block_q(q.shape[1]):
+        assert torch.equal(got, fa.flash_attention(q, k, v, **kw))
+
+
 def test_torch_flash_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
     pos = torch.zeros((1, 8), device=cuda, dtype=torch.int32)
     valid = torch.ones((1, 8), device=cuda, dtype=torch.bool)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, q, q, q_positions=pos, kv_positions=pos, kv_valid=valid)
+    q = torch.zeros((1, 8, 2, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="query tile"):
+        fa.flash_attention_on_tile(q, q, q, q_positions=pos, kv_positions=pos, kv_valid=valid,
+                                   block_q=96)
 
 
 @pytest.mark.parametrize("lengths,h,kvh,s", [([0, 1, 129], 8, 2, 300), ([256, 255], 40, 8, 256),
@@ -109,6 +177,74 @@ def test_torch_ragged_kernel_matches_plain(cuda, lengths, h, kvh, s):
     torch.cuda.synchronize()
     assert rda.ragged_decode_attention.launches == before + 1
     _close(got, rda.ragged_decode_attention_reference(q, k, v, lens))
+
+
+@pytest.mark.parametrize("g", [1, 5, 7, 16])
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_torch_ragged_kernel_split_cases(cuda, g, chunk):
+    """Lengths 0, 1, chunk - 1, chunk, chunk + 1 and S through the split
+    kernel, with more chunks than any row but the last needs and NaN in the
+    cache past every length; against both plain versions; two calls
+    bit-equal."""
+    s, kvh, d = 4 * chunk + 40, 2, 128
+    lengths = [0, 1, chunk - 1, chunk, chunk + 1, s]
+    b = len(lengths)
+    gen = torch.Generator(device=cuda).manual_seed(g + chunk)
+    q = _bf16(gen, (b, g * kvh, d), cuda)
+    k, v = _bf16(gen, (b, kvh, s, d), cuda), _bf16(gen, (b, kvh, s, d), cuda)
+    lens = torch.tensor(lengths, device=cuda, dtype=torch.int32)
+    past = torch.arange(s, device=cuda)[None, None, :, None] >= lens[:, None, None, None]
+    k_nan = torch.where(past, float("nan"), k)
+    v_nan = torch.where(past, float("nan"), v)
+    plan = (-(-s // chunk), chunk)
+    got = rda.ragged_decode_attention_on_plan(q, k_nan, v_nan, lens, plan)
+    again = rda.ragged_decode_attention_on_plan(q, k_nan, v_nan, lens, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, rda.ragged_decode_attention_reference(q, k, v, lens))
+    _close_rows(got, rda.ragged_decode_attention_split_reference(q, k, v, lens, chunk=chunk),
+                rtol=2.0 ** -7)
+    assert (got[0] == 0).all()  # a row of length 0 gives 0
+    one = rda.ragged_decode_attention_on_plan(q, k_nan, v_nan, lens, (1, plan[0] * chunk))
+    torch.cuda.synchronize()
+    _close_rows(one, got, rtol=2.0 ** -7)  # one split: no merge kernel
+    assert (one[0] == 0).all()
+
+
+def test_torch_ragged_kernel_in_a_cuda_graph(cuda):
+    """The wrapper reads nothing of ``lengths`` on the host: a call captured
+    in a CUDA graph and replayed after ``lengths`` changed gives the new
+    lengths' result."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    b, h, kvh, s, d = 4, 40, 8, 2048, 128
+    q = _bf16(gen, (b, h, d), cuda)
+    k, v = _bf16(gen, (b, kvh, s, d), cuda), _bf16(gen, (b, kvh, s, d), cuda)
+    lens = torch.tensor([1, 255, 257, 2048], device=cuda, dtype=torch.int32)
+    rda.ragged_decode_attention(q, k, v, lens)  # builds and loads outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rda.ragged_decode_attention(q, k, v, lens)
+    graph.replay()
+    torch.cuda.synchronize()
+    _close(out, rda.ragged_decode_attention_reference(q, k, v, lens))
+    new = torch.tensor([2048, 0, 1000, 300], device=cuda, dtype=torch.int32)
+    lens.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    _close(out, rda.ragged_decode_attention_reference(q, k, v, new))
+    assert (out[1] == 0).all()
+    assert torch.equal(out, rda.ragged_decode_attention(q, k, v, new))
+
+
+def test_torch_ragged_kernel_refuses_a_plan_that_does_not_cover(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _bf16(gen, (1, 4, 128), cuda)
+    k = _bf16(gen, (1, 2, 300, 128), cuda)
+    lens = torch.tensor([5], device=cuda, dtype=torch.int32)
+    for plan in ((2, 128), (4, 128), (3, 100), (1, 256)):
+        with pytest.raises(ValueError, match="plan"):
+            rda.ragged_decode_attention_on_plan(q, k, k, lens, plan)
 
 
 def _int8_cache(gen, shape, dev):
