@@ -54,9 +54,17 @@ STREAM_MAX_ROWS = 640
 _SIGNATURES_A8 = {
     "chatts_int4_matmul_a8": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     ),
 }
+
+# ``csrc/int4_matmul_a8.cu`` runs one or two consumer warpgroups a block, 128
+# output columns each, over a tile of 64 rows.  With one row tile (R <= 64)
+# the grid is OUT / (128 warpgroups) blocks, so the narrow block doubles the
+# blocks that stream the weights; above, the wide block reads each x_q tile
+# once for 256 columns.
+A8_NARROW_MAX_ROWS = 64
+A8_WARPGROUPS = (1, 2)
 
 
 def pack_int4(
@@ -230,6 +238,43 @@ def int4_matmul_a8_reference(
     return (acc * x_scale.float()[:, None]).to(out_dtype)
 
 
+def a8_warpgroups(r: int) -> int:
+    """Consumer warpgroups a block of the a8 kernel for R rows: one (128
+    output columns a block) while the rows fit one 64-row tile, two above."""
+    return 1 if r <= A8_NARROW_MAX_ROWS else 2
+
+
+def int4_matmul_a8_on_width(
+    x_q: torch.Tensor, x_scale: torch.Tensor, packed: torch.Tensor,
+    scales: torch.Tensor, warpgroups: int, out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Launch the a8 kernel with ``warpgroups`` consumer warpgroups a block
+    for CUDA tensors (``int4_matmul_a8`` picks by R; this entry lets the
+    card's tests and ``chip_smoke.py`` hold both widths at any R)."""
+    if x_q.device.type != "cuda":
+        raise ValueError(f"int4_matmul_a8: no kernel for device {x_q.device}")
+    _check(x_q, packed, scales, "int4_matmul_a8", torch.int8)
+    r, in_dim = x_q.shape
+    if (x_scale.shape != (r,) or x_scale.dtype != torch.float32
+            or x_scale.device != x_q.device or not x_scale.is_contiguous()):
+        raise ValueError(f"int4_matmul_a8: x_scale must be contiguous float32 ({r},) "
+                         f"on {x_q.device}, got {x_scale.dtype} {tuple(x_scale.shape)}")
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"int4_matmul_a8: the kernel gives bf16, not {out_dtype}")
+    if warpgroups not in A8_WARPGROUPS:
+        raise ValueError(f"int4_matmul_a8: no block of {warpgroups} warpgroups")
+    out_dim = packed.shape[1]
+    lib = build.load("int4_matmul_a8", _SIGNATURES_A8)
+    y = torch.empty((r, out_dim), dtype=torch.bfloat16, device=x_q.device)
+    err = lib.chatts_int4_matmul_a8(
+        x_q.data_ptr(), x_scale.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+        y.data_ptr(), r, in_dim, out_dim, warpgroups, build.stream_handle(x_q.device),
+    )
+    int4_matmul_a8.launches += 1
+    build.check_launch(err, "int4_matmul_a8")
+    return y
+
+
 def int4_matmul_a8(
     x_q: torch.Tensor,  # (R, IN) int8, quantized per row
     x_scale: torch.Tensor,  # (R,) float32
@@ -241,26 +286,8 @@ def int4_matmul_a8(
     ``out_dtype``; the kernel gives bf16."""
     if x_q.device.type == "cpu":
         return int4_matmul_a8_reference(x_q, x_scale, packed, scales, out_dtype)
-    if x_q.device.type != "cuda":
-        raise ValueError(f"int4_matmul_a8: no kernel for device {x_q.device}")
-    _check(x_q, packed, scales, "int4_matmul_a8", torch.int8)
-    r, in_dim = x_q.shape
-    if (x_scale.shape != (r,) or x_scale.dtype != torch.float32
-            or x_scale.device != x_q.device or not x_scale.is_contiguous()):
-        raise ValueError(f"int4_matmul_a8: x_scale must be contiguous float32 ({r},) "
-                         f"on {x_q.device}, got {x_scale.dtype} {tuple(x_scale.shape)}")
-    if out_dtype != torch.bfloat16:
-        raise ValueError(f"int4_matmul_a8: the kernel gives bf16, not {out_dtype}")
-    out_dim = packed.shape[1]
-    lib = build.load("int4_matmul_a8", _SIGNATURES_A8)
-    y = torch.empty((r, out_dim), dtype=torch.bfloat16, device=x_q.device)
-    err = lib.chatts_int4_matmul_a8(
-        x_q.data_ptr(), x_scale.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-        y.data_ptr(), r, in_dim, out_dim, build.stream_handle(x_q.device),
-    )
-    int4_matmul_a8.launches += 1
-    build.check_launch(err, "int4_matmul_a8")
-    return y
+    return int4_matmul_a8_on_width(x_q, x_scale, packed, scales,
+                                   a8_warpgroups(x_q.shape[0]), out_dtype)
 
 
 int4_matmul_a8.launches = 0

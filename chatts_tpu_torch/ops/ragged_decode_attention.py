@@ -15,11 +15,13 @@ for CUDA tensors; a CUDA call the kernel does not take raises.
 ``<wrapper>.launches`` counts the wrapper's calls that launched its kernel
 (one a call, whatever the number of CUDA launches behind it).
 
-The bf16 kernel splits the KV axis over blocks and merges the parts by
+Both kernels split the KV axis over blocks and merge the parts by
 logsumexp (``csrc/decode_split.cuh``).  ``split_plan`` makes the plan from
-the shapes alone, so the wrapper never reads ``lengths`` on the host, and
-``ragged_decode_attention_split_reference`` is the plain version of that
-arithmetic, for the tests and the card's checks; the port never calls it.
+the shapes alone, so the wrappers never read ``lengths`` on the host, and
+``ragged_decode_attention_split_reference`` and
+``ragged_decode_attention_int8_split_reference`` are the plain versions of
+that arithmetic, for the tests and the card's checks; the port never calls
+them.
 """
 from __future__ import annotations
 
@@ -41,8 +43,8 @@ _SIGNATURES = {
 _SIGNATURES_INT8 = {
     "chatts_ragged_decode_attention_int8": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     ),
 }
 
@@ -95,22 +97,12 @@ def ragged_decode_attention_reference(
     return out.reshape(b, h, d).to(q.dtype)
 
 
-def ragged_decode_attention_split_reference(
-    q: torch.Tensor,  # (B, H, D)
-    k_cache: torch.Tensor,  # (B, KVH, S, D)
-    v_cache: torch.Tensor,  # (B, KVH, S, D)
-    lengths: torch.Tensor,  # (B,) int
-    *,
-    chunk: Optional[int] = None,
-    scale: Optional[float] = None,
-) -> torch.Tensor:
-    """The split kernel's arithmetic in plain PyTorch.
-
-    Each chunk of ``chunk`` keys gives, per head, a max, a sum of p and an
-    unnormalised accumulator over its keys below the row's length; a chunk
-    that starts at or past the length gives no part.  The parts are merged by
-    logsumexp in chunk order; a row of length 0 has none and gives 0.
-    ``chunk`` defaults to ``split_plan``'s."""
+def _split_reference(q, k_cache, v_cache, lengths, k_scale, v_scale, chunk, scale):
+    """The split kernels' arithmetic: per chunk of ``chunk`` keys and per head
+    a max, a sum of p and an unnormalised accumulator over the chunk's keys
+    below the row's length, merged by logsumexp in chunk order.  With scales
+    (the int8 cache) the K scale multiplies the scores and the V scale
+    multiplies p before the PV product; the sum of p is taken without it."""
     b, h, d = q.shape
     _, kvh, s, _ = k_cache.shape
     if scale is None:
@@ -127,10 +119,15 @@ def ragged_decode_attention_split_reference(
                 break
             end = min(begin + chunk, length)
             sc = torch.einsum("kgd,ksd->kgs", qg[bi], k_cache[bi, :, begin:end].float())
+            if k_scale is not None:
+                sc = sc * k_scale[bi, :, None, begin:end]
             m = sc.amax(dim=-1)
             p = torch.exp(sc - m[..., None])
-            parts.append((m, p.sum(dim=-1),
-                          torch.einsum("kgs,ksd->kgd", p, v_cache[bi, :, begin:end].float())))
+            l = p.sum(dim=-1)
+            if v_scale is not None:
+                p = p * v_scale[bi, :, None, begin:end]
+            parts.append((m, l, torch.einsum("kgs,ksd->kgd", p,
+                                             v_cache[bi, :, begin:end].float())))
         if not parts:
             continue
         m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
@@ -142,6 +139,25 @@ def ragged_decode_attention_split_reference(
             acc_sum = acc_sum + acc * w[..., None]
         out[bi] = acc_sum / torch.where(l_sum > 0, l_sum, 1.0)[..., None]
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def ragged_decode_attention_split_reference(
+    q: torch.Tensor,  # (B, H, D)
+    k_cache: torch.Tensor,  # (B, KVH, S, D)
+    v_cache: torch.Tensor,  # (B, KVH, S, D)
+    lengths: torch.Tensor,  # (B,) int
+    *,
+    chunk: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The split kernel's arithmetic in plain PyTorch.
+
+    Each chunk of ``chunk`` keys gives, per head, a max, a sum of p and an
+    unnormalised accumulator over its keys below the row's length; a chunk
+    that starts at or past the length gives no part.  The parts are merged by
+    logsumexp in chunk order; a row of length 0 has none and gives 0.
+    ``chunk`` defaults to ``split_plan``'s."""
+    return _split_reference(q, k_cache, v_cache, lengths, None, None, chunk, scale)
 
 
 def _check(q, k_cache, v_cache, lengths, scales=(), *,
@@ -176,6 +192,22 @@ def _check(q, k_cache, v_cache, lengths, scales=(), *,
             raise ValueError(f"{what}: q and the cache must be 16-byte aligned")
 
 
+def _workspace(q, kvh: int, s: int, plan: Tuple[int, int], what: str):
+    """The f32 workspace for the parts of ``plan``'s splits: per (row, kv
+    head, split, head) an accumulator of 128 f32, a max and a sum
+    (decode_split.cuh); None with one split.  Raises for a plan that does not
+    cover the capacity ``s``."""
+    splits, chunk = plan
+    if (chunk < KEY_TILE or chunk % KEY_TILE or splits < 1
+            or not (splits - 1) * chunk < s <= splits * chunk):
+        raise ValueError(f"{what}: plan {plan} does not cover capacity {s}")
+    if splits == 1:
+        return None
+    b, h, _ = q.shape
+    return torch.empty(b * kvh * splits * (h // kvh) * (HEAD_DIM + 2),
+                       dtype=torch.float32, device=q.device)
+
+
 def ragged_decode_attention_on_plan(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -197,14 +229,8 @@ def ragged_decode_attention_on_plan(
     b, h, _ = q.shape
     _, kvh, s, _ = k_cache.shape
     splits, chunk = plan
-    if (chunk < KEY_TILE or chunk % KEY_TILE or splits < 1
-            or not (splits - 1) * chunk < s <= splits * chunk):
-        raise ValueError(f"ragged_decode_attention: plan {plan} does not cover capacity {s}")
     out = torch.empty_like(q)
-    # The parts of the splits: per (row, kv head, split, head) an accumulator
-    # of 128 f32, a max and a sum (decode_split.cuh).
-    workspace = None if splits == 1 else torch.empty(
-        b * kvh * splits * (h // kvh) * (HEAD_DIM + 2), dtype=torch.float32, device=q.device)
+    workspace = _workspace(q, kvh, s, plan, "ragged_decode_attention")
     lib = build.load("ragged_decode_attention", _SIGNATURES)
     err = lib.chatts_ragged_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
@@ -262,6 +288,64 @@ def ragged_decode_attention_int8_reference(
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def ragged_decode_attention_int8_split_reference(
+    q: torch.Tensor,  # (B, H, D)
+    k_cache: torch.Tensor,  # (B, KVH, S, D) int8
+    v_cache: torch.Tensor,  # (B, KVH, S, D) int8
+    k_scale: torch.Tensor,  # (B, KVH, S) f32
+    v_scale: torch.Tensor,  # (B, KVH, S) f32
+    lengths: torch.Tensor,  # (B,) int
+    *,
+    chunk: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The int8 split kernel's arithmetic in plain PyTorch: the parts and the
+    merge of ``ragged_decode_attention_split_reference`` with the K scale on
+    the scores and the V scale on p before the PV product.  ``chunk``
+    defaults to ``split_plan``'s."""
+    return _split_reference(q, k_cache, v_cache, lengths, k_scale, v_scale, chunk, scale)
+
+
+def ragged_decode_attention_int8_on_plan(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    lengths: torch.Tensor,
+    plan: Tuple[int, int],
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Launch the int8 kernel with ``plan`` = (splits, chunk) for CUDA tensors
+    (``ragged_decode_attention_int8`` takes ``split_plan``'s; this entry lets
+    the card's tests and ``chip_smoke.py`` hold and time other chunks).
+    Nothing here reads ``lengths`` on the host, so a call can be captured in
+    a CUDA graph."""
+    what = "ragged_decode_attention_int8"
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {q.device}")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    _check(q, k_cache, v_cache, lengths, (k_scale, v_scale), what=what,
+           cache_dtype=torch.int8)
+    b, h, _ = q.shape
+    _, kvh, s, _ = k_cache.shape
+    splits, chunk = plan
+    out = torch.empty_like(q)
+    workspace = _workspace(q, kvh, s, plan, what)
+    lib = build.load("ragged_decode_attention_int8", _SIGNATURES_INT8)
+    err = lib.chatts_ragged_decode_attention_int8(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if workspace is None else workspace.data_ptr(),
+        b, h, kvh, s, float(scale), splits, chunk, build.stream_handle(q.device),
+    )
+    ragged_decode_attention_int8.launches += 1
+    build.check_launch(err, what)
+    return out
+
+
 def ragged_decode_attention_int8(
     q: torch.Tensor,  # (B, H, D) one token per row
     k_cache: torch.Tensor,  # (B, KVH, S, D) int8 codes
@@ -273,27 +357,13 @@ def ragged_decode_attention_int8(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Returns (B, H, D) in q's type."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return ragged_decode_attention_int8_reference(
             q, k_cache, v_cache, k_scale, v_scale, lengths, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"ragged_decode_attention_int8: no kernel for device {q.device}")
-    _check(q, k_cache, v_cache, lengths, (k_scale, v_scale),
-           what="ragged_decode_attention_int8", cache_dtype=torch.int8)
-    b, h, _ = q.shape
     _, kvh, s, _ = k_cache.shape
-    out = torch.empty_like(q)
-    lib = build.load("ragged_decode_attention_int8", _SIGNATURES_INT8)
-    err = lib.chatts_ragged_decode_attention_int8(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, kvh, s,
-        float(scale), build.stream_handle(q.device),
-    )
-    ragged_decode_attention_int8.launches += 1
-    build.check_launch(err, "ragged_decode_attention_int8")
-    return out
+    return ragged_decode_attention_int8_on_plan(
+        q, k_cache, v_cache, k_scale, v_scale, lengths, split_plan(s, q.shape[0], kvh),
+        scale=scale)
 
 
 ragged_decode_attention_int8.launches = 0

@@ -14,15 +14,18 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      the plain version and, where one exists, one PyTorch call computing the
      same function, and the kernel's bound; the prefill attention with both
      of its query tiles, beside the plain version of its own tile loop; the
-     decode attention twice to the bit, beside the plain version of its split
-     and merge; the int4 matmul on each of its paths at every R, and the
-     int8-activation matmul (B5) at the rows of an a8 prefill;
+     decode attention (bf16 and int8 cache) twice to the bit, beside the
+     plain version of its split and merge, with other chunks, and the int8
+     one replayed from a CUDA graph with other lengths; the int4 matmul on
+     each of its paths at every R, and the int8-activation matmul (B5) at the
+     rows of an a8 prefill, bit-equal to its plain version, with both of its
+     block widths at few rows;
   3. the ChatTS-14B widths at 2 layers, int4 weights: logits of the kernel
      path on the card against the plain path on the CPU in f32;
   3c. the same with int8-activation prefill (``act_int8``), against the
      plain a8 path on the CPU in f32, and beside the card's bf16 prefill;
   3b. the same widths with an int8 KV cache through ``ServeEngine``: one
-     monolithic admission and 16 decode steps on the card, run eagerly, their
+     monolithic admission and 8 decode steps on the card, run eagerly, their
      logits held against the same schedule on the CPU (plain versions, f32,
      the same int8 quantization, the card's tokens fed back); then the same
      schedule replayed from the engine's decode graph, token-identical;
@@ -37,7 +40,8 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      bench-like chat requests with two series each (the second wave joins
      while the first decodes, one request streams), twice, token-identical,
      every kernel of the path launched; then one decode round under
-     ``torch.profiler``, its top kernels by device time;
+     ``torch.profiler``, its top kernels by device time and the int8 decode
+     attention's share;
   6. phases 4 and 5 again with ``prefill_act_int8=True`` on the same weights:
      ``InferenceEngine`` greedy twice and the same two serving runs, each
      pair token-identical, B5 launched once per int4 projection per prefill
@@ -347,7 +351,7 @@ def phase_build():
             f"(nvcc {', '.join(f'{i.name} {i.seconds:.1f} s' for i in infos)})")
         for info in infos:
             for line in info.log.splitlines():
-                if "registers" in line or "spill" in line:
+                if any(key in line for key in ("registers", "spill", "arning")):
                     log(f"  {info.name}: {line.strip()}")
 
 
@@ -650,15 +654,24 @@ def phase_kernels():
             del caches
             torch.cuda.empty_cache()
 
-        # Ragged decode attention over the int8 cache, at the serving shape
-        # (24 slots, cap 1024) and at the engine's default cap of 6144.
-        for cap, lens in ((1024, [0, 1, 255, 256, 257, 600, 1024, 2, 17, 128, 129, 383,
-                                  384, 511, 512, 513, 700, 767, 768, 900, 1000, 1023, 64,
-                                  640]),
-                          (6144, [0, 1, 6144, 6143, 256, 257, 4097, 3000, 2048, 1024, 512,
-                                  5000, 100, 6000, 300, 4500, 1500, 2500, 3500, 5500, 700,
-                                  800, 900, 6100])):
-            b, h, kvh, d = len(lens), 40, 8, 128
+        # Ragged decode attention over the int8 cache: the serving shape (24
+        # slots, cap 1024) and the engine's default cap of 6144, then lengths
+        # on and beside the plan's chunk boundaries with a row of length 0,
+        # and G = 7 (28 heads over 4 kv heads, the 7B shape).
+        c24 = chunk_of(24, 8, 1024)
+        for name, h, kvh, cap, lens in (
+                ("serving", 40, 8, 1024,
+                 [0, 1, 255, 256, 257, 600, 1024, 2, 17, 128, 129, 383, 384, 511, 512, 513,
+                  700, 767, 768, 900, 1000, 1023, 64, 640]),
+                ("long", 40, 8, 6144,
+                 [0, 1, 6144, 6143, 256, 257, 4097, 3000, 2048, 1024, 512, 5000, 100, 6000,
+                  300, 4500, 1500, 2500, 3500, 5500, 700, 800, 900, 6100]),
+                ("boundaries", 40, 8, 1024,
+                 [0, c24 - 1, c24, c24 + 1, 2 * c24 - 1, 2 * c24, 2 * c24 + 1, 3 * c24,
+                  1023, 1024] + [0] * 14),
+                ("g7", 28, 4, 1024, [0, 129, 1000, 1024, 300, 31, 32, 33])):
+            b, d = len(lens), 128
+            plan = rda.split_plan(cap, b, kvh)
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
 
             def make_int8(_):
@@ -673,13 +686,20 @@ def phase_kernels():
             caches8 = rotating(make_int8, 2 * b * kvh * cap * (d + 4))
             q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
             got = rda.ragged_decode_attention_int8(q, *caches8[0], lengths)
+            again = rda.ragged_decode_attention_int8(q, *caches8[0], lengths)
             ref = rda.ragged_decode_attention_int8_reference(q, *caches8[0], lengths)
+            split = rda.ragged_decode_attention_int8_split_reference(q, *caches8[0], lengths,
+                                                                     chunk=plan[1])
             torch.cuda.synchronize()
-            err = compare(got, ref, f"ragged decode int8 S={cap}", row_rtol=INT8_ROW_RTOL)
-            if got[0].abs().max() != 0:
-                raise AssertionError("ragged decode int8: a row of length 0 did not give 0")
+            what = f"ragged decode int8 {name}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: two calls differ")
+            err = compare(got, ref, what, row_rtol=INT8_ROW_RTOL)
+            if got[lengths == 0].abs().sum() != 0:
+                raise AssertionError(f"{what}: a row of length 0 did not give 0")
             row_max = ref.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
             of_row = float(((got.float() - ref.float()).abs() / row_max).max())
+            of_split = float((got.float() - split.float()).abs().max())
             turn = [0]
 
             def cycle8(fn):
@@ -695,18 +715,44 @@ def phase_kernels():
             n_pos = sum(lens)
             bound_ms, bound_by = bound(2 * n_pos * kvh * (d + 4) + 2 * 2 * q.numel() + 4 * b,
                                        4.0 * d * h * n_pos, PEAK_BF16_S)
-            log(f"  ragged_decode_attention_int8 B={b} H=40 KVH=8 D=128 S={cap} lengths "
-                f"{min(lens)}..{max(lens)} (mean {sum(lens) / b:.0f}): max_abs_err {err:.3g} "
-                f"({of_row:.3g} of its row's largest; tolerance {INT8_ROW_RTOL}), "
-                f"kernel {ms:.3f} ms (eager {eager:.3f}), plain {plain:.3f} ms, bound "
-                f"{bound_ms:.4f} ms "
-                f"({bound_by}; {bound_ms / ms:.1%} of it)")
-            if cap == 1024:
+            log(f"  ragged_decode_attention_int8 {name} B={b} H={h} KVH={kvh} D=128 S={cap} "
+                f"lengths {min(lens)}..{max(lens)} (mean {sum(lens) / b:.0f}), {plan[0]} splits "
+                f"of {plan[1]} keys: max_abs_err {err:.3g} ({of_row:.3g} of its row's largest; "
+                f"tolerance {INT8_ROW_RTOL}; |kernel - split plain| {of_split:.3g}), two calls "
+                f"bit-equal, kernel {ms:.4f} ms (eager {eager:.3f}), plain {plain:.3f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} of it)")
+            if name == "serving":
                 results["ragged_decode_attention_int8"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=None,
                     library_note="none: no one PyTorch call applies per-position K and V "
                                  "scales inside attention")
+                # Other chunks at the same shape, for the plan's constants.
+                other = []
+                for chunk in (128, 256, 512, 1024):
+                    alt = (-(-cap // chunk), chunk)
+                    out = rda.ragged_decode_attention_int8_on_plan(q, *caches8[0], lengths, alt)
+                    torch.cuda.synchronize()
+                    compare(out, ref, f"{what} chunk {chunk}", row_rtol=INT8_ROW_RTOL)
+                    other.append((chunk, graph_ms(cycle8(
+                        lambda *a, alt=alt: rda.ragged_decode_attention_int8_on_plan(*a, alt)))))
+                log("    by chunk: " + ", ".join(f"{c} keys {t:.4f} ms" for c, t in other))
+                # The wrapper reads no length on the host: a call captured in a
+                # CUDA graph and replayed with other lengths gives their result.
+                held = lengths.clone()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    out = rda.ragged_decode_attention_int8(q, *caches8[0], held)
+                held.copy_(torch.flip(lengths, dims=(0,)))
+                graph.replay()
+                torch.cuda.synchronize()
+                if not torch.equal(out, rda.ragged_decode_attention_int8(q, *caches8[0], held)):
+                    raise AssertionError(f"{what}: a graph replayed with other lengths did not "
+                                         f"give their result")
+                compare(out, rda.ragged_decode_attention_int8_reference(q, *caches8[0], held),
+                        f"{what} replayed", row_rtol=INT8_ROW_RTOL)
+                log("    captured in a CUDA graph and replayed with other lengths: their result")
+                del graph
             else:
                 results["ragged_decode_attention_int8"]["max_abs_err"] = max(
                     err, results["ragged_decode_attention_int8"]["max_abs_err"])
@@ -724,6 +770,33 @@ def phase_kernels():
             in_dim, out_dim = INT4_SHAPES[name]
             weights = rotating(lambda _: _int4_weights(torch, gen, dev, in_dim, out_dim),
                                in_dim * out_dim // 2)
+            if name == "qkv":
+                # Both block widths on both sides of the wrapper's choice
+                # (one warpgroup a block up to 64 rows, two above).
+                by_width = []
+                for r in (1, 37, 64, 65):
+                    x_q = torch.randint(-127, 128, (r, in_dim), generator=gen, device=dev,
+                                        dtype=torch.int8)
+                    x_scale = (torch.rand((r,), generator=gen, device=dev) + 0.5) / 127
+                    ref = i4.int4_matmul_a8_reference(x_q, x_scale, *weights[0])
+                    for wgs in i4.A8_WARPGROUPS:
+                        got = i4.int4_matmul_a8_on_width(x_q, x_scale, *weights[0], wgs)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, ref):
+                            raise AssertionError(f"int4_matmul_a8 {name} R={r}, {wgs} warpgroups "
+                                                 f"a block: not bit-equal to the plain version")
+                        turn = [0]
+
+                        def run_width(x_q=x_q, x_scale=x_scale, wgs=wgs):
+                            turn[0] = (turn[0] + 1) % len(weights)
+                            i4.int4_matmul_a8_on_width(x_q, x_scale, *weights[turn[0]], wgs)
+
+                        by_width.append(f"R={r} x{wgs} {graph_ms(run_width):.4f}")
+                    if not torch.equal(i4.int4_matmul_a8(x_q, x_scale, *weights[0]), ref):
+                        raise AssertionError(f"int4_matmul_a8 {name} R={r}: not bit-equal")
+                log(f"  int4_matmul_a8 {name} by rows and warpgroups a block (the wrapper takes "
+                    f"{[i4.a8_warpgroups(r) for r in (1, 37, 64, 65)]}), bit-equal, ms: "
+                    + ", ".join(by_width))
             for r in (37, 4096, 5120):
                 x_q = torch.randint(-127, 128, (r, in_dim), generator=gen, device=dev,
                                     dtype=torch.int8)
@@ -738,6 +811,9 @@ def phase_kernels():
                                          f"{float(err.max()):.4g} beyond one bf16 ulp")
                 errs.append(float(err.max()))
                 exact = float((got == ref).float().mean())
+                if exact != 1.0:
+                    raise AssertionError(f"int4_matmul_a8 {name} R={r}: {exact:.4%} of the "
+                                         f"outputs bit-equal to the plain version, not all")
                 turn = [0]
 
                 def run_a8(fn, x_q=x_q, x_scale=x_scale):
@@ -980,7 +1056,7 @@ def phase_serving_model():
     from chatts_tpu_torch.processor.processor import ChatTSProcessor
 
     dev = torch.device("cuda", 0)
-    n_steps = 16
+    n_steps = 8  # each is run again on the CPU in f32: most of this phase's time
     with Phase("3b", "ChatTS-14B widths, 2 layers, int4, int8 KV: ServeEngine on the card "
                      "against the same schedule on the CPU (plain, f32)"):
         cfg = chatts_14b_config(num_layers=2)
@@ -1031,7 +1107,7 @@ def phase_serving_model():
             return reqs, recorder
 
         reqs, recorder = serve(eager=True)
-        got = recorder.calls  # prefill (4, V), then 16 decode steps (4, V)
+        got = recorder.calls  # prefill (4, V), then n_steps decode steps (4, V)
         replayed, _ = serve(eager=False)
         if [r.output_tokens for r in replayed] != [r.output_tokens for r in reqs]:
             raise AssertionError("the decode graph served other tokens than the eager round")
@@ -1311,8 +1387,17 @@ def profile_decode_round(torch, engine, live: int = 16) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             scheduler._decode_all_slots(*args)
             torch.cuda.synchronize()
-    return device_kernels(prof, f"one decode round ({engine.decode_chunk} steps, {b} slots, "
-                                f"{live} live)")
+    out = device_kernels(prof, f"one decode round ({engine.decode_chunk} steps, {b} slots, "
+                               f"{live} live)",
+                         mark=("ragged_decode_int8_kernel", "decode_merge_kernel"))
+    calls = engine.decode_chunk * engine.cfg.llm.num_hidden_layers
+    if out["marked_launches"] < calls:
+        raise AssertionError("the decode round's profile holds no int8 decode attention")
+    log(f"  decode round: {out['busy_ms']:.3f} ms of device time, of it "
+        f"ragged_decode_attention_int8 (split and merge) {out['marked_ms']:.3f} ms "
+        f"({out['marked_ms'] / out['busy_ms']:.1%}) in {out['marked_launches']} launches "
+        f"({out['marked_ms'] / calls * 1e3:.1f} us a call)")
+    return out
 
 
 def profile_batch_decode_step(torch, engine, batch, gen_cfg) -> dict:
@@ -1435,7 +1520,7 @@ def phase_serving(smi: str, model, cfg, act_int8: bool = False):
             with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
                                         timeout=60) as r:
                 metrics = json.loads(r.read())
-            profile = None if act_int8 else profile_decode_round(torch, engine)
+            profile = profile_decode_round(torch, engine)
         finally:
             server.shutdown()
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9

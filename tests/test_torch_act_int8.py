@@ -120,6 +120,27 @@ def test_torch_int4_a8_wrapper_refuses_other_devices():
         ti4.int4_matmul_a8(xq, xs, packed, scales)
 
 
+@pytest.mark.parametrize("r,want", [(1, 1), (37, 1), (64, 1), (65, 2), (129, 2), (4096, 2),
+                                    (5120, 2)])
+def test_torch_int4_a8_block_width_by_rows(r, want):
+    """The a8 kernel's block width is chosen from R alone: one consumer
+    warpgroup (128 output columns a block) while the rows fit one 64-row
+    tile, two above."""
+    assert ti4.a8_warpgroups(r) == want
+    assert want in ti4.A8_WARPGROUPS
+    assert ti4.a8_warpgroups(ti4.A8_NARROW_MAX_ROWS) == 1
+    assert ti4.a8_warpgroups(ti4.A8_NARROW_MAX_ROWS + 1) == 2
+
+
+def test_torch_int4_a8_on_width_is_for_the_card():
+    rng = np.random.default_rng(2)
+    packed, scales = (np.asarray(a) for a in _int4_values(rng, 256, 256))
+    xq = torch.zeros((2, 256), dtype=torch.int8)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        ti4.int4_matmul_a8_on_width(xq, torch.ones(2), torch.from_numpy(packed),
+                                    torch.from_numpy(scales), 1)
+
+
 @pytest.mark.parametrize("extras", ["plain", "zeros4", "perm4", "zeros4+perm4"])
 def test_torch_int4_dense_act_int8_matches_jax(interpret, extras):
     rng = np.random.default_rng(3)

@@ -25,14 +25,16 @@ largest output: both are f32 throughout and round once to bf16.
 The int8 decode attention is held tighter, per (row, head), to 2e-2 of that
 row's largest output: both sides compute in f32 and round once to bf16 (one
 ulp, at most 2**-7 of the row's largest), and a long row's outputs are too
-small for the shared absolute tolerance to see one wrong 128-key tile.
+small for the shared absolute tolerance to see one wrong 128-key tile.  Its
+split cases are also held to ``ragged_decode_attention_int8_split_reference``,
+per row to 2**-7 of the row's largest output, as the bf16 kernel's are.
 
 The int4 matmul is also held, path by path, to one bf16 ulp of the plain
 version of its own arithmetic (see its test).
 
-The int8-activation matmul is held to one bf16 ulp of its plain version
-(2**-7 of each output): every group's int32 sum is exact, and both add
-f32(sum) * s_g in group order and round once.  The int8-weight projection
+The int8-activation matmul is held to the bits of its plain version: every
+group's int32 sum is exact, and both add f32(sum) * s_g in group order and
+round once.  The int8-weight projection
 on the card is held to one bf16 ulp of the same projection on the CPU: with
 int8 activations its products are exact integers; weight-only, its f32 sums
 run in another order, so where an output cancels to near zero it may differ
@@ -271,6 +273,80 @@ def test_torch_ragged_int8_kernel_matches_plain(cuda, lengths, h, kvh, s):
     assert (got[lens == 0] == 0).all()  # a row of length 0 gives 0
 
 
+@pytest.mark.parametrize("g", [1, 5, 7, 16])
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_torch_ragged_int8_kernel_split_cases(cuda, g, chunk):
+    """Lengths 0, 1, chunk - 1, chunk, chunk + 1 and S through the int8 split
+    kernel, with more chunks than any row but the last needs and NaN scales
+    past every length; per (row, head) against the dense plain version (2e-2
+    of the row's largest) and the plain version of its own arithmetic (one
+    bf16 ulp, 2**-7); two calls bit-equal; one split (no merge) agrees."""
+    s, kvh, d = 4 * chunk + 40, 2, 128
+    lengths = [0, 1, chunk - 1, chunk, chunk + 1, s]
+    b = len(lengths)
+    gen = torch.Generator(device=cuda).manual_seed(g + chunk)
+    q = _bf16(gen, (b, g * kvh, d), cuda)
+    k, ks = _int8_cache(gen, (b, kvh, s, d), cuda)
+    v, vs = _int8_cache(gen, (b, kvh, s, d), cuda)
+    k[:, :, ::7, ::5] = -128  # the code the quantizer never writes still counts
+    lens = torch.tensor(lengths, device=cuda, dtype=torch.int32)
+    past = torch.arange(s, device=cuda)[None, None, :] >= lens[:, None, None]
+    ks_nan = torch.where(past, float("nan"), ks)
+    vs_nan = torch.where(past, float("nan"), vs)
+    plan = (-(-s // chunk), chunk)
+    got = rda.ragged_decode_attention_int8_on_plan(q, k, v, ks_nan, vs_nan, lens, plan)
+    again = rda.ragged_decode_attention_int8_on_plan(q, k, v, ks_nan, vs_nan, lens, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close_rows(got, rda.ragged_decode_attention_int8_reference(q, k, v, ks, vs, lens))
+    _close_rows(got, rda.ragged_decode_attention_int8_split_reference(
+        q, k, v, ks, vs, lens, chunk=chunk), rtol=2.0 ** -7)
+    assert (got[0] == 0).all()  # a row of length 0 gives 0
+    one = rda.ragged_decode_attention_int8_on_plan(q, k, v, ks_nan, vs_nan, lens,
+                                                   (1, plan[0] * chunk))
+    torch.cuda.synchronize()
+    _close_rows(one, got, rtol=2.0 ** -7)  # one split: no merge kernel
+    assert (one[0] == 0).all()
+
+
+def test_torch_ragged_int8_kernel_in_a_cuda_graph(cuda):
+    """The int8 wrapper reads nothing of ``lengths`` on the host: a call
+    captured in a CUDA graph and replayed after ``lengths`` changed gives the
+    new lengths' result."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    b, h, kvh, s, d = 24, 40, 8, 1024, 128
+    q = _bf16(gen, (b, h, d), cuda)
+    k, ks = _int8_cache(gen, (b, kvh, s, d), cuda)
+    v, vs = _int8_cache(gen, (b, kvh, s, d), cuda)
+    lens = torch.randint(0, s + 1, (b,), generator=gen, device=cuda).to(torch.int32)
+    rda.ragged_decode_attention_int8(q, k, v, ks, vs, lens)  # builds outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rda.ragged_decode_attention_int8(q, k, v, ks, vs, lens)
+    graph.replay()
+    torch.cuda.synchronize()
+    _close_rows(out, rda.ragged_decode_attention_int8_reference(q, k, v, ks, vs, lens))
+    new = torch.randint(0, s + 1, (b,), generator=gen, device=cuda).to(torch.int32)
+    new[1], new[2] = 0, s
+    lens.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    _close_rows(out, rda.ragged_decode_attention_int8_reference(q, k, v, ks, vs, new))
+    assert (out[1] == 0).all()
+    assert torch.equal(out, rda.ragged_decode_attention_int8(q, k, v, ks, vs, new))
+
+
+def test_torch_ragged_int8_kernel_refuses_a_plan_that_does_not_cover(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _bf16(gen, (1, 4, 128), cuda)
+    k, ks = _int8_cache(gen, (1, 2, 300, 128), cuda)
+    lens = torch.tensor([5], device=cuda, dtype=torch.int32)
+    for plan in ((2, 128), (4, 128), (3, 100), (1, 256)):
+        with pytest.raises(ValueError, match="plan"):
+            rda.ragged_decode_attention_int8_on_plan(q, k, k, ks, ks, lens, plan)
+
+
 def test_torch_ragged_int8_kernel_refuses_what_it_does_not_take(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = _bf16(gen, (1, 4, 128), cuda)
@@ -346,15 +422,21 @@ def _within_one_ulp(got, ref, atol=0.0):
     assert (err <= 2.0 ** -7 * ref.abs() + atol).all(), float(err.max())
 
 
-@pytest.mark.parametrize("r", [1, 17, 130, 300])
+@pytest.mark.parametrize("r", [1, 17, 64, 65, 129, 130, 300])
 @pytest.mark.parametrize("in_dim,out_dim", [(128, 128), (640, 384), (1152, 256)])
 def test_torch_int4_a8_kernel_matches_plain(cuda, r, in_dim, out_dim):
+    """The a8 kernel at R rows on both sides of its 64-row tile and of the
+    wrapper's choice of block width, with each width (``int4_matmul_a8_on_width``;
+    OUT = 384 leaves the wide block's second warpgroup without columns in the
+    last block): bit-equal to the plain version, a whole 128 x 128 weight
+    tile of -8 nibbles included."""
     gen = torch.Generator(device=cuda).manual_seed(r + in_dim)
     x_q = torch.randint(-127, 128, (r, in_dim), generator=gen, device=cuda, dtype=torch.int8)
     x_scale = (torch.rand((r,), generator=gen, device=cuda) + 0.5) / 127
     packed = torch.randint(-128, 128, (in_dim // 2, out_dim), generator=gen, device=cuda,
                            dtype=torch.int8)
     packed[0, :9] = -120  # 0x88: both nibbles -8, as GPTQ imports carry
+    packed[-64:, -128:] = -120  # the last group's last weight tile: all -8
     scales = (torch.rand((in_dim // 128, out_dim), generator=gen, device=cuda) + 0.5) \
         / (7 * math.sqrt(in_dim))
     before = i4.int4_matmul_a8.launches
@@ -364,6 +446,12 @@ def test_torch_int4_a8_kernel_matches_plain(cuda, r, in_dim, out_dim):
     assert got.shape == (r, out_dim) and got.dtype == torch.bfloat16
     ref = i4.int4_matmul_a8_reference(x_q, x_scale, packed, scales)
     _within_one_ulp(got, ref)
+    assert torch.equal(got, ref)
+    for warpgroups in i4.A8_WARPGROUPS:
+        out = i4.int4_matmul_a8_on_width(x_q, x_scale, packed, scales, warpgroups)
+        assert torch.equal(out, ref), warpgroups
+    assert torch.equal(got, i4.int4_matmul_a8_on_width(x_q, x_scale, packed, scales,
+                                                       i4.a8_warpgroups(r)))
     # The -8 nibbles count as -8: with row 0 of x_q set to 1 and the rest 0,
     # row 0 of the product is the first group's weights summed.
     one = torch.zeros_like(x_q)
@@ -385,6 +473,8 @@ def test_torch_int4_a8_kernel_refuses_what_it_does_not_take(cuda):
         i4.int4_matmul_a8(x_q, x_scale[:3], packed, scales)
     with pytest.raises(ValueError, match="bf16"):
         i4.int4_matmul_a8(x_q, x_scale, packed, scales, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="warpgroups"):
+        i4.int4_matmul_a8_on_width(x_q, x_scale, packed, scales, 3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
