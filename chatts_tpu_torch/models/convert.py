@@ -12,23 +12,19 @@ from __future__ import annotations
 
 from typing import Any, Mapping, Optional
 
-import numpy as np
 import torch
 
 from chatts_tpu_torch.core.config import ChatTSConfig, QwenConfig, TSEncoderConfig
 from chatts_tpu_torch.models.chatts import ChatTSModel
-from chatts_tpu_torch.models.qwen import MLP, Attention, DecoderLayer, Dense, QwenModel
+from chatts_tpu_torch.models.qwen import (
+    MLP,
+    Attention,
+    DecoderLayer,
+    Dense,
+    QwenModel,
+    to_tensor,
+)
 from chatts_tpu_torch.models.ts_encoder import TSEncoder
-
-
-def to_tensor(a: Any, device=None) -> torch.Tensor:
-    """A numpy array (bfloat16 included, as ml_dtypes stores it) as a tensor."""
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.array(a.view(np.int16))).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(a))
-    return t.to(device)
 
 
 def _opt(tree: Mapping[str, Any], key: str, device) -> Optional[torch.Tensor]:

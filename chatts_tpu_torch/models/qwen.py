@@ -26,12 +26,16 @@ and attends through ``ragged_decode_attention_int8``.
 input rows to int8: int4 weights then take ``int4_matmul_a8`` and int8
 weights an int8 x int8 -> int32 product; float weights ignore it.
 
+``load_torch_state_dict`` builds the decoder from an HF state dict
+(``models/weights.py`` loads checkpoint directories).
+
 Recent-KV decode and chunked prefill are not ported yet.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -468,3 +472,88 @@ def fuse_projections(model: QwenModel) -> QwenModel:
                 torch.cat([mlp.gate_proj.kernel, mlp.up_proj.kernel], dim=1))
             mlp.gate_proj = mlp.up_proj = None
     return model
+
+
+# ---------------------------------------------------------------------------
+# HF state dicts
+# ---------------------------------------------------------------------------
+
+def to_tensor(a, device=None) -> torch.Tensor:
+    """A torch tensor or a numpy array (bfloat16 included, as ml_dtypes
+    stores it) as a tensor on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a.view(np.int16))).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device)
+
+
+def state_tensor(state_dict, name: str, device=None) -> torch.Tensor:
+    """``state_dict[name]`` as a tensor on ``device``; a state dict with
+    ``get_tensor`` (``models/weights.py``) reads it straight to the device."""
+    if hasattr(state_dict, "get_tensor"):
+        return state_dict.get_tensor(name, device)
+    return to_tensor(state_dict[name], device)
+
+
+def build_layers(cfg: QwenConfig, norm: Callable[[str], torch.Tensor],
+                 dense: Callable[[str, bool], Dense], prefix: str = "model.") -> List[DecoderLayer]:
+    """The decoder layers under HF names: ``norm(name)`` gives a norm's
+    weight, ``dense(name, bias)`` the unfused projection at ``name``
+    (``...q_proj``) with its bias when ``bias``.  Read in the reference
+    loader's order, a layer at a time."""
+    layers = []
+    for i in range(cfg.num_hidden_layers):
+        lp = f"{prefix}layers.{i}."
+        attn = lp + "self_attn."
+        input_norm = norm(lp + "input_layernorm.weight")
+        post_norm = norm(lp + "post_attention_layernorm.weight")
+        q = dense(attn + "q_proj", cfg.attention_bias)
+        k = dense(attn + "k_proj", cfg.attention_bias)
+        v = dense(attn + "v_proj", cfg.attention_bias)
+        o = dense(attn + "o_proj", False)
+        gate = dense(lp + "mlp.gate_proj", False)
+        up = dense(lp + "mlp.up_proj", False)
+        down = dense(lp + "mlp.down_proj", False)
+        norms = {}
+        if cfg.qk_norm:
+            norms = {"q_norm": norm(attn + "q_norm.weight"), "k_norm": norm(attn + "k_norm.weight")}
+        layers.append(DecoderLayer(
+            cfg, Attention(cfg, o, q_proj=q, k_proj=k, v_proj=v, **norms),
+            MLP(down, gate_proj=gate, up_proj=up), input_norm, post_norm))
+    return layers
+
+
+def load_torch_state_dict(state_dict, cfg: QwenConfig, prefix: str = "model.",
+                          dtype=None, device=None) -> QwenModel:
+    """The decoder from an HF state dict (torch or numpy values), unfused:
+    the port of ``chatts_tpu.models.qwen.load_torch_state_dict``.
+
+    HF names (reference weight-prefix contract: chatts_vllm.py:467-470):
+      model.embed_tokens.weight, model.layers.{i}.self_attn.{q,k,v,o}_proj.*,
+      model.layers.{i}.mlp.{gate,up,down}_proj.weight,
+      model.layers.{i}.{input,post_attention}_layernorm.weight,
+      model.layers.{i}.self_attn.{q,k}_norm.weight (Qwen3),
+      model.norm.weight, lm_head.weight (absent when embeddings are tied --
+      reference: chatts_vllm.py:621-624).
+    HF's (out, in) weights become (in, out) kernels; every tensor is cast to
+    ``dtype`` (the config's by default)."""
+    if dtype is None:
+        dtype = getattr(torch, cfg.dtype)
+
+    def get(name: str) -> torch.Tensor:
+        return state_tensor(state_dict, name, device).to(dtype)
+
+    def dense(name: str, bias: bool) -> Dense:
+        b = get(name + ".bias") if bias and name + ".bias" in state_dict else None
+        return Dense(get(name + ".weight").t().contiguous(), bias=b)
+
+    layers = build_layers(cfg, get, dense, prefix)
+    lm_head = None
+    if not cfg.tie_word_embeddings and "lm_head.weight" in state_dict:
+        lm_head = get("lm_head.weight").t().contiguous()
+    return QwenModel(cfg, get(prefix + "embed_tokens.weight"), layers,
+                     get(prefix + "norm.weight"), lm_head=lm_head)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from chatts_tpu_torch.core.config import TSEncoderConfig
+from chatts_tpu_torch.models.qwen import state_tensor
 
 
 @contextlib.contextmanager
@@ -122,3 +123,23 @@ class TSEncoder(nn.Module):
                 if i < last:
                     x = F.gelu(x, approximate="none")
         return x, patch_cnt.to(torch.int32), patch_mask
+
+
+@torch.no_grad()
+def load_torch_state_dict(state_dict, cfg: TSEncoderConfig, prefix: str = "ts_encoder.",
+                          device=None) -> TSEncoder:
+    """The encoder from an HF state dict (torch or numpy values), in f32: the
+    port of ``chatts_tpu.models.ts_encoder.load_torch_state_dict``.  torch
+    Linear stores weight as (out, in), the encoder's kernels are (in, out);
+    the Linear layers sit at the even slots of the reference's Sequential
+    (GELU between)."""
+    encoder = TSEncoder(cfg, device=device)
+    for i in range(cfg.num_layers):
+        slot = 2 * i
+        encoder.kernels[i].copy_(
+            state_tensor(state_dict, f"{prefix}mlp.{slot}.weight", device).float().t())
+        encoder.biases[i].copy_(state_tensor(state_dict, f"{prefix}mlp.{slot}.bias", device))
+    if cfg.use_position_embedding:
+        encoder.position_embedding.copy_(
+            state_tensor(state_dict, f"{prefix}position_embedding.weight", device))
+    return encoder

@@ -19,7 +19,8 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      one replayed from a CUDA graph with other lengths; the int4 matmul on
      each of its paths at every R, and the int8-activation matmul (B5) at the
      rows of an a8 prefill, bit-equal to its plain version, with both of its
-     block widths at few rows;
+     block widths at few rows; both int4 matmuls at the unfused widths of an
+     imported GPTQ checkpoint (OUT 1,024, 5,120, 13,824);
   3. the ChatTS-14B widths at 2 layers, int4 weights: logits of the kernel
      path on the card against the plain path on the CPU in f32;
   3c. the same with int8-activation prefill (``act_int8``), against the
@@ -45,7 +46,23 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
   6. phases 4 and 5 again with ``prefill_act_int8=True`` on the same weights:
      ``InferenceEngine`` greedy twice and the same two serving runs, each
      pair token-identical, B5 launched once per int4 projection per prefill
-     and never in decode or for the head.
+     and never in decode or for the head (the decode round is phase 5's and
+     is not profiled again);
+  7. a checkpoint from disk, the user's path: (a) a ChatTS-14B GPTQ-Int4
+     directory synthesized in the published format (48 layers, symmetric;
+     fewer, said so, if the disk cannot hold them) under a temporary
+     directory removed at the end, (b) ``weights.diagnose``, (c)
+     ``load_checkpoint(quantize_bits=4)`` onto the card, every projection
+     and the head in the int4 layout, unfused, (d) layers 0 and 47 bit-equal
+     to the CPU's conversion and, dequantized, to ``gptq.dequantize``, (e)
+     2 layers of the directory on the card against the same on the CPU in
+     f32 (plain path), bf16 and act_int8 prefill, (f) phase 4's batch through
+     ``InferenceEngine`` on the loaded model, greedy twice, token-identical,
+     and once with act_int8, (g) the model served through
+     ``examples/serve_openai.py``'s ``build`` at phase 5's configuration, one
+     wave of 8 chat requests twice, token-identical, (h) the activation-order
+     and asymmetric exports at 2 layers, ``perm4`` and ``zeros4`` on the
+     card, logits as in (e).
 
 It prints a JSON line of per-kernel results (the kernel's, the plain
 version's and the library call's device times, the bound and what sets it),
@@ -55,6 +72,7 @@ is no CPU path.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -119,6 +137,13 @@ INT4_SHAPES = {"qkv": (5120, 7168), "o": (5120, 5120), "gate_up": (5120, 27648),
                "down": (13824, 5120), "lm_head": (5120, 152064)}
 INT4_ROWS = (1, 4, 16, 24, 37, 64, 640)
 INT4_PREFILL_ROWS = (4096, 5120)
+# An imported GPTQ checkpoint keeps q/k/v and gate/up apart, as the reference
+# server does: k and v 5120->1024, q and o 5120->5120, gate and up
+# 5120->13824 (down is INT4_SHAPES' down). Phase 2 times B3 and B5 there at
+# the rows of decode (1), serving's decode round (24) and the serving and
+# batch prefills (4096, 5120).
+INT4_UNFUSED_OUT = (1024, 5120, 13824)
+INT4_UNFUSED_ROWS = (1, 24, 4096, 5120)
 # One H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W): the
 # least time a call could take is the larger of its bytes over the memory
 # rate and its operations over the peak for their type.
@@ -270,6 +295,12 @@ def int4_bound(r: int, in_dim: int, out_dim: int):
     OUT bf16 operations."""
     nbytes = in_dim * out_dim // 2 + in_dim // 128 * out_dim * 4 + 2 * r * (in_dim + out_dim)
     return bound(nbytes, 2.0 * r * in_dim * out_dim, PEAK_BF16_S)
+
+
+def _model_gb(model) -> float:
+    """GB of a model's parameters and buffers."""
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers())) / 1e9
 
 
 def int4pack_library(torch, i4, packed, scales):
@@ -487,6 +518,96 @@ def phase_int4(torch, gen, dev):
     if library_note:
         log(f"  int4_matmul library call: {library_note}")
     return dict(max_abs_err=max(errs), bound_by="bytes", library_note=library_note, **total)
+
+
+def phase_int4_unfused(torch, gen, dev) -> list:
+    """B3 and B5 at the projection widths of an imported GPTQ checkpoint,
+    which keeps q/k/v and gate/up apart (IN 5,120; OUT 1,024 for k and v,
+    5,120 for q, 13,824 for gate and up) at the rows decode, the batch
+    prefill and a serving wave's prefill give them: each against its plain
+    version (B3 also against the grouped one to one bf16 ulp, B5 to the bit),
+    the kernel's, the plain version's and, for B3, ``_weight_int4pack_mm``'s
+    device times, and the bound. At OUT 1,024 (four blocks of B5's
+    two-warpgroup width) both of B5's block widths, to the bit. Returns one
+    dict a (kernel, OUT, R)."""
+    from chatts_tpu_torch.ops import int4_matmul as i4
+
+    names = {v: k for k, v in i4.PATHS.items()}
+    in_dim, rows_out = 5120, []
+    for out_dim in INT4_UNFUSED_OUT:
+        weights = rotating(lambda _: _int4_weights(torch, gen, dev, in_dim, out_dim),
+                           in_dim * out_dim // 2)
+        try:
+            packs = [int4pack_library(torch, i4, *w) for w in weights]
+        except (RuntimeError, AttributeError):  # the op is missing on this build
+            packs = None
+        turn = [0]
+
+        def cycled(fn):
+            """fn(i) on the weights of set i, a new set each call."""
+            def run():
+                turn[0] = (turn[0] + 1) % len(weights)
+                return fn(turn[0])
+            return run
+
+        for r in INT4_UNFUSED_ROWS:
+            what = f"int4 unfused {in_dim}->{out_dim} R={r}"
+            x = torch.randn((r, in_dim), generator=gen, device=dev).to(torch.bfloat16)
+            got = i4.int4_matmul(x, *weights[0])
+            plain_out = i4.int4_matmul_reference(x, *weights[0])
+            torch.cuda.synchronize()
+            err = compare(got, plain_out, what)
+            _int4_close(got, i4.int4_matmul_grouped_reference(x, *weights[0]), what)
+            ms = graph_ms(cycled(lambda i: i4.int4_matmul(x, *weights[i])))
+            plain = graph_ms(cycled(lambda i: i4.int4_matmul_reference(x, *weights[i])))
+            lib = None
+            if packs is not None:
+                def library(i):
+                    return torch._weight_int4pack_mm(x, packs[i][0], 128, packs[i][1])
+
+                try:
+                    lib = _library_ms(torch, library(0), plain_out, cycled(library), what)
+                except (RuntimeError, AssertionError):
+                    packs = None
+            bound_ms, bound_by = int4_bound(r, in_dim, out_dim)
+            rows_out.append(dict(kernel="int4_matmul", out=out_dim, rows=r, ms=ms, plain_ms=plain,
+                                 library_ms=lib, bound_ms=bound_ms, max_abs_err=err))
+            log(f"  int4_matmul unfused {in_dim}->{out_dim} R={r}: kernel {ms:.4f} ms "
+                f"({names[i4.int4_path(r)]}), plain {plain:.3f} ms, int4pack_mm "
+                f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {bound_ms / ms:.1%} of it), max_abs_err {err:.3g}")
+
+            x_q = torch.randint(-127, 128, (r, in_dim), generator=gen, device=dev, dtype=torch.int8)
+            x_scale = (torch.rand((r,), generator=gen, device=dev) + 0.5) / 127
+            ref = i4.int4_matmul_a8_reference(x_q, x_scale, *weights[0])
+            by_width = []
+            for wgs in (i4.A8_WARPGROUPS if out_dim == 1024 else (i4.a8_warpgroups(r),)):
+                out = i4.int4_matmul_a8_on_width(x_q, x_scale, *weights[0], wgs)
+                torch.cuda.synchronize()
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"int4_matmul_a8 unfused {in_dim}->{out_dim} R={r}, "
+                                         f"{wgs} warpgroups a block: not bit-equal")
+                t = graph_ms(cycled(lambda i, w=wgs: i4.int4_matmul_a8_on_width(
+                    x_q, x_scale, *weights[i], w)))
+                by_width.append(f"{wgs} warpgroups {t:.4f}")
+            if not torch.equal(i4.int4_matmul_a8(x_q, x_scale, *weights[0]), ref):
+                raise AssertionError(f"int4_matmul_a8 unfused {in_dim}->{out_dim} R={r}: "
+                                     "not bit-equal")
+            ms = graph_ms(cycled(lambda i: i4.int4_matmul_a8(x_q, x_scale, *weights[i])))
+            plain = graph_ms(cycled(lambda i: i4.int4_matmul_a8_reference(
+                x_q, x_scale, *weights[i])), target_s=0.1)
+            bound_ms, _ = bound(in_dim * out_dim // 2 + in_dim // 128 * out_dim * 4
+                                + r * (in_dim + 4) + 2 * r * out_dim,
+                                2.0 * r * in_dim * out_dim, PEAK_INT8_S)
+            rows_out.append(dict(kernel="int4_matmul_a8", out=out_dim, rows=r, ms=ms,
+                                 plain_ms=plain, library_ms=None, bound_ms=bound_ms,
+                                 max_abs_err=0.0))
+            log(f"  int4_matmul_a8 unfused {in_dim}->{out_dim} R={r}: bit-equal, kernel "
+                f"{ms:.4f} ms (by block width: {', '.join(by_width)}), plain {plain:.3f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_ms / ms:.1%} of it)")
+        del weights, packs
+        torch.cuda.empty_cache()
+    return rows_out
 
 
 def phase_kernels():
@@ -843,6 +964,8 @@ def phase_kernels():
         results["int4_matmul_a8"] = dict(
             max_abs_err=max(errs), bound_by="operations", library_ms=None,
             library_note=none_a8, **layer)
+        unfused = phase_int4_unfused(torch, gen, dev)
+        log("  unfused int4 stats: " + json.dumps(unfused))
     return results
 
 
@@ -1178,8 +1301,7 @@ def phase_slice(smi: str):
         start = time.perf_counter()
         model = init_quantized_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
         torch.cuda.synchronize(dev)
-        weight_gb = sum(t.numel() * t.element_size()
-                        for t in list(model.parameters()) + list(model.buffers())) / 1e9
+        weight_gb = _model_gb(model)
         log(f"  random int4 weights on the card: {weight_gb:.2f} GB in "
             f"{time.perf_counter() - start:.1f} s")
         engine = InferenceEngine(model, cfg, device=dev, cache_dtype=torch.bfloat16)
@@ -1307,6 +1429,27 @@ class WaveGate:
                 self.held = []
                 self.engine._wake.set()
         return req
+
+
+def chat_bodies(count: int, n_new: int, stream: int = -1) -> list:
+    """``count`` bench-like chat requests (bench.py's _bench_prompt: 478
+    prompt tokens, two series), greedy, ``n_new`` tokens; request ``stream``
+    streams."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    filler = " ".join(f"word{i}" for i in range(400))
+    bodies = []
+    for i in range(count):
+        parts = [{"type": "text", "text": "here are two metrics "},
+                 {"type": "timeseries", "timeseries": rng.normal(0, 50, 256).cumsum().tolist()},
+                 {"type": "text", "text": " and "},
+                 {"type": "timeseries", "timeseries": rng.normal(0, 5, 512).cumsum().tolist()},
+                 {"type": "text", "text": f". {filler} analyze their local changes."}]
+        bodies.append({"model": "chatts", "max_tokens": n_new, "temperature": 0.0,
+                       "stream": i == stream,
+                       "messages": [{"role": "user", "content": parts}]})
+    return bodies
 
 
 def _post_chat(port: int, body: dict, timeout: float = 240.0) -> dict:
@@ -1471,22 +1614,7 @@ def phase_serving(smi: str, model, cfg, act_int8: bool = False):
                              admission_bucket=8, prefill_act_int8=act_int8)
         gate = WaveGate(engine, wave)
         server = ChatTSServer(engine, tokenizer, host="127.0.0.1", port=0)
-        rng = np.random.default_rng(SEED + 5)
-        filler = " ".join(f"word{i}" for i in range(400))  # bench.py's _bench_prompt
-
-        def body(i: int) -> dict:
-            parts = [{"type": "text", "text": "here are two metrics "},
-                     {"type": "timeseries",
-                      "timeseries": rng.normal(0, 50, 256).cumsum().tolist()},
-                     {"type": "text", "text": " and "},
-                     {"type": "timeseries",
-                      "timeseries": rng.normal(0, 5, 512).cumsum().tolist()},
-                     {"type": "text", "text": f". {filler} analyze their local changes."}]
-            return {"model": "chatts", "max_tokens": n_new, "temperature": 0.0,
-                    "stream": i == wave + 3,
-                    "messages": [{"role": "user", "content": parts}]}
-
-        bodies = [body(i) for i in range(2 * wave)]
+        bodies = chat_bodies(2 * wave, n_new, stream=wave + 3)
         runs = []
         server.start_background()
         try:
@@ -1520,7 +1648,9 @@ def phase_serving(smi: str, model, cfg, act_int8: bool = False):
             with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
                                         timeout=60) as r:
                 metrics = json.loads(r.read())
-            profile = profile_decode_round(torch, engine)
+            # 6b's decode rounds are phase 5's (act_int8 changes the prefill
+            # only): profile them once, in phase 5.
+            profile = None if act_int8 else profile_decode_round(torch, engine)
         finally:
             server.shutdown()
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1582,6 +1712,277 @@ def phase_serving(smi: str, model, cfg, act_int8: bool = False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: a checkpoint from disk
+# ---------------------------------------------------------------------------
+
+# The ChatTS-14B GPTQ-Int4 directory's tensors: every layer's seven packed
+# projections with scales, zeros and g_idx, three fp16 biases and two norms,
+# and, besides the layers, two fp16 vocab tables and the fp16 encoder. Used
+# to cut the depth where the disk cannot hold 48 layers.
+GPTQ_14B_LAYER_BYTES = 140_000_000
+GPTQ_14B_FIXED_BYTES = 3_400_000_000
+DISK_LAYERS = 48
+DISK_LOGIT_LAYERS = 2
+
+
+def _projections(model):
+    """(layer index, name, Dense) of every decoder projection."""
+    for i, layer in enumerate(model.llm.layers):
+        for group in (layer.self_attn, layer.mlp):
+            for name in ("q_proj", "k_proj", "v_proj", "o_proj", "qkv_proj", "gate_proj",
+                         "up_proj", "down_proj", "gate_up_proj"):
+                dense = getattr(group, name, None)
+                if dense is not None:
+                    yield i, name, dense
+
+
+def _logits_against_cpu(torch, ckpt: str, cfg, dev, what: str, extra=None) -> dict:
+    """The first ``DISK_LOGIT_LAYERS`` layers of ``ckpt`` loaded by the same
+    loader on the card and on the CPU, both in bf16, and the CPU's model run
+    in f32; their logits at the last positions of a small batch held to
+    phase 3's rule, bf16 and act_int8 prefill, each against the CPU's plain
+    path of the same kind. ``extra(model)`` checks the card's model first.
+
+    The CPU loads in bf16 because the separate fp16 head is quantized at
+    load from the model's type: loaded in f32, the CPU quantized the fp16
+    values where the card quantizes their bf16 rounding, some int4 codes of
+    the head differed, and the logits moved by 0.18, 2.8% of the largest,
+    on an H100 (``PERF.md``)."""
+    import dataclasses
+
+    from chatts_tpu_torch.models import weights
+
+    cut = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
+                                                           num_hidden_layers=DISK_LOGIT_LAYERS))
+    _, card = weights.load_checkpoint(ckpt, cut, quantize_bits=4, device=dev)
+    if extra is not None:
+        extra(card)
+    _, cpu = weights.load_checkpoint(ckpt, cut, quantize_bits=4, device="cpu")
+    cpu.float()
+    batch = make_batch(cut, [(120, [256]), (200, [300, 128])], seed=SEED + 7)
+    n, out = 8, {}
+    for act_int8 in (False, True):
+        got = tail_logits(card, batch, dev, n, act_int8=act_int8).cpu()
+        ref = tail_logits(cpu, batch, torch.device("cpu"), n, act_int8=act_int8)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{what}: non-finite logits on the card")
+        err = float((got - ref).abs().max())
+        tol = LOGIT_RTOL_OF_MAX * float(ref.abs().max())
+        kind = "act_int8" if act_int8 else "bf16"
+        log(f"  {what}, {kind} prefill: max |logit diff| {err:.4g} against the CPU's f32 "
+            f"plain path (tolerance {tol:.4g}); argmax agrees at "
+            f"{float((got.argmax(-1) == ref.argmax(-1)).float().mean()):.0%} of the last {n} "
+            f"positions of {batch.seq_lens.tolist()} tokens")
+        if err > tol:
+            raise AssertionError(f"{what}, {kind}: logits differ by {err:.4g} > {tol:.4g}")
+        out[kind] = dict(max_abs_logit_err=err, tolerance=tol)
+    del card, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_disk(smi: str, fused_run, fused_launches: dict) -> dict:
+    """Phase 7: the user's path from a directory on disk. A ChatTS-14B
+    GPTQ-Int4 directory is synthesized in the published format, diagnosed,
+    loaded into the int4 layout, checked to the bit against the CPU's
+    conversion, held to the CPU's plain path at 2 layers, and run through
+    ``InferenceEngine`` and the OpenAI server's ``build``; then the
+    activation-order and asymmetric exports at 2 layers. Returns each path's
+    kernel launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from chatts_tpu_torch.core.config import GenerationConfig
+    from chatts_tpu_torch.examples import serve_openai
+    from chatts_tpu_torch.models import gptq, weights
+    from chatts_tpu_torch.ops import int4_matmul as i4
+    from chatts_tpu_torch.runtime.engine import InferenceEngine
+    from chatts_tpu_torch.scripts import rehearse_real_checkpoint as rehearsal
+
+    dev = torch.device("cuda", 0)
+    root = tempfile.mkdtemp(prefix="chatts_phase7_")
+    paths, stats = {}, dict(card=smi)
+    try:
+        sym_dir = f"{root}/sym"
+        with Phase("7a", "synthesize a ChatTS-14B GPTQ-Int4 directory (symmetric)"):
+            free = shutil.disk_usage(root).free
+            layers = DISK_LAYERS
+            if GPTQ_14B_FIXED_BYTES + layers * GPTQ_14B_LAYER_BYTES > 0.8 * free:
+                layers = int((0.8 * free - GPTQ_14B_FIXED_BYTES) // GPTQ_14B_LAYER_BYTES)
+                log(f"  DEPTH CUT: {free / 1e9:.1f} GB free under {root} holds {layers} layers, "
+                    f"not {DISK_LAYERS}")
+                if layers < DISK_LOGIT_LAYERS:
+                    raise RuntimeError("the disk holds too few layers for phase 7")
+            info = rehearsal.synthesize(sym_dir, shape="14b", device=dev, seed=SEED,
+                                        num_layers=layers, log=log)
+            stats.update(layers=layers, disk_gb=info["bytes"] / 1e9,
+                         synthesize_s=info["seconds"], free_disk_gb=free / 1e9)
+
+        with Phase("7b", "diagnose"):
+            report = weights.diagnose(sym_dir)
+            log("  " + report.summary().replace("\n", "\n  "))
+            if not report.ok or report.unused or report.gptq_projections != 7 * layers:
+                raise AssertionError(f"diagnose: ok {report.ok}, {len(report.unused)} unused, "
+                                     f"{report.gptq_projections} GPTQ projections")
+
+        with Phase("7c", "load_checkpoint(quantize_bits=4) onto the card"):
+            torch.cuda.synchronize(dev)
+            before_gb = torch.cuda.memory_allocated(dev) / 1e9
+            torch.cuda.reset_peak_memory_stats(dev)
+            start = time.perf_counter()
+            cfg, model = weights.load_checkpoint(sym_dir, quantize_bits=4, device=dev)
+            torch.cuda.synchronize(dev)
+            stats.update(load_s=time.perf_counter() - start, model_gb=_model_gb(model),
+                         load_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                         allocated_before_gb=before_gb)
+            log(f"  loaded in {stats['load_s']:.1f} s: {stats['model_gb']:.2f} GB on the card, "
+                f"peak device memory {stats['load_peak_gb']:.2f} GB ({before_gb:.2f} GB "
+                f"allocated before the load)")
+            bad = [(i, name) for i, name, d in _projections(model)
+                   if d.kernel_q4 is None or d.scales4 is None]
+            head = model.llm.lm_head_q
+            if bad or head is None or head.kernel_q4 is None:
+                raise AssertionError(f"not all in the int4 layout: {bad[:5]}, head {head}")
+            if sum(1 for _ in _projections(model)) != 7 * layers:
+                raise AssertionError("the loaded model's projections are fused")
+
+        with Phase("7d", "lossless: layers 0 and last, card against the CPU's conversion"):
+            with weights.LazyStateDict(sym_dir) as sd:
+                for i in (0, layers - 1):
+                    for name, d in ((n, d) for j, n, d in _projections(model) if j == i):
+                        key = (f"model.layers.{i}."
+                               f"{'mlp' if name in ('gate_proj', 'up_proj', 'down_proj') else 'self_attn'}"
+                               f".{name}")
+                        cpu = gptq.to_native_int4(sd, key, "cpu")
+                        if not (torch.equal(d.kernel_q4.cpu(), cpu["kernel_q4"])
+                                and torch.equal(d.scales4.cpu(), cpu["scales4"])):
+                            raise AssertionError(f"{key}: the card's int4 differs from the CPU's")
+                        want = gptq.dequantize(np.asarray(sd[key + ".qweight"]),
+                                               np.asarray(sd[key + ".qzeros"]),
+                                               np.asarray(sd[key + ".scales"], np.float32))
+                        got = i4.dequantize(d.kernel_q4, d.scales4).cpu().numpy()
+                        if not np.array_equal(got, want.astype(np.float32)):
+                            raise AssertionError(f"{key}: dequantized differs from gptq.dequantize")
+            log(f"  layers 0 and {layers - 1}: kernel_q4 and scales4 bit-equal to the CPU's "
+                f"conversion, dequantized equal to gptq.dequantize in f32")
+
+        with Phase("7e", f"logits, {DISK_LOGIT_LAYERS} layers of the directory: card (bf16) "
+                         f"against the CPU (f32, plain)"):
+            reset_launches()
+            stats["logits_sym"] = _logits_against_cpu(torch, sym_dir, cfg, dev, "symmetric")
+
+        with Phase("7f", f"generate from the loaded {layers}-layer model"):
+            launches_logits = read_launches("disk_logits (7e)", (
+                "flash_attention", "int4_matmul", "int4_matmul_a8"))
+            engine = InferenceEngine(model, cfg, device=dev)
+            batch = slice_batch(cfg)
+            n_new = 64
+            greedy = GenerationConfig(max_new_tokens=n_new, greedy=True)
+            reset_launches()
+            g1 = engine.generate(batch, greedy)
+            g2 = engine.generate(batch, greedy)
+            paths["disk_batch"] = read_launches("disk_batch", (
+                "flash_attention", "ragged_decode_attention", "int4_matmul"))
+            if g1.token_ids != g2.token_ids:
+                raise AssertionError("greedy generation from the loaded model is not deterministic")
+            if [len(t) for t in g1.token_ids] != [n_new] * len(g1.token_ids):
+                raise AssertionError("expected 64 tokens a row")
+            per_step = paths["disk_batch"]["int4_matmul"] / (2 * n_new)
+            fused_step = fused_launches["int4_matmul"] / (4 * n_new)
+            engine_a8 = InferenceEngine(model, cfg, device=dev, prefill_act_int8=True)
+            reset_launches()
+            a8 = engine_a8.generate(batch, greedy)
+            paths["disk_batch_a8"] = read_launches("disk_batch_a8", (
+                "flash_attention", "ragged_decode_attention", "int4_matmul", "int4_matmul_a8"))
+            if paths["disk_batch_a8"]["int4_matmul_a8"] != 7 * layers:
+                raise AssertionError("B5 not launched once per projection of the a8 prefill")
+            step = profile_batch_decode_step(torch, engine, batch, greedy)
+            stats.update(ttft_s=[g1.ttft_s, g2.ttft_s], tpot_s=[g1.tpot_s, g2.tpot_s],
+                         decode_step_device_ms=step["busy_ms"], decode_step_launches=step["launches"],
+                         a8_ttft_s=a8.ttft_s, a8_tpot_s=a8.tpot_s,
+                         fused_ttft_s=fused_run.ttft_s, fused_tpot_s=fused_run.tpot_s,
+                         int4_launches_per_step=per_step, fused_int4_launches_per_step=fused_step)
+            log(f"  TTFT {g2.ttft_s * 1e3:.1f} ms, TPOT {g2.tpot_s * 1e3:.2f} ms (greedy, second "
+                f"run) against phase 4's fused {fused_run.ttft_s * 1e3:.1f} ms and "
+                f"{fused_run.tpot_s * 1e3:.2f} ms; int4 launches a generated token "
+                f"{per_step:.0f} unfused against {fused_step:.0f} fused; act_int8 TTFT "
+                f"{a8.ttft_s * 1e3:.1f} ms; one decode step {step['busy_ms']:.3f} ms of device "
+                f"time in {step['launches']} launches")
+            del engine, engine_a8
+
+        with Phase("7g", "serve the loaded model through serve_openai.build"):
+            args = serve_openai.parse_args([
+                "--model", sym_dir, "--quantize-int4", "--kv-int8", "--max-batch-size", "24",
+                "--max-model-len", "1024", "--decode-chunk", "32", "--admission-bucket", "8",
+                "--early-first-token", "--no-warmup", "--host", "127.0.0.1", "--port", "0"])
+            engine, server = serve_openai.build(args, loaded=(cfg, model, WordTokenizer()))
+            gate = WaveGate(engine, 8)
+            bodies = chat_bodies(8, 64)
+            server.start_background()
+            waves = []
+            try:
+                if server._httpd is None:
+                    raise RuntimeError("the server did not come up")
+                port = server._httpd.server_address[1]
+                reset_launches()
+                import concurrent.futures
+
+                with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                    for _ in range(2):
+                        start = time.perf_counter()
+                        results = [f.result(timeout=300) for f in
+                                   [pool.submit(_post_chat, port, b) for b in bodies]]
+                        waves.append((results, time.perf_counter() - start))
+                paths["disk_serving"] = read_launches("disk_serving", (
+                    "flash_attention", "ragged_decode_attention_int8", "int4_matmul"))
+            finally:
+                server.shutdown()
+            reqs = gate.all
+            if any(r.error for r in reqs) or len(reqs) != 16:
+                raise AssertionError(f"serving errors: {[r.error for r in reqs if r.error]}")
+            if [r["ids"] for r in waves[0][0]] != [r["ids"] for r in waves[1][0]]:
+                raise AssertionError("the second wave gave other tokens")
+            if any(not r["ids"] for r in waves[0][0]):
+                raise AssertionError("a request came back empty")
+            ttft = [r.ttft_s * 1e3 for r in reqs]
+            stats.update(serve_wave_s=[w for _, w in waves], serve_ttft_ms=ttft)
+            log(f"  two waves of 8 requests over HTTP, token-identical; wave seconds "
+                f"{', '.join(f'{w:.2f}' for _, w in waves)}; TTFT mean {np.mean(ttft[:8]):.1f} / "
+                f"{np.mean(ttft[8:]):.1f} ms")
+            del engine, server
+
+        del model
+        torch.cuda.empty_cache()
+        reset_launches()
+        for style in ("desc_act", "asym"):
+            with Phase("7h", f"the {style} export, {DISK_LOGIT_LAYERS} layers at the 14B widths"):
+                path = f"{root}/{style}"
+                rehearsal.synthesize(path, shape="14b", device=dev, seed=SEED + 1,
+                                     num_layers=DISK_LOGIT_LAYERS, log=log, **{style: True})
+                field = "perm4" if style == "desc_act" else "zeros4"
+
+                def has_field(card, field=field):
+                    missing = [(i, n) for i, n, d in _projections(card) if getattr(d, field) is None]
+                    if missing:
+                        raise AssertionError(f"{style}: no {field} on {missing[:3]}")
+
+                stats[f"logits_{style}"] = _logits_against_cpu(
+                    torch, path, cfg, dev, style, extra=has_field)
+                shutil.rmtree(path, ignore_errors=True)
+        launches_7h = read_launches("disk_logits (7h)", ("flash_attention", "int4_matmul",
+                                                         "int4_matmul_a8"))
+        paths["disk_logits"] = {k: launches_logits[k] + launches_7h[k] for k in launches_7h}
+        log("  disk stats: " + json.dumps(stats))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return paths
+
+
 REPLACES = {
     "flash_attention": "chatts_tpu/ops/flash_attention.py:129",
     "ragged_decode_attention": "chatts_tpu/ops/ragged_decode_attention.py:123",
@@ -1611,6 +2012,12 @@ def main() -> int:
     paths["serving"] = phase_serving(smi, model, cfg)
     paths["batch_a8"] = phase_slice_a8(smi, model, cfg, bf16_run)
     paths["serving_a8"] = phase_serving(smi, model, cfg, act_int8=True)
+    # The engines of phases 5 and 6b hold the model in reference cycles
+    # (WaveGate): collect them before phase 7 loads another model.
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(phase_disk(smi, bf16_run, paths["batch"]))
     # Each path counted from 0: "launches" is a kernel's sum over the paths,
     # and "launches_by_path" says which path launched what.
     by_path = {name: {path: counts[name] for path, counts in paths.items()}

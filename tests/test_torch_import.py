@@ -1,5 +1,6 @@
-"""The PyTorch port imports without JAX, without the JAX package and without
-CUDA, and chip_smoke.py refuses to run where there is no card or no
+"""The PyTorch port imports without JAX, without the JAX package, without
+the safetensors and transformers packages and without CUDA, and
+chip_smoke.py refuses to run where there is no card or no
 checkout."""
 import json
 import os
@@ -21,6 +22,8 @@ print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
     "jax_package": sorted(m for m in sys.modules
                           if m == "chatts_tpu" or m.startswith("chatts_tpu.")),
+    "loader_packages": sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("safetensors", "transformers")),
 }))
 """
 
@@ -36,6 +39,9 @@ def test_torch_port_imports_without_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["jax"] == []
     assert report["jax_package"] == []
+    # The loader reads safetensors itself; transformers loads only for a
+    # checkpoint's tokenizer.
+    assert report["loader_packages"] == []
     # Every kernel module and its build/loader imported on a host without CUDA.
     for name in ("chatts_tpu_torch.kernels.build", "chatts_tpu_torch.ops.flash_attention",
                  "chatts_tpu_torch.ops.ragged_decode_attention",
@@ -43,7 +49,12 @@ def test_torch_port_imports_without_jax():
                  "chatts_tpu_torch.models.convert", "chatts_tpu_torch.core.config",
                  "chatts_tpu_torch.core.encoding", "chatts_tpu_torch.processor.processor",
                  "chatts_tpu_torch.utils.native", "chatts_tpu_torch.utils.profiling",
-                 "chatts_tpu_torch.serve.scheduler", "chatts_tpu_torch.serve.server"):
+                 "chatts_tpu_torch.serve.scheduler", "chatts_tpu_torch.serve.server",
+                 "chatts_tpu_torch.utils.safetensors_io", "chatts_tpu_torch.models.gptq",
+                 "chatts_tpu_torch.models.weights", "chatts_tpu_torch.utils.json_utils",
+                 "chatts_tpu_torch.utils.llm_client", "chatts_tpu_torch.serve.stream_qa",
+                 "chatts_tpu_torch.examples.quickstart", "chatts_tpu_torch.examples.serve_openai",
+                 "chatts_tpu_torch.scripts.rehearse_real_checkpoint"):
         assert name in report["modules"]
 
 
