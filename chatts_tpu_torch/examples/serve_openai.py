@@ -13,8 +13,8 @@ local demo), with a warm-up at start unless ``--no-warmup``.
 serves until interrupted. Left out, as TPU machinery: ``--pad-to-class``
 (padding admission waves to bound compiled shapes; nothing here compiles per
 shape) and ``--cpu`` (the JAX backend switch; ``--device cpu`` is its
-counterpart). ``--prefill-chunk`` reaches the engine, which does not take
-chunked admission yet and says so.
+counterpart). ``--prefill-chunk N`` admits every prompt longer than N tokens
+through the scan-sliced mixed round, a slice of it each decode step.
 """
 from __future__ import annotations
 
@@ -45,8 +45,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="int8 activations for prompt-side int4 matmuls "
                              "(decode stays bf16)")
     parser.add_argument("--prefill-chunk", type=int, default=None,
-                        help="admit prompts longer than this in chunks (not "
-                             "ported yet: the engine refuses it)")
+                        help="admit prompts longer than this in slices, inside "
+                             "the decode rounds (scan-sliced mixed admission)")
     parser.add_argument("--decode-chunk", type=int, default=16,
                         help="decode steps per engine round")
     parser.add_argument("--admission-bucket", type=int, default=4,

@@ -22,6 +22,17 @@ prefill writes codes and scales but attends over the unquantized fresh
 block, as the reference does; decode writes the new token's codes and scales
 and attends through ``ragged_decode_attention_int8``.
 
+A chunk of T > 1 tokens at ``write_pos`` (B, T) (chunked prefill) writes its
+K/V at those slots, then attends the cache prefix ``[:kv_limit]`` through the
+prefill attention: the prefix is viewed token-major and made contiguous, an
+int8 one dequantized first (code * scale in f32, then q's type), so a chunk
+reads its own keys in their quantized form, as the reference does.
+
+``QwenModel.forward_mixed`` is the serving engine's mixed step (the port of
+``qwen.forward_mixed``): B decode tokens and A admission rows of ``npt``
+prompt tokens in one packed stream through every projection; decode tokens
+attend as a decode step, prompt tokens over their slots' cache prefix.
+
 ``act_int8`` (prefill only, as in the reference) quantizes each projection's
 input rows to int8: int4 weights then take ``int4_matmul_a8`` and int8
 weights an int8 x int8 -> int32 product; float weights ignore it.
@@ -29,10 +40,11 @@ weights an int8 x int8 -> int32 product; float weights ignore it.
 ``load_torch_state_dict`` builds the decoder from an HF state dict
 (``models/weights.py`` loads checkpoint directories).
 
-Recent-KV decode and chunked prefill are not ported yet.
+Recent-KV decode is TPU-only machinery and is not ported.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -247,18 +259,9 @@ class Attention(nn.Module):
         self.q_norm = _frozen(q_norm)
         self.k_norm = _frozen(k_norm)
 
-    def forward(
-        self,
-        x: torch.Tensor,  # (B, T, hidden)
-        positions: torch.Tensor,  # (B, T) int32
-        rope: Tuple[torch.Tensor, torch.Tensor],
-        kv_cache: Optional[LayerCache],
-        write_pos: Optional[torch.Tensor],  # (B, 1) int32 for a decode step
-        kv_valid: Optional[torch.Tensor],  # (B, S) bool
-        kv_positions: Optional[torch.Tensor],  # (B, S) int32
-        kv_lengths: Optional[torch.Tensor],  # (B,) int32 for a decode step
-        act_int8: bool = False,
-    ) -> Tuple[torch.Tensor, Optional[LayerCache]]:
+    def _qkv(self, x, rope, act_int8: bool = False):
+        """q (B, T, H, D), k and v (B, T, KVH, D) of x (B, T, hidden): the
+        projections, the Qwen3 q/k norms and RoPE."""
         cfg = self.cfg
         b, t, _ = x.shape
         h, kvh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -275,57 +278,55 @@ class Attention(nn.Module):
             q = rms_norm(q, self.q_norm, cfg.rms_norm_eps)
             k = rms_norm(k, self.k_norm, cfg.rms_norm_eps)
         cos, sin = rope
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        scale = d ** -0.5
+        return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
-        int8_kv = kv_cache is not None and len(kv_cache) == 4
+    def forward(
+        self,
+        x: torch.Tensor,  # (B, T, hidden)
+        positions: torch.Tensor,  # (B, T) int32
+        rope: Tuple[torch.Tensor, torch.Tensor],
+        kv_cache: Optional[LayerCache],
+        write_pos: Optional[torch.Tensor],  # (B, T) int32: cache slots of the block
+        kv_valid: Optional[torch.Tensor],  # (B, S) bool
+        kv_positions: Optional[torch.Tensor],  # (B, S) int32
+        kv_lengths: Optional[torch.Tensor],  # (B,) int32 for a decode step
+        act_int8: bool = False,
+        kv_limit: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, Optional[LayerCache]]:
+        cfg = self.cfg
+        b, t, _ = x.shape
+        h, d = cfg.num_attention_heads, cfg.head_dim
+        q, k, v = self._qkv(x, rope, act_int8)
+        scale = d ** -0.5
         if kv_cache is not None:
-            # Head-major (B, KVH, T, D) views of this block's K/V, as the cache
-            # stores them: int8 codes and scales, or the cache's float type.
-            if int8_kv:
-                k_cache, v_cache, k_scale, v_scale = kv_cache
-                kt, kt_s = quantize_kv(k.transpose(1, 2))
-                vt, vt_s = quantize_kv(v.transpose(1, 2))
-            elif len(kv_cache) == 2:
-                k_cache, v_cache = kv_cache
-                kt = k.transpose(1, 2).to(k_cache.dtype)
-                vt = v.transpose(1, 2).to(v_cache.dtype)
-            else:
-                raise ValueError(f"a layer cache is a 2-tuple or an int8 4-tuple, "
-                                 f"not {len(kv_cache)} tensors")
+            # This block's K/V head-major (B, KVH, T, D), as the cache stores it.
+            values = _cache_values(kv_cache, k.transpose(1, 2), v.transpose(1, 2))
 
         if kv_cache is not None and write_pos is not None:
-            # Decode: write the new token's K/V first, then attend over the
-            # cache prefix of length kv_lengths (which counts that token).
-            if t != 1:
-                raise ValueError("a cache write at write_pos is a single-token decode step")
+            # Decode step or prefill chunk: write the block at write_pos
+            # first, then attend over the cache.
             rows = torch.arange(b, device=x.device)[:, None, None]
-            heads = torch.arange(kvh, device=x.device)[None, :, None]
-            pos = write_pos.long()[:, None, :]
-            k_cache[rows, heads, pos] = kt
-            v_cache[rows, heads, pos] = vt
-            if int8_kv:
-                k_scale[rows, heads, pos] = kt_s
-                v_scale[rows, heads, pos] = vt_s
-                out = ragged_decode_attention_int8(
-                    q[:, 0].contiguous(), k_cache, v_cache, k_scale, v_scale,
-                    kv_lengths, scale=scale,
-                )[:, None]
+            heads = torch.arange(cfg.num_key_value_heads, device=x.device)[None, :, None]
+            _write_cache(kv_cache, (rows, heads, write_pos.long()[:, None, :]), values)
+            if kv_lengths is not None:
+                # Decode: the first kv_lengths positions (the new one counted).
+                out = _decode_attention(q[:, 0].contiguous(), kv_cache, kv_lengths, scale)[:, None]
             else:
-                out = ragged_decode_attention(
-                    q[:, 0].contiguous(), k_cache.to(q.dtype), v_cache.to(q.dtype),
-                    kv_lengths, scale=scale,
-                )[:, None]
+                # Chunk: the cache prefix [:kv_limit], masked by kv_valid and
+                # by position (slots not written yet lie after the chunk).
+                limit = kv_cache[0].shape[2] if kv_limit is None else min(
+                    kv_limit, kv_cache[0].shape[2])
+                k_att, v_att = _cache_prefix(kv_cache, None, limit, q.dtype)
+                out = attention(
+                    q, k_att, v_att, q_positions=positions.contiguous(),
+                    kv_positions=kv_positions[:, :limit].contiguous(),
+                    kv_valid=kv_valid[:, :limit].contiguous(), scale=scale,
+                )
         else:
             if kv_cache is not None:
                 # Prefill: write the block at offset 0 but attend over the
                 # fresh, unquantized T block only, not the cache's capacity.
-                k_cache[:, :, :t] = kt
-                v_cache[:, :, :t] = vt
-                if int8_kv:
-                    k_scale[:, :, :t] = kt_s
-                    v_scale[:, :, :t] = vt_s
+                _write_cache(kv_cache, (slice(None), slice(None), slice(0, t)), values)
                 kv_valid = kv_valid[:, :t].contiguous()
                 kv_positions = kv_positions[:, :t].contiguous()
             out = attention(
@@ -333,6 +334,93 @@ class Attention(nn.Module):
                 kv_valid=kv_valid, scale=scale,
             )
         return self.o_proj(out.reshape(b, t, h * d), act_int8), kv_cache
+
+    def forward_mixed(self, x: torch.Tensor, rope, kv_cache: LayerCache,
+                      step: "MixedStep") -> torch.Tensor:
+        """The mixed step's attention block (the port of
+        ``qwen._mixed_attention``): x (1, B + A*npt, hidden) packed, decode
+        tokens first.  Returns (1, B + A*npt, hidden)."""
+        cfg = self.cfg
+        h, d = cfg.num_attention_heads, cfg.head_dim
+        b, a, npt = step.b, step.a, step.npt
+        q, k, v = (z[0] for z in self._qkv(x, rope))  # (Tp, H|KVH, D)
+        scale = d ** -0.5
+        values = _cache_values(kv_cache, k, v)  # (Tp, KVH, D) and scales (Tp, KVH)
+        if step.dec_rows.numel():
+            # One position per active decode row; inactive rows (the
+            # admission's slots among them) write nothing.
+            heads = torch.arange(cfg.num_key_value_heads, device=x.device)[None, :]
+            _write_cache(kv_cache, (step.dec_rows[:, None], heads, step.dec_pos[:, None]),
+                         [None if z is None else z[:b][step.dec_rows] for z in values])
+        if step.n_real:
+            # One (KVH, npt) span per real admission row at the shared
+            # start; pad rows write nothing.
+            span = slice(step.span_start, step.span_start + npt)
+            _write_cache(kv_cache, (step.adm_slots[:step.n_real], slice(None), span),
+                         [None if z is None else
+                          z[b:].reshape(a, npt, *z.shape[1:])[:step.n_real].transpose(1, 2)
+                          for z in values])
+        out_dec = _decode_attention(q[:b].contiguous(), kv_cache, step.dec_kv_lengths, scale)
+        # Prompt tokens: their slots' cache prefix, masked by each row's
+        # length and by position.
+        k_adm, v_adm = _cache_prefix(kv_cache, step.adm_slots, step.kv_limit, q.dtype)
+        out_pro = attention(
+            q[b:].reshape(a, npt, h, d), k_adm, v_adm,
+            q_positions=step.adm_q_positions, kv_positions=step.adm_kv_positions,
+            kv_valid=step.adm_kv_valid, scale=scale,
+        )
+        out = torch.cat([out_dec.reshape(b, h * d), out_pro.reshape(a * npt, h * d)])
+        return self.o_proj(out[None])
+
+
+def _cache_values(kv_cache: LayerCache, k: torch.Tensor, v: torch.Tensor):
+    """K/V (..., D) as the cache stores them: (codes, codes, scales, scales)
+    for an int8 cache, (k, v, None, None) in a float cache's type."""
+    if len(kv_cache) == 4:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        return kq, vq, ks, vs
+    if len(kv_cache) == 2:
+        return k.to(kv_cache[0].dtype), v.to(kv_cache[1].dtype), None, None
+    raise ValueError(f"a layer cache is a 2-tuple or an int8 4-tuple, not {len(kv_cache)} tensors")
+
+
+def _write_cache(kv_cache: LayerCache, index, values) -> None:
+    """``buf[index] = value`` for each buffer of the cache, in place; the
+    index selects (row, head, position), so it fits codes and scales alike."""
+    for buf, value in zip(kv_cache, values):
+        buf[index] = value
+
+
+def _decode_attention(q1: torch.Tensor, kv_cache: LayerCache, kv_lengths: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """One query a row (B, H, D) over each row's first kv_lengths positions
+    of the head-major cache: B4 for an int8 cache, else B2."""
+    if len(kv_cache) == 4:
+        return ragged_decode_attention_int8(q1, *kv_cache, kv_lengths, scale=scale)
+    k_cache, v_cache = kv_cache
+    return ragged_decode_attention(q1, k_cache.to(q1.dtype), v_cache.to(q1.dtype),
+                                   kv_lengths, scale=scale)
+
+
+def _cache_prefix(kv_cache: LayerCache, rows: Optional[torch.Tensor], limit: int, dtype):
+    """K and V of the cache's first ``limit`` positions (of ``rows`` only,
+    where given) token-major (R, limit, KVH, D), contiguous, in ``dtype``;
+    an int8 cache dequantized first, code * scale in f32."""
+    def one(buf, buf_scale):
+        x = buf[:, :, :limit]
+        if rows is not None:
+            x = x.index_select(0, rows)
+        if buf_scale is not None:
+            s = buf_scale[:, :, :limit]
+            if rows is not None:
+                s = s.index_select(0, rows)
+            x = x.float() * s[..., None]
+        return x.to(dtype).transpose(1, 2).contiguous()
+
+    if len(kv_cache) == 4:
+        return one(kv_cache[0], kv_cache[2]), one(kv_cache[1], kv_cache[3])
+    return one(kv_cache[0], None), one(kv_cache[1], None)
 
 
 class MLP(nn.Module):
@@ -365,15 +453,42 @@ class DecoderLayer(nn.Module):
         self.post_attention_layernorm = _frozen(post_attention_layernorm)
 
     def forward(self, x, positions, rope, kv_cache, write_pos, kv_valid,
-                kv_positions, kv_lengths, act_int8: bool = False):
+                kv_positions, kv_lengths, act_int8: bool = False,
+                kv_limit: Optional[int] = None):
         eps = self.cfg.rms_norm_eps
         attn_out, kv_cache = self.self_attn(
             rms_norm(x, self.input_layernorm, eps), positions, rope,
-            kv_cache, write_pos, kv_valid, kv_positions, kv_lengths, act_int8,
+            kv_cache, write_pos, kv_valid, kv_positions, kv_lengths, act_int8, kv_limit,
         )
         x = x + attn_out
         x = x + self.mlp(rms_norm(x, self.post_attention_layernorm, eps), act_int8)
         return x, kv_cache
+
+    def forward_mixed(self, x, rope, kv_cache, step: "MixedStep"):
+        eps = self.cfg.rms_norm_eps
+        x = x + self.self_attn.forward_mixed(rms_norm(x, self.input_layernorm, eps), rope,
+                                             kv_cache, step)
+        return x + self.mlp(rms_norm(x, self.post_attention_layernorm, eps))
+
+
+@dataclasses.dataclass
+class MixedStep:
+    """What the layers of one mixed step share (``QwenModel.forward_mixed``
+    builds it): B decode rows, then A admission rows of npt prompt tokens."""
+
+    b: int
+    a: int
+    npt: int
+    dec_rows: torch.Tensor  # (n,) int64: the active decode rows, the only ones written
+    dec_pos: torch.Tensor  # (n,) int64: their write positions
+    dec_kv_lengths: torch.Tensor  # (B,) int32
+    adm_slots: torch.Tensor  # (A,) int64: each admission row's cache row (pads read any)
+    n_real: int  # admission rows [0, n_real) write; the rest are pads
+    span_start: int  # the prompt tokens' first position, shared by the rows
+    kv_limit: int
+    adm_q_positions: torch.Tensor  # (A, npt) int32
+    adm_kv_positions: torch.Tensor  # (A, kv_limit) int32
+    adm_kv_valid: torch.Tensor  # (A, kv_limit) bool
 
 
 # ---------------------------------------------------------------------------
@@ -406,23 +521,29 @@ class QwenModel(nn.Module):
         kv_positions: Optional[torch.Tensor] = None,
         kv_lengths: Optional[torch.Tensor] = None,
         act_int8: bool = False,
+        kv_limit: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Optional[List[LayerCache]]]:
         """Run the decoder stack; returns (hidden (B, T, hidden), caches).
 
         Without caches, attention is over the T block itself and kv_valid /
         kv_positions default to all-valid / the query positions.  With caches
         and no write_pos this is prefill: the block is written at offset 0.
-        With write_pos (B, 1) this is one decode step: kv_lengths (B,) is the
-        cache length after the write.  Caches are updated in place.
-        ``act_int8`` quantizes every projection's input rows (prefill)."""
+        With write_pos (B, T) the block is written at those slots: with
+        kv_lengths (B,), the cache length after the write, it is one decode
+        step (T = 1); without, a prefill chunk attending the cache prefix
+        ``[:kv_limit]`` (all of it when None) under kv_valid / kv_positions
+        (B, S).  Caches are updated in place.  ``act_int8`` quantizes every
+        projection's input rows (prefill)."""
         b, t, _ = inputs_embeds.shape
         positions = positions.to(torch.int32)
-        decode = kv_caches is not None and write_pos is not None
-        if decode:
-            if kv_lengths is None:
-                raise ValueError("a decode step needs kv_lengths")
+        if kv_caches is not None and write_pos is not None and kv_lengths is not None:
+            if t != 1:
+                raise ValueError("kv_lengths is for a decode step of one token a row")
             kv_lengths = kv_lengths.to(torch.int32)
         else:
+            if kv_caches is not None and write_pos is not None and (
+                    kv_valid is None or kv_positions is None):
+                raise ValueError("a prefill chunk needs kv_valid and kv_positions")
             if kv_valid is None:
                 kv_valid = torch.ones((b, t), dtype=torch.bool, device=positions.device)
             if kv_positions is None:
@@ -435,8 +556,51 @@ class QwenModel(nn.Module):
         for i, layer in enumerate(self.layers):
             cache = kv_caches[i] if kv_caches is not None else None
             x, _ = layer(x, positions, rope, cache, write_pos, kv_valid,
-                         kv_positions, kv_lengths, act_int8)
+                         kv_positions, kv_lengths, act_int8, kv_limit)
         return rms_norm(x, self.norm, self.cfg.rms_norm_eps), kv_caches
+
+    def forward_mixed(
+        self,
+        embeds: torch.Tensor,  # (1, B + A*npt, hidden) packed: decode tokens first
+        positions: torch.Tensor,  # (1, B + A*npt)
+        *,
+        b: int,
+        a: int,
+        npt: int,
+        kv_caches: List[LayerCache],
+        dec_rows: torch.Tensor,  # (n,) int: the active decode rows
+        dec_kv_lengths: torch.Tensor,  # (B,)
+        adm_slots: torch.Tensor,  # (A,) int: each admission row's cache row
+        n_real: int,  # admission rows [0, n_real) are real; the rest are pads
+        adm_seq_lens: torch.Tensor,  # (A,): prompt lengths, 0 for pads
+        span_start: int,  # the prompt tokens' first position
+        kv_limit: int,
+    ) -> torch.Tensor:
+        """The fused mixed prefill + decode step: the port of
+        ``qwen.forward_mixed``.  One packed stream of B decode tokens and A
+        rows of npt prompt tokens runs through every projection together; a
+        decode token writes its K/V at its position in its row (active rows
+        only) and attends as a decode step over dec_kv_lengths; each real
+        admission row writes its npt tokens at [span_start, span_start +
+        npt) of its slot, and the prompt tokens attend their slots' prefix
+        [:kv_limit], valid below adm_seq_lens.  Caches are updated in place.
+        Returns the hidden states (1, B + A*npt, hidden) after the final norm."""
+        dev = embeds.device
+        positions = positions.to(torch.int32)
+        dec_rows = dec_rows.long()
+        kv_pos = torch.arange(kv_limit, dtype=torch.int32, device=dev)[None].repeat(a, 1)
+        step = MixedStep(
+            b=b, a=a, npt=npt, dec_rows=dec_rows, dec_pos=positions[0, :b][dec_rows].long(),
+            dec_kv_lengths=dec_kv_lengths.to(torch.int32), adm_slots=adm_slots.long(),
+            n_real=n_real, span_start=span_start, kv_limit=kv_limit,
+            adm_q_positions=positions[0, b:].reshape(a, npt).contiguous(),
+            adm_kv_positions=kv_pos, adm_kv_valid=kv_pos < adm_seq_lens[:, None],
+        )
+        rope = rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        x = embeds
+        for layer, cache in zip(self.layers, kv_caches):
+            x = layer.forward_mixed(x, rope, cache, step)
+        return rms_norm(x, self.norm, self.cfg.rms_norm_eps)
 
     def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """hidden (B, T, hidden) -> logits (B, T, vocab), f32.  A quantized

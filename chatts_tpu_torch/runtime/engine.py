@@ -1,15 +1,22 @@
-"""Batch inference engine: monolithic prefill, then decode in chunks.
+"""Batch inference engine: prefill, monolithic or in chunks, then decode in
+chunks.
 
 Counterpart of ``chatts_tpu/runtime/engine.py::InferenceEngine`` (its
 per-step-scatter decode, ``decode_recent_kv=False``).  ``generate`` takes a
 ``ProcessedBatch`` from the port's ``processor/processor.py`` and:
 
 1. allocates a head-major KV cache of ``prompt + max_new_tokens`` rounded up
-   to 256 positions;
+   to 256 positions (chunked: at least the padded prompt, rounded up to the
+   chunk's ``kv_step`` first, as the reference does);
 2. prefills the whole prompt block (TS encoder, patch merge, decoder) and
    samples the first token from ``hidden[seq_lens - 1]``; with
    ``prefill_act_int8`` the prefill's projections quantize their input rows
-   to int8 (``Dense(act_int8=True)``), and decode stays in x's type;
+   to int8 (``Dense(act_int8=True)``), and decode stays in x's type.  With
+   ``prefill_chunk`` a prompt longer than the chunk is prefilled chunk by
+   chunk instead: the embeddings once, then each chunk written at its
+   absolute slots and attending the cache prefix ``[:kv_limit]``, where
+   ``kv_limit`` steps by ``kv_step = max(2 * chunk, 2048)``; as in the
+   reference, a chunked prefill takes no ``act_int8``;
 3. decodes ``decode_chunk`` steps at a time.  Finished rows emit ``pad_id``
    and keep their length; EOS and the done mask are computed on the device,
    and the host syncs once per chunk.  The steps run as a Python loop (a CUDA
@@ -25,6 +32,7 @@ from typing import Any, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from chatts_tpu_torch.core.config import ChatTSConfig, GenerationConfig
 from chatts_tpu_torch.processor.processor import ProcessedBatch
@@ -49,9 +57,21 @@ class GenerateResult:
         return sum(len(t) for t in self.token_ids)
 
 
-def default_cache_len(prompt_len: int, max_new_tokens: int) -> int:
-    """Prompt + new tokens, rounded up to a multiple of 256."""
+def kv_step(prefill_chunk: int) -> int:
+    """The step of a chunked prefill's ``kv_limit`` ladder and cache length."""
+    return max(2 * prefill_chunk, 2048)
+
+
+def default_cache_len(prompt_len: int, max_new_tokens: int,
+                      prefill_chunk: Optional[int] = None) -> int:
+    """Prompt + new tokens, rounded up to a multiple of 256.  A chunked
+    prefill (``prefill_chunk`` set and below the prompt) writes the whole
+    padded prompt, and its capacity is first rounded up to ``kv_step``."""
     n = prompt_len + max_new_tokens
+    if prefill_chunk is not None and prompt_len > prefill_chunk:
+        step = kv_step(prefill_chunk)
+        n = max(n, -(-prompt_len // prefill_chunk) * prefill_chunk)
+        n = -(-n // step) * step
     return -(-n // CACHE_BUCKET) * CACHE_BUCKET
 
 
@@ -75,6 +95,7 @@ class InferenceEngine:
         pad_id: int = 0,
         fuse: bool = True,
         prefill_act_int8: bool = False,
+        prefill_chunk: Optional[int] = None,
     ):
         self.device = torch.device(device)
         if isinstance(params_or_model, ChatTSModel):
@@ -89,6 +110,8 @@ class InferenceEngine:
         self.decode_chunk = decode_chunk
         self.pad_id = pad_id
         self.prefill_act_int8 = prefill_act_int8
+        # Prompts longer than this prefill in chunks of this many tokens.
+        self.prefill_chunk = prefill_chunk
 
     def _tensor(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
@@ -102,6 +125,43 @@ class InferenceEngine:
         )
         logits = llm.compute_logits(hidden)[:, 0]
         return sampling.sample(logits, generator, gen_cfg)
+
+    def _chunked_prefill(self, batch: ProcessedBatch, seq_lens: torch.Tensor,
+                         caches, cache_len: int) -> torch.Tensor:
+        """The port of the reference's ``_chunked_prefill``: the merged
+        embeddings once over the whole prompt, zero-padded to a whole number
+        of chunks (positions padded with each row's last), then the decoder
+        chunk by chunk, each chunk written at absolute slots [o, o + c) and
+        attending the cache prefix [:kv_limit].  Returns the hidden states
+        (B, t_pad, hidden)."""
+        dev = self.device
+        b, t = batch.input_ids.shape
+        c = self.prefill_chunk
+        t_pad = -(-t // c) * c
+        embeds = self.model.input_embeddings(
+            self._tensor(batch.input_ids, torch.int64),
+            self._tensor(batch.ts_values, torch.float32),
+            self._tensor(batch.ts_mask, torch.float32),
+            self._tensor(batch.scatter_seq, torch.int64),
+            self._tensor(batch.scatter_tok, torch.int64),
+        )
+        positions = self._tensor(batch.positions, torch.int32)
+        if t_pad > t:
+            embeds = F.pad(embeds, (0, 0, 0, t_pad - t))
+            positions = torch.cat([positions, positions[:, -1:].expand(b, t_pad - t)], dim=1)
+        kv_positions = torch.arange(cache_len, dtype=torch.int32, device=dev)[None].repeat(b, 1)
+        kv_valid = kv_positions < seq_lens[:, None]
+        step = kv_step(c)
+        hiddens = []
+        for o in range(0, t_pad, c):
+            hidden, _ = self.model.llm(
+                embeds[:, o:o + c], positions[:, o:o + c], kv_caches=caches,
+                write_pos=kv_positions[:, o:o + c], kv_valid=kv_valid,
+                kv_positions=kv_positions,
+                kv_limit=min(cache_len, -(-(o + c) // step) * step),
+            )
+            hiddens.append(hidden)
+        return torch.cat(hiddens, dim=1)
 
     @torch.inference_mode()
     def generate(
@@ -117,31 +177,37 @@ class InferenceEngine:
             generator = torch.Generator(device=self.device).manual_seed(0)
         dev = self.device
         b, t = batch.input_ids.shape
+        chunked = self.prefill_chunk is not None and t > self.prefill_chunk
         if cache_len is None:
-            cache_len = default_cache_len(t, gen_cfg.max_new_tokens)
-        # Prefill writes t positions; the last decode step writes at
-        # seq_len + max_new_tokens - 2.  An index past the cache would fault
-        # on the card, where JAX would drop the write.
-        need = max(t, int(np.max(batch.seq_lens)) + gen_cfg.max_new_tokens - 1)
+            cache_len = default_cache_len(t, gen_cfg.max_new_tokens, self.prefill_chunk)
+        # Prefill writes t positions (a chunked one the padded prompt); the
+        # last decode step writes at seq_len + max_new_tokens - 2.  An index
+        # past the cache would fault on the card, where JAX would drop the
+        # write.
+        written = -(-t // self.prefill_chunk) * self.prefill_chunk if chunked else t
+        need = max(written, int(np.max(batch.seq_lens)) + gen_cfg.max_new_tokens - 1)
         if cache_len < need:
             raise ValueError(f"cache_len {cache_len} < {need} positions this batch needs")
 
         start = time.perf_counter()
         seq_lens = self._tensor(batch.seq_lens, torch.int32)
-        kv_positions = torch.arange(cache_len, dtype=torch.int32, device=dev)[None].repeat(b, 1)
         caches = kv_cache.allocate(self.cfg.llm, b, cache_len, self.cache_dtype, dev)
-        hidden, caches = self.model(
-            self._tensor(batch.input_ids, torch.int64),
-            self._tensor(batch.positions, torch.int32),
-            ts_values=self._tensor(batch.ts_values, torch.float32),
-            ts_mask=self._tensor(batch.ts_mask, torch.float32),
-            scatter_seq=self._tensor(batch.scatter_seq, torch.int64),
-            scatter_tok=self._tensor(batch.scatter_tok, torch.int64),
-            kv_caches=caches,
-            kv_valid=kv_positions < seq_lens[:, None],
-            kv_positions=kv_positions,
-            act_int8=self.prefill_act_int8,
-        )
+        if chunked:
+            hidden = self._chunked_prefill(batch, seq_lens, caches, cache_len)
+        else:
+            kv_positions = torch.arange(cache_len, dtype=torch.int32, device=dev)[None].repeat(b, 1)
+            hidden, caches = self.model(
+                self._tensor(batch.input_ids, torch.int64),
+                self._tensor(batch.positions, torch.int32),
+                ts_values=self._tensor(batch.ts_values, torch.float32),
+                ts_mask=self._tensor(batch.ts_mask, torch.float32),
+                scatter_seq=self._tensor(batch.scatter_seq, torch.int64),
+                scatter_tok=self._tensor(batch.scatter_tok, torch.int64),
+                kv_caches=caches,
+                kv_valid=kv_positions < seq_lens[:, None],
+                kv_positions=kv_positions,
+                act_int8=self.prefill_act_int8,
+            )
         last_idx = (seq_lens.long() - 1)[:, None, None].expand(b, 1, hidden.shape[-1])
         logits = self.model.compute_logits(hidden.gather(1, last_idx))[:, 0]
         tokens = sampling.sample(logits, generator, gen_cfg)

@@ -18,26 +18,42 @@ Round forms, as in the reference:
   whole admission prefills as one block, its rows merge into the decode
   state, then either the round ends there and the first tokens stream at
   once (``block_early_emit``), or the decode chunk runs in the same round
-  with the new rows live (fused).
+  with the new rows live (fused);
+- **scan-sliced mixed admission** (slots live and the block too large, or a
+  prompt above ``prefill_chunk``): every round advances the decode slots
+  ``decode_chunk`` steps and, in each step, consumes ``npt`` prompt tokens
+  of every admission row in the same packed stream through the projections
+  (``QwenModel.forward_mixed``); the prompt K/V lands in the slots directly.
+  After the round that consumes the last tokens, the first tokens are
+  sampled from the hidden states captured at each row's last prompt
+  position, and the rows go live.  A mixed admission whose padded prompt
+  would not fit the cache takes the monolithic path instead.
 
 What differs from the reference, and why:
-- Placement is an indexed copy of the admitted rows into their slots.  The
-  reference's host gather plus select and its span scatters exist because
-  XLA serialises general scatters on the TPU.
-- There are no pad rows.  The reference pads admission rows to a few row
-  families to bound XLA compiles; eager PyTorch compiles nothing, so the
+- Placement is an indexed copy of the admitted rows into their slots, and a
+  mixed step writes decode tokens for the active rows only and prompt spans
+  for the real admission rows only, by index.  The reference's host gather
+  plus select, its span scatters and its out-of-bounds write rows exist
+  because XLA serialises general scatters on the TPU; on the card an index
+  past the cache would fault.
+- Block admissions have no pad rows: eager PyTorch compiles nothing, so the
   port computes exactly the rows of the processed batch.  ``_block_family``
-  stays for the eligibility rule, so both engines take the same path.
+  stays for the eligibility rule, so both engines take the same path.  A
+  scan-sliced admission keeps the reference's row family ``a``, since its
+  npt cap and padded length depend on it; its pad rows have length 0 and
+  write nothing.
+- A mixed round runs eagerly, ``decode_chunk`` steps of Python; it and the
+  mixed finalize update the decode state in place, so the decode graph's
+  replays see it.
 - Decode is the per-step cache write form; the recent-KV mode is TPU-only
   machinery (ROADMAP "Not to port").
-- The scan-sliced mixed admission (prompt tokens consumed inside the decode
-  scan) is not ported yet.  ``prefill_chunk`` raises at construction, and a
-  live-slot admission that is not block-eligible fails its requests with a
-  ``NotImplementedError`` message; neither quietly takes another path.
-- ``mixed_admission`` (which no caller turns off: admissions while slots
-  decode always take the block round), ``mixed_npt`` (scan-sliced only) and
-  ``admission_pad_to_class`` (it pads each wave to its length class to bound
-  XLA compiles, and would only add pad tokens here) are not options here.
+- The prompt side of a mixed step always takes the prefill attention (B1 on
+  the card), as every prefill of the port does; the reference reads its
+  choice from ``CHATTS_MIXED_PROMPT_ATTN``.
+- ``admission_pad_to_class`` (it pads each wave to its length class to bound
+  XLA compiles, and would only add pad tokens here) is not an option here,
+  nor ``mixed_admission``, which no caller turns off; the reference's
+  ``mixed_npt`` default is the module constant ``MIXED_NPT``.
 - Shape keys that mark a round's first XLA compile (``fresh``) have no
   counterpart: nothing compiles per shape.
 """
@@ -55,6 +71,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from chatts_tpu_torch.core import encoding
 from chatts_tpu_torch.core.config import ChatTSConfig
@@ -65,7 +82,9 @@ from chatts_tpu_torch.models.convert import from_jax_params
 from chatts_tpu_torch.models.qwen import embed_tokens
 from chatts_tpu_torch.runtime import kv_cache, sampling
 
-MIXED_NOT_PORTED = "NotImplementedError: scan-sliced mixed admission is not ported yet"
+# The most prompt tokens an admission row consumes in one step of a
+# scan-sliced mixed round (the reference engine's ``mixed_npt`` default).
+MIXED_NPT = 64
 
 
 @dataclasses.dataclass
@@ -223,16 +242,22 @@ def _decode_step(llm, caches, tokens, cur_lens, active, live, budget, temperatur
     """One decode step of every slot: each writes its new K/V at cur_len and
     attends the first cur_len + 1 positions.  Inactive slots attend one
     position and write at their stale cur_len, which admission keeps inside
-    the capacity (prompt + max_tokens <= max_model_len).  Returns (emitted
-    (B,) int32, -1 where a slot did not emit; then the next tokens, cur_lens,
-    budget and live)."""
+    the capacity (prompt + max_tokens <= max_model_len).  Returns what
+    ``_advance`` returns."""
     positions = cur_lens[:, None]
     hidden, _ = llm(
         embed_tokens(llm.embed_tokens, tokens[:, None]), positions,
         kv_caches=caches, write_pos=positions,
         kv_lengths=torch.where(active, cur_lens + 1, 1),
     )
-    logits = llm.compute_logits(hidden)[:, 0]
+    return _advance(llm.compute_logits(hidden)[:, 0], tokens, cur_lens, live, budget,
+                    temperature, top_p, eos_ids, generator)
+
+
+def _advance(logits, tokens, cur_lens, live, budget, temperature, top_p, eos_ids, generator):
+    """Sample every slot's next token from its logits (B, V) and advance the
+    live slots.  Returns (emitted (B,) int32, -1 where a slot did not emit;
+    then the next tokens, cur_lens, budget and live)."""
     next_tok = sampling.sample_per_slot(logits, generator, temperature, top_p)
     emitted = torch.where(live, next_tok, -1)
     hit_eos = (next_tok[:, None] == eos_ids[None, :]).any(dim=1)
@@ -339,6 +364,61 @@ def _block_admission_round(model, chunk_size, caches, tokens, cur_lens, active,
     return tokens, cur_lens, budget, packed
 
 
+def _sample_admission_first(model: ChatTSModel, last_hidden, temperature, top_p,
+                            generator: torch.Generator) -> torch.Tensor:
+    """First token (A,) int32 of each admission row from its captured hidden
+    state at seq_len - 1 (after the final norm; f32, holding values of the
+    model's type)."""
+    hidden = last_hidden.to(model.llm.embed_tokens.dtype)[:, None]
+    logits = model.compute_logits(hidden)[:, 0]
+    return sampling.sample_per_slot(logits, generator, temperature, top_p)
+
+
+def _mixed_round(model: ChatTSModel, chunk_size: int, npt: int, kv_limit: int, caches,
+                 tokens, cur_lens, active, dec_rows, temperature, top_p, eos_ids, budget,
+                 adm_slots, n_real: int, adm_embeds, adm_offset: int, adm_seq_lens,
+                 last_hidden, generator):
+    """One scan-sliced mixed round, the port of ``_mixed_step_all_slots``:
+    every slot advances ``chunk_size`` decode steps as ``_decode_step`` does,
+    and each step also consumes ``npt`` prompt tokens of every admission row
+    (``adm_embeds`` (A, chunk_size * npt, H) is this round's slice, at
+    absolute position ``adm_offset``) in the same packed stream.  Only the
+    active rows ``dec_rows`` write decode K/V; the admission slots are not
+    among them until their first token.  The hidden state at each row's
+    position seq_len - 1 is added into ``last_hidden`` (A, H) f32.
+    ``tokens``, ``cur_lens``, ``budget`` and ``last_hidden`` are updated in
+    place.  Returns the packed (B, chunk + 1) int32 result: the emitted
+    tokens (-1 where a slot did not emit), then the live flag."""
+    llm = model.llm
+    b = tokens.shape[0]
+    a, _, hdim = adm_embeds.shape
+    dev = tokens.device
+    live = active & (budget > 0)
+    state = (tokens, cur_lens, budget)
+    emitted = []
+    for i in range(chunk_size):
+        off = adm_offset + i * npt
+        pro_pos = torch.arange(off, off + npt, dtype=torch.int32, device=dev)
+        dec_embeds = embed_tokens(llm.embed_tokens, tokens)
+        x = torch.cat([dec_embeds, adm_embeds[:, i * npt:(i + 1) * npt]
+                       .reshape(a * npt, hdim).to(dec_embeds.dtype)])[None]
+        positions = torch.cat([cur_lens, pro_pos.repeat(a)])[None]
+        hidden = llm.forward_mixed(
+            x, positions, b=b, a=a, npt=npt, kv_caches=caches, dec_rows=dec_rows,
+            dec_kv_lengths=torch.where(active, cur_lens + 1, 1), adm_slots=adm_slots, n_real=n_real,
+            adm_seq_lens=adm_seq_lens, span_start=off, kv_limit=kv_limit)
+        emit, tokens, cur_lens, budget, live = _advance(
+            llm.compute_logits(hidden[0, :b, None])[:, 0], tokens, cur_lens, live, budget,
+            temperature, top_p, eos_ids, generator)
+        emitted.append(emit)
+        captured = pro_pos[None, :] == (adm_seq_lens - 1)[:, None]  # (A, npt)
+        last_hidden += torch.where(captured[..., None], hidden[0, b:].reshape(a, npt, hdim).float(),
+                                   0.0).sum(dim=1)
+    for old, new in zip(state, (tokens, cur_lens, budget)):
+        old.copy_(new)
+    return torch.cat([torch.stack(emitted, dim=1), live[:, None].to(torch.int32)], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
@@ -367,10 +447,6 @@ class ServeEngine:
         admission_binning: bool = True,
         block_early_emit: bool = False,
     ):
-        if prefill_chunk is not None:
-            raise NotImplementedError(
-                "prefill_chunk (chunked, scan-sliced admission) is not ported yet; "
-                "see ROADMAP.md")
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # The loop thread sets this device, which needs an index.
@@ -392,6 +468,9 @@ class ServeEngine:
         self.max_batch_size = max_batch_size
         self.max_model_len = max_model_len
         self.decode_chunk = decode_chunk
+        # Prompts longer than this always admit through the mixed path, even
+        # with no slot live, and never as one block.
+        self.prefill_chunk = prefill_chunk
         # int8 activations for every admission's prompt block (B5 for int4
         # weights); decode stays in the model's type.
         self.prefill_act_int8 = prefill_act_int8
@@ -406,7 +485,7 @@ class ServeEngine:
         # rounds, so first tokens stream one round earlier.
         self.block_early_emit = block_early_emit
         # Admissions whose padded prompt block fits a*t <= this budget run
-        # as one block round; larger ones need the scan-sliced path.
+        # as one block round; larger ones take the scan-sliced path.
         self.block_token_budget = 8192
         self._a_bucket = min(self._a_bucket_cfg, max_batch_size)
         self.eos_token_ids = tuple(eos_token_ids)
@@ -438,8 +517,10 @@ class ServeEngine:
         self.slots: List[Optional[Request]] = [None] * b
         self.live_host = np.zeros((b,), bool)
         self._active_key: Optional[bytes] = None
-        # A staged block admission, dispatched as the next round.
-        self._pending_block: Optional[Dict[str, Any]] = None
+        # The admission in flight: a block one (mode "block"), dispatched as
+        # the next round, or a scan-sliced one (mode "mixed"), whose prompt
+        # the next rounds consume.
+        self._pending_mixed: Optional[Dict[str, Any]] = None
 
         self.waiting = _WaitQueue()
         # After a round frees k slots, wait up to this long for k
@@ -454,6 +535,8 @@ class ServeEngine:
         self.total_requests = 0
         self.total_output_tokens = 0  # updated at request completion
         self.streamed_tokens = 0  # updated every round
+        # Block and scan-sliced admission rounds run, as the reference counts.
+        self.mixed_rounds_run = 0
         self.metrics = MetricsAggregator()
         # Round anatomy ring buffer: one dict per engine-loop round,
         # {kind, admit_s, round_s, live, a, rows, emitted, gap_s}.  gap_s is
@@ -478,8 +561,11 @@ class ServeEngine:
         """Run the admission shapes of real traffic once, so the first real
         requests find the kernels built and the allocator warm: per bucket,
         monolithic bursts of max_batch_size, 4, 2 and 1 rows, then every
-        block-admission row count next to a decoding runner.  Every admission
-        prefills as real ones do, with ``prefill_act_int8`` when it is set.
+        block-admission row count next to a decoding runner.  Every
+        admission prefills as real ones do, with ``prefill_act_int8`` when
+        it is set.  Eager PyTorch builds nothing per shape, so the
+        scan-sliced round, whose kernels these rounds already load, is not
+        forced.
         Failures are printed, not raised, as in the reference."""
         self.start()
         for bucket in sorted(prefill_buckets):
@@ -515,11 +601,12 @@ class ServeEngine:
                     if req.error:
                         print(f"[warmup] bucket {bucket} failed: {req.error}",
                               file=sys.stderr)
-        self._warmup_block(prefill_buckets, series_per_request, series_len)
+        self._warmup_mixed(prefill_buckets, series_per_request, series_len)
 
-    def _warmup_block(self, prefill_buckets, series_per_request, series_len):
+    def _warmup_mixed(self, prefill_buckets, series_per_request, series_len):
         """Keep one runner request decoding and admit a wave of each block
-        row count per bucket, so the block rounds run once."""
+        row count per bucket, so the block rounds run once, as the
+        reference does."""
         holes = " ".join(encoding.TS_PAIR for _ in range(series_per_request))
 
         def mkseries():
@@ -545,37 +632,43 @@ class ServeEngine:
             self.submit(r)
             while not r.output_tokens:
                 if r.error:
-                    print(f"[warmup] block runner rejected: {r.error}", file=sys.stderr)
+                    print(f"[warmup] mixed runner rejected: {r.error}", file=sys.stderr)
                     return False
                 if time.time() > deadline:
-                    print("[warmup] block runner timed out", file=sys.stderr)
+                    print("[warmup] mixed runner timed out", file=sys.stderr)
                     return False
                 time.sleep(0.01)
+            return True
+
+        def wave(bucket: int, rows: int) -> bool:
+            """One wave of ``rows`` requests of the bucket next to the runner;
+            False when warm-up has to stop."""
+            if not ensure_runner():
+                return False
+            words = " ".join("warm" for _ in range(max(1, bucket - 64)))
+            reqs = [Request(f"{words} {holes}", mkseries(),
+                            SamplingParams(max_tokens=2, temperature=0.0))
+                    for _ in range(rows)]
+            for req in reqs:
+                self.submit(req)
+            for req in reqs:
+                while req.finished_s is None and req.error is None:
+                    if time.time() > deadline:
+                        print(f"[warmup] mixed bucket {bucket} timed out", file=sys.stderr)
+                        if runner_box[0] is not None:
+                            runner_box[0].cancel()
+                        return False
+                    time.sleep(0.01)
+                if req.error:
+                    print(f"[warmup] mixed bucket {bucket} failed: {req.error}",
+                          file=sys.stderr)
             return True
 
         for bucket in sorted(prefill_buckets):
             fams = {self._block_family(n) for n in range(1, self._a_bucket + 1)}
             for rows in sorted(fams, reverse=True):
-                if not ensure_runner():
+                if not wave(bucket, rows):
                     return
-                words = " ".join("warm" for _ in range(max(1, bucket - 64)))
-                reqs = [Request(f"{words} {holes}", mkseries(),
-                                SamplingParams(max_tokens=2, temperature=0.0))
-                        for _ in range(rows)]
-                for req in reqs:
-                    self.submit(req)
-                for req in reqs:
-                    while req.finished_s is None and req.error is None:
-                        if time.time() > deadline:
-                            print(f"[warmup] block bucket {bucket} timed out",
-                                  file=sys.stderr)
-                            if runner_box[0] is not None:
-                                runner_box[0].cancel()
-                            return
-                        time.sleep(0.01)
-                    if req.error:
-                        print(f"[warmup] block bucket {bucket} failed: {req.error}",
-                              file=sys.stderr)
         runner = runner_box[0]
         if runner is None:
             return
@@ -701,8 +794,8 @@ class ServeEngine:
         pass and one prefill.  A request that fails processing is isolated
         by probing each request alone; one whose prompt + max_tokens exceeds
         max_model_len is rejected without failing the wave."""
-        if self._pending_block is not None:
-            return  # an admission is staged; new ones wait
+        if self._pending_mixed is not None:
+            return  # an admission is in flight; new ones wait
         free = self._free_slots()
         if not free:
             return
@@ -742,36 +835,46 @@ class ServeEngine:
             keep_rows.append(i)
         if not admitted:
             return
-        use_block = False
-        if self.live_host.any():
-            # While slots decode, an admission takes the block round instead
-            # of a monolithic prefill that stalls decode.  It is capped at
-            # the admission bucket; overflow returns to the FRONT of the
-            # queue.
+        want_mixed = self.live_host.any() or (
+            self.prefill_chunk is not None and batch.input_ids.shape[1] > self.prefill_chunk)
+        mode = "mono"
+        if want_mixed:
+            # While slots decode (or for a prompt above prefill_chunk), an
+            # admission takes the block or the scan-sliced round instead of
+            # a monolithic prefill that stalls decode.  It is capped at the
+            # admission bucket; overflow returns to the FRONT of the queue.
             if len(admitted) > self._a_bucket:
                 self.waiting.requeue(admitted[self._a_bucket:])
                 admitted = admitted[: self._a_bucket]
                 keep_rows = keep_rows[: len(admitted)]
-            # A block packs exactly the admitted rows.
+            # Both pack exactly the admitted rows.
             if keep_rows != list(range(batch.input_ids.shape[0])):
                 batch = process(admitted)
                 keep_rows = list(range(len(admitted)))
-            if not self._block_eligible(len(admitted), batch.input_ids.shape[1]):
-                for req in admitted:
-                    self._fail(req, MIXED_NOT_PORTED)
-                return
-            use_block = True
+            t = batch.input_ids.shape[1]
+            if self._block_eligible(len(admitted), t):
+                mode = "block"
+            elif self._mixed_plan(len(admitted), t)[3] <= self.max_model_len:
+                # The scan-sliced round writes the padded prompt into the
+                # slots: it must fit the cache, else the admission is
+                # monolithic (round kind "mono").
+                mode = "mixed"
         try:
-            self._prefill_requests(admitted, free[: len(admitted)], batch, keep_rows,
-                                   use_block)
+            self._prefill_requests(admitted, free[: len(admitted)], batch, keep_rows, mode)
         except Exception as err:
             for req in admitted:
                 self._fail(req, f"{type(err).__name__}: {err}")
 
     def _prefill_requests(self, reqs: List[Request], slots: List[int], batch,
-                          keep_rows: List[int], use_block: bool = False) -> None:
-        if use_block:
+                          keep_rows: List[int], mode: str = "mono") -> None:
+        """Admit the rows as ``_admit`` routed them: ``"mono"`` prefills
+        them now; ``"block"`` and ``"mixed"`` stage a block or a scan-sliced
+        admission for the next rounds."""
+        if mode == "block":
             self._start_block_admission(reqs, slots, keep_rows, batch)
+            return
+        if mode == "mixed":
+            self._start_mixed_admission(reqs, slots, keep_rows, batch)
             return
         kb, t = batch.input_ids.shape
         mono_t0 = time.perf_counter()
@@ -811,12 +914,16 @@ class ServeEngine:
             self._tensor(batch.scatter_tok, torch.int64),
         )
 
-    def _finalize_admission(self, reqs, slots, keep_rows, first_host) -> None:
-        """Host bookkeeping for an admission's first tokens.  The device
-        already merged the rows into the decode state; here the slot
+    def _finalize_admission(self, reqs, slots, keep_rows, first_host,
+                            device_synced: bool = True) -> None:
+        """Host bookkeeping for an admission's first tokens: the slot
         records, live_host and the streams are updated, and a request whose
-        first token ends it (EOS, max_tokens 1, cancelled) finishes."""
+        first token ends it (EOS, max_tokens 1, cancelled) finishes.  With
+        ``device_synced`` the device already merged the rows into the decode
+        state; otherwise (a scan-sliced admission) the rows that go live are
+        written into it here, one indexed assignment an array, in place."""
         now = time.perf_counter()
+        going_live = []
         for req, slot, row in zip(reqs, slots, keep_rows):
             tok = int(first_host[row])
             req.first_token_s = now
@@ -834,6 +941,34 @@ class ServeEngine:
             req.output_tokens.append(tok)
             req.stream_queue.put([tok])
             self.live_host[slot] = True
+            going_live.append((slot, tok, req))
+        if device_synced or not going_live:
+            return
+        rows = self._tensor([slot for slot, _, _ in going_live], torch.int64)
+        for state, values, dtype in (
+                (self.tokens, [tok for _, tok, _ in going_live], torch.int32),
+                (self.cur_lens, [r.prompt_tokens for _, _, r in going_live], torch.int32),
+                (self.temperature, [r.params.temperature for _, _, r in going_live],
+                 torch.float32),
+                (self.top_p, [r.params.top_p for _, _, r in going_live], torch.float32),
+                (self.budget, [r.params.max_tokens - 1 for _, _, r in going_live],
+                 torch.int32)):
+            state[rows] = self._tensor(values, dtype)
+
+    def _mixed_plan(self, n_reqs: int, t: int):
+        """Size a scan-sliced admission, as the reference does: (row family
+        a, prompt tokens a row per step npt, a row's tokens per round c,
+        padded prompt length t_pad).  a is the smallest of 1, 2, 4 and the
+        admission bucket that covers the rows; npt takes the whole prompt in
+        one round unless capped so that the packed rows B + a * npt stay
+        within 512, or by ``MIXED_NPT``."""
+        a = (1 if n_reqs <= 1 else 2 if n_reqs <= 2
+             else 4 if n_reqs <= 4 else self._a_bucket)
+        npt_cap = max(8, (512 - self.max_batch_size) // a)
+        npt = min(-(-t // self.decode_chunk), npt_cap, MIXED_NPT)
+        c = self.decode_chunk * npt
+        t_pad = -(-t // c) * c
+        return a, npt, c, t_pad
 
     def _block_family(self, n_reqs: int) -> int:
         """The reference's padded row count for an n-row block admission
@@ -847,9 +982,44 @@ class ServeEngine:
 
     def _block_eligible(self, n_reqs: int, t: int) -> bool:
         """Whether an admission takes the block round: the padded block fits
-        the token budget and the prompt fits the cache."""
+        the token budget and the prompt fits the cache.  A prompt above
+        ``prefill_chunk`` never does."""
+        if self.prefill_chunk is not None and t > self.prefill_chunk:
+            return False
         a = self._block_family(n_reqs)
         return a * t <= self.block_token_budget and t <= self.max_model_len
+
+    def _start_mixed_admission(self, reqs, slots, keep_rows, batch) -> None:
+        """Stage a scan-sliced admission: the merged prompt embeddings are
+        computed once, padded with zeros to (a, t_pad); each following round
+        consumes ``decode_chunk * npt`` tokens of every row.  The slots are
+        reserved; they go live with the first token."""
+        kb, t = batch.input_ids.shape
+        a, npt, _, t_pad = self._mixed_plan(len(reqs), t)
+        if kb != len(reqs) or keep_rows != list(range(kb)) or kb > a:
+            raise RuntimeError(f"a mixed admission packs exactly its {len(reqs)} "
+                               f"admitted rows, not {kb}")
+        embeds = F.pad(self._embed(batch), (0, 0, 0, t_pad - t, 0, a - kb))
+        seq_lens = np.zeros((a,), np.int32)  # 0 for pad rows: nothing captured
+        adm_slots = np.zeros((a,), np.int64)  # pad rows read slot 0, write nothing
+        temp = np.zeros((a,), np.float32)
+        topp = np.ones((a,), np.float32)
+        for req, slot, row in zip(reqs, slots, keep_rows):
+            seq_lens[row] = req.prompt_tokens
+            adm_slots[row] = slot
+            temp[row] = req.params.temperature
+            topp[row] = req.params.top_p
+            self.slots[slot] = req
+        self._pending_mixed = {
+            "mode": "mixed", "reqs": reqs, "slots": slots, "keep_rows": keep_rows,
+            "embeds": embeds, "o": 0, "t_pad": t_pad, "npt": npt, "n_real": kb,
+            "adm_slots": self._tensor(adm_slots, torch.int64),
+            "seq_lens": self._tensor(seq_lens, torch.int32),
+            "temp": self._tensor(temp, torch.float32),
+            "topp": self._tensor(topp, torch.float32),
+            "last_hidden": torch.zeros((a, embeds.shape[-1]), dtype=torch.float32,
+                                       device=self.device),
+        }
 
     def _start_block_admission(self, reqs, slots, keep_rows, batch) -> None:
         """Stage a block admission: merged prompt embeddings computed now,
@@ -861,8 +1031,8 @@ class ServeEngine:
                                f"admitted rows, not {kb}")
         for req, slot in zip(reqs, slots):
             self.slots[slot] = req
-        self._pending_block = {
-            "reqs": reqs, "slots": slots, "keep_rows": keep_rows,
+        self._pending_mixed = {
+            "mode": "block", "reqs": reqs, "slots": slots, "keep_rows": keep_rows,
             "embeds": self._embed(batch),
             "src": self._tensor(keep_rows, torch.int64),
             "dst": self._tensor(slots, torch.int64),
@@ -873,8 +1043,9 @@ class ServeEngine:
         }
 
     def _dispatch_block(self):
-        st = self._pending_block
-        self._pending_block = None
+        st = self._pending_mixed
+        self._pending_mixed = None
+        self.mixed_rounds_run += 1
         adm = (st["src"], st["dst"], st["embeds"], st["seq_lens"], st["temp"],
                st["topp"], st["budget"], self.generator, self.prefill_act_int8)
         rows = st["embeds"].shape[0]
@@ -891,6 +1062,32 @@ class ServeEngine:
                            (self.budget, budget)):
             state.copy_(new)
         return ("block", packed, st, len(st["reqs"]), rows)
+
+    def _dispatch_mixed(self):
+        """One scan-sliced round: every slot advances ``decode_chunk`` steps
+        and the admission consumes ``decode_chunk * npt`` tokens a row,
+        attending a prefix that steps by 512 positions.  The round that
+        consumes the last tokens clears the admission, so the next one can
+        be staged after it; its first tokens are sampled in
+        ``_complete_round``."""
+        st = self._pending_mixed
+        npt, o = st["npt"], st["o"]
+        c = self.decode_chunk * npt
+        kv_limit = min(self.max_model_len, -(-min(o + c, st["t_pad"]) // 512) * 512)
+        packed = _mixed_round(
+            self.model, self.decode_chunk, npt, kv_limit, self.caches, self.tokens,
+            self.cur_lens, self._active_device(),
+            self._tensor(np.flatnonzero(self.live_host), torch.int64), self.temperature,
+            self.top_p, self._eos_dev, self.budget, st["adm_slots"], st["n_real"],
+            st["embeds"][:, o:o + c], o, st["seq_lens"], st["last_hidden"], self.generator)
+        st["o"] = o + c
+        self.mixed_rounds_run += 1
+        finalize = None
+        if st["o"] >= st["t_pad"]:
+            finalize = st
+            self._pending_mixed = None
+        a = st["embeds"].shape[0]
+        return ("mixed", packed, finalize, a, a * npt)
 
     def _complete_round(self, handle) -> None:
         """Fetch the dispatched round's result (the one host sync of the
@@ -912,6 +1109,15 @@ class ServeEngine:
             self._process_emitted(arr[:, :-2], arr[:, -2].astype(bool))
             return
         self._process_emitted(arr[:, :-1], arr[:, -1].astype(bool))
+        if finalize is not None:
+            # The scan-sliced admission's last round: sample the first tokens
+            # from the captured hidden states, then the rows go live.
+            first = _sample_admission_first(self.model, finalize["last_hidden"],
+                                            finalize["temp"], finalize["topp"],
+                                            self.generator)
+            self._finalize_admission(finalize["reqs"], finalize["slots"],
+                                     finalize["keep_rows"], first.cpu().numpy(),
+                                     device_synced=False)
 
     def _finish(self, slot: int, reason: str) -> None:
         req = self.slots[slot]
@@ -953,8 +1159,10 @@ class ServeEngine:
         for slot, req in enumerate(self.slots):
             if req is not None and req.cancelled and self.live_host[slot]:
                 self._finish(slot, "cancelled")
-        if self._pending_block is not None:
-            return self._dispatch_block()
+        if self._pending_mixed is not None:
+            if self._pending_mixed["mode"] == "block":
+                return self._dispatch_block()
+            return self._dispatch_mixed()
         if self.live_host.any():
             return self._dispatch_decode()
         return None
@@ -1003,7 +1211,7 @@ class ServeEngine:
                             a0 = time.perf_counter()
                             self._admit()
                             self._event("idle_admit", time.perf_counter() - a0)
-                        elif self._pending_block is None and not self.live_host.any():
+                        elif self._pending_mixed is None and not self.live_host.any():
                             self._wake.wait(timeout=0.05)
                             self._wake.clear()
                         continue
@@ -1011,7 +1219,7 @@ class ServeEngine:
                     self._complete_round(handle)
                     t_done = time.perf_counter()
                     self._event(f"round_{handle[0]}", t_done - t0)
-                    if self._pending_block is None:
+                    if self._pending_mixed is None:
                         if self._finished_total > fin0:
                             want = min(self._finished_total - fin0, self._a_bucket)
                             grace = time.perf_counter() + self.admit_grace_s
@@ -1032,7 +1240,7 @@ class ServeEngine:
                     self._last_round_end = t_end
                 except Exception as err:  # the engine survives a bad step
                     traceback.print_exc()
-                    self._pending_block = None
+                    self._pending_mixed = None
                     for slot, req in enumerate(self.slots):
                         if req is not None:
                             self._fail(req, f"engine step failed: {err}")

@@ -20,7 +20,10 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      each of its paths at every R, and the int8-activation matmul (B5) at the
      rows of an a8 prefill, bit-equal to its plain version, with both of its
      block widths at few rows; both int4 matmuls at the unfused widths of an
-     imported GPTQ checkpoint (OUT 1,024, 5,120, 13,824);
+     imported GPTQ checkpoint (OUT 1,024, 5,120, 13,824); the prefill
+     attention at the chunked paths' shapes (512 queries over a 2,048
+     prefix, 64 over 2,048 and 4,096) and the int4 matmul at a mixed step's
+     280 rows;
   3. the ChatTS-14B widths at 2 layers, int4 weights: logits of the kernel
      path on the card against the plain path on the CPU in f32;
   3c. the same with int8-activation prefill (``act_int8``), against the
@@ -30,6 +33,11 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      logits held against the same schedule on the CPU (plain versions, f32,
      the same int8 quantization, the card's tokens fed back); then the same
      schedule replayed from the engine's decode graph, token-identical;
+  3d. the same widths with an int8 KV cache: a runner decodes while a
+     ~700-token request is admitted by two scan-sliced mixed rounds (block
+     budget 0), driven on this thread; the runner's logits of every step and
+     the admission's first-token logits held against the same schedule on
+     the CPU (plain versions, f32, the card's tokens fed back);
   4. the batch slice at full size: ChatTS-14B shape (48 layers, int4, random
      weights from a seed), 4 prompts with series, ``InferenceEngine.generate``
      greedy twice and sampled twice, each pair token-identical, every kernel
@@ -62,7 +70,19 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      ``examples/serve_openai.py``'s ``build`` at phase 5's configuration, one
      wave of 8 chat requests twice, token-identical, (h) the activation-order
      and asymmetric exports at 2 layers, ``perm4`` and ``zeros4`` on the
-     card, logits as in (e).
+     card, logits as in (e);
+  8. (run before phase 7, on phase 4's weights) chunked prefill and the
+     scan-sliced mixed admission at full size: (a) phase 4's batch with
+     ``prefill_chunk=512``, greedy twice, token-identical, first-token
+     logits held to the monolithic prefill's; (b) ``ServeEngine`` at 24
+     slots, cap 6,144, int8 KV, decode chunk 32 behind ``ChatTSServer``: 8
+     of phase 5's requests, then, while they decode, 4 requests of 2,400 to
+     2,900 tokens that no block takes, admitted by two mixed rounds (npt 64,
+     kv_limit 2,048 then 4,096); (c) the same engine with
+     ``prefill_chunk=1024`` and the 4 long requests on an idle engine; each
+     twice, token-identical, with the kernels' launches and shapes inside
+     the chunked and mixed regions; then one mixed round under
+     ``torch.profiler``.
 
 It prints a JSON line of per-kernel results (the kernel's, the plain
 version's and the library call's device times, the bound and what sets it),
@@ -130,12 +150,13 @@ INT4_ROW_ATOL = 2.0 ** -16
 # gate_up): each prefill launches B5 this many times a layer.
 INT4_PROJECTIONS_PER_LAYER = 4
 # The 14B int4 projections, and the rows phase 2 times them at: decode (1,
-# 4), serving's decode round (16, 24 slots), admissions (37, 64, 640) and a
-# serving wave's or the batch's prefill (4096, 5120; not the head, which
+# 4), serving's decode round (16, 24 slots), admissions (37, 64, 640), a
+# scan-sliced mixed step (280: 24 slots and 4 rows of 64 prompt tokens) and
+# a serving wave's or the batch's prefill (4096, 5120; not the head, which
 # runs on the last positions only).
 INT4_SHAPES = {"qkv": (5120, 7168), "o": (5120, 5120), "gate_up": (5120, 27648),
                "down": (13824, 5120), "lm_head": (5120, 152064)}
-INT4_ROWS = (1, 4, 16, 24, 37, 64, 640)
+INT4_ROWS = (1, 4, 16, 24, 37, 64, 280, 640)
 INT4_PREFILL_ROWS = (4096, 5120)
 # An imported GPTQ checkpoint keeps q/k/v and gate/up apart, as the reference
 # server does: k and v 5120->1024, q and o 5120->5120, gate and up
@@ -386,18 +407,22 @@ def phase_build():
                     log(f"  {info.name}: {line.strip()}")
 
 
-def _flash_case(torch, gen, t: int, dev, b: int = 4, s: int = 0):
+def _flash_case(torch, gen, t: int, dev, b: int = 4, s: int = 0, q0=None):
     """B rows of T queries over S keys (S = T unless given) at the 14B head
-    shape.  The queries are the last T positions of S; the rows are valid up
-    to S, S - 37, S - 300 and S / 2 in turn, and every fourth row's first 5
-    keys are invalid: with T = S its queries 0..4 have no valid key."""
+    shape.  The queries are positions q0 .. q0 + T of S (the last T unless
+    given: a prefill chunk's or a mixed step's queries over a cache prefix
+    sit earlier, and the keys after them are masked by position); the rows
+    are valid up to S, S - 37, S - 300 and S / 2 in turn, and every fourth
+    row's first 5 keys are invalid: with T = S its queries 0..4 have no
+    valid key."""
     h, kvh, d = 40, 8, 128
     s = s or t
+    q0 = s - t if q0 is None else q0
     q = torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
     kv_pos = torch.arange(s, dtype=torch.int32, device=dev)[None].repeat(b, 1).contiguous()
-    q_pos = (kv_pos[:, :t] + (s - t)).contiguous()
+    q_pos = (kv_pos[:, :t] + q0).contiguous()
     seq_lens = torch.tensor(([s, s - 37, s - 300, s // 2] * -(-b // 4))[:b], device=dev)
     kv_valid = kv_pos < seq_lens[:, None]
     kv_valid[3::4, :5] = False
@@ -628,15 +653,23 @@ def phase_kernels():
         # paths' own shapes (the batch prefill, B4 T = S = 1280; a serving
         # wave, B8 T = S = 512), a chunk of 256 queries over a prefix (T < S,
         # offset query positions) and one short prompt admitted alone (T = 37:
-        # the 64-row query tile's side of the wrapper's choice).  The library
+        # the 64-row query tile's side of the wrapper's choice); then the
+        # chunked paths' shapes: a 512-token prefill chunk over the 2,048
+        # prefix at query offsets 0, 512 and 1,024 (phase 8a), and a mixed
+        # step's 64 prompt tokens a row over the 2,048 and 4,096 prefixes of
+        # its two rounds, at their last offsets (phase 8b).  The library
         # call: SDPA with GQA and the boolean mask kv_valid & kv_pos <= q_pos,
         # on head-major views.
         errs, times = [], {}
-        for b, t, s_len in ((4, 640, 640), (4, 1152, 1152), (4, 600, 600), (4, 1280, 1280),
-                            (8, 512, 512), (4, 256, 1280), (1, 37, 37)):
-            q, k, v, q_pos, kv_pos, kv_valid = _flash_case(torch, gen, t, dev, b=b, s=s_len)
+        for b, t, s_len, q0 in ((4, 640, 640, None), (4, 1152, 1152, None),
+                                (4, 600, 600, None), (4, 1280, 1280, None),
+                                (8, 512, 512, None), (4, 256, 1280, None), (1, 37, 37, None),
+                                (4, 512, 2048, 0), (4, 512, 2048, 512), (4, 512, 2048, 1024),
+                                (4, 64, 2048, 1984), (4, 64, 4096, 4032)):
+            q, k, v, q_pos, kv_pos, kv_valid = _flash_case(torch, gen, t, dev, b=b, s=s_len,
+                                                           q0=q0)
             kw = dict(q_positions=q_pos, kv_positions=kv_pos, kv_valid=kv_valid)
-            what = f"flash B={b} T={t} S={s_len}"
+            what = f"flash B={b} T={t} S={s_len}" + ("" if q0 is None else f" q0={q0}")
             got = fa.flash_attention(q, k, v, **kw)
             ref = fa.flash_attention_reference(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -677,16 +710,20 @@ def phase_kernels():
             nbytes = (2 * (2 * q.numel() + k.numel() + v.numel())
                       + 4 * (q_pos.numel() + kv_pos.numel()) + kv_valid.numel())
             bound_ms, bound_by = bound(nbytes, 4.0 * d * h * visible, PEAK_BF16_S)
-            times[(b, t, s_len)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
-                                        bound_by=bound_by)
+            times[(b, t, s_len, q0)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                            bound_ms=bound_ms, bound_by=bound_by)
             tiles = ", ".join(f"{bq} rows {t_ms:.3f} ms (|kernel - tiled plain| {dist:.3g})"
                               for bq, (t_ms, dist) in by_tile.items())
-            log(f"  flash_attention B={b} H=40 KVH=8 D=128 T={t} S={s_len}: max_abs_err "
+            log(f"  flash_attention B={b} H=40 KVH=8 D=128 T={t} S={s_len}"
+                f"{'' if q0 is None else f' q0={q0}'}: max_abs_err "
                 f"{errs[-1]:.3g}, kernel {ms:.3f} ms ({4.0 * d * h * visible / ms / 1e9:.0f} "
                 f"TFLOP/s of visible work; eager {eager:.3f}; tiles: {tiles}), plain "
                 f"{plain:.3f} ms, sdpa {lib:.3f} ms, "
                 f"bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} of it)")
-        results["flash_attention"] = dict(max_abs_err=max(errs), **times[(4, 1152, 1152)])
+        results["flash_attention"] = dict(max_abs_err=max(errs), **times[(4, 1152, 1152, None)])
+        log("  flash chunk shapes: " + json.dumps(
+            [dict(b=b, t=t, s=s_len, q0=q0, **row) for (b, t, s_len, q0), row in times.items()
+             if q0 is not None]))
 
         # Ragged decode attention (bf16 cache): the case that stands, then
         # lengths on and beside the plan's chunk boundaries with a row of
@@ -1052,6 +1089,26 @@ def tail_logits(model, batch, device, n: int, act_int8: bool = False):
         return model.compute_logits(hidden.gather(1, idx)).float()
 
 
+def cpu_plain_model(model):
+    """``model`` moved to the CPU in f32, each int4 projection (and the
+    head) a float ``Dense`` holding its weights dequantized once in f32.
+    On a CPU tensor the int4 branch computes x @ dequantize(q, s) in f32
+    (``int4_matmul_reference``) on every call; dequantizing once gives the
+    same product without the per-call unpacking of 1.5 G weights a step.
+    Not for ``act_int8``, which a float ``Dense`` ignores."""
+    from chatts_tpu_torch.models.qwen import Dense
+    from chatts_tpu_torch.ops import int4_matmul as i4
+
+    model.to("cpu").float()
+    for module in list(model.modules()):
+        for name, child in list(module.named_children()):
+            if (isinstance(child, Dense) and child.kernel_q4 is not None
+                    and child.perm4 is None and child.zeros4 is None):
+                setattr(module, name, Dense(i4.dequantize(child.kernel_q4, child.scales4),
+                                            bias=child.bias))
+    return model
+
+
 def phase_model():
     import torch
 
@@ -1236,7 +1293,7 @@ def phase_serving_model():
             raise AssertionError("the decode graph served other tokens than the eager round")
 
         # The same schedule on the CPU in f32, the card's tokens fed back.
-        model.to("cpu").float()
+        cpu_plain_model(model)
         batch = proc([r.prompt for r in reqs], [ts for r in reqs for ts in r.timeseries])
         tokens = torch.tensor([r.output_tokens for r in reqs], dtype=torch.int64)
         seq_lens = torch.as_tensor(batch.seq_lens, dtype=torch.int64)
@@ -1279,6 +1336,130 @@ def phase_serving_model():
         if float(errs.max()) > tol:
             raise AssertionError(f"int8-KV logits differ by {float(errs.max()):.4g} > {tol:.4g}")
         torch.cuda.empty_cache()
+
+
+class SampleTape:
+    """Stands in for ``sampling.sample_per_slot``: records every call's
+    tokens on the host, or, given a recorded tape, returns its tokens in
+    order, so that a second run takes the first run's tokens."""
+
+    def __init__(self, replay=None):
+        from chatts_tpu_torch.runtime import sampling
+
+        self.sampling, self.inner = sampling, sampling.sample_per_slot
+        self.replay, self.calls = replay, []
+        sampling.sample_per_slot = self
+
+    def __call__(self, logits, generator, temperature, top_p):
+        if self.replay is not None:
+            return self.replay.pop(0).to(logits.device)
+        out = self.inner(logits, generator, temperature, top_p)
+        self.calls.append(out.cpu())
+        return out
+
+    def remove(self):
+        self.sampling.sample_per_slot = self.inner
+
+
+def drive_scan_sliced(engine, runner, late) -> None:
+    """Phase 3d's schedule on the calling thread, with no engine loop, so
+    that the card and the CPU run the same one: the runner's monolithic
+    admission, then the late request staged as a scan-sliced admission
+    (``block_token_budget`` 0), then rounds until neither is left."""
+    import torch
+
+    engine.block_token_budget = 0
+    with torch.inference_mode():
+        engine.submit(runner)
+        engine._admit()
+        engine.submit(late)
+        engine._admit()
+        if (engine._pending_mixed or {}).get("mode") != "mixed":
+            raise AssertionError("the late request was not staged as a scan-sliced admission")
+        while engine._pending_mixed is not None or engine.live_host.any():
+            engine._complete_round(engine._dispatch_round())
+
+
+def phase_mixed_model():
+    """Phase 3d: the scan-sliced mixed admission at the 14B widths (2 layers,
+    int4, int8 KV) on the card against the same schedule on the CPU."""
+    import numpy as np
+    import torch
+
+    from chatts_tpu_torch.models.quantize import init_quantized_params
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
+    from chatts_tpu_torch.serve.scheduler import MIXED_NPT, Request, SamplingParams, ServeEngine
+
+    dev = torch.device("cuda", 0)
+    decode_chunk = 8
+    with Phase("3d", "ChatTS-14B widths, 2 layers, int4, int8 KV: a scan-sliced admission "
+                     "next to a decoding runner, card against the same schedule on the CPU "
+                     "(plain, f32)"):
+        cfg = chatts_14b_config(num_layers=2)
+        model = init_quantized_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 4), dev)
+        proc = ChatTSProcessor(WordTokenizer(), cfg)
+        rng = np.random.default_rng(SEED + 4)
+
+        def request(n_words, lengths, max_tokens):
+            holes = " and ".join(f"series {j}: <ts><ts/>" for j in range(len(lengths)))
+            words = " ".join(f"w{int(x)}" for x in rng.integers(0, 10 ** 6, n_words))
+            return (f"Please analyze {holes} and then answer. {words}",
+                    [rng.normal(0.0, 10.0, size=n).cumsum() for n in lengths], max_tokens)
+
+        # The late prompt takes two rounds of 8 steps of 64 tokens; the
+        # runner's budget ends with the second, and the late request's one
+        # token ends it at its first: no pure decode round.
+        specs = [request(150, [256], 2 * decode_chunk + 1), request(560, [1024, 1024], 1)]
+
+        def serve(device, replay=None):
+            reqs = [Request(p, ts, SamplingParams(max_tokens=n, temperature=0.0))
+                    for p, ts, n in specs]
+            engine = ServeEngine(model, cfg, proc, device=device, max_batch_size=2,
+                                 max_model_len=1024, cache_dtype=torch.int8,
+                                 decode_chunk=decode_chunk, fuse=False)
+            recorder, tape = LogitRecorder(model.llm), SampleTape(replay)
+            try:
+                drive_scan_sliced(engine, *reqs)
+            finally:
+                tape.remove()
+                recorder.remove()
+            for r in reqs:
+                if r.error or len(r.output_tokens) != r.params.max_tokens:
+                    raise AssertionError(f"phase 3d request: error {r.error}, "
+                                         f"{len(r.output_tokens)} tokens")
+            if engine.mixed_rounds_run != 2 or engine._decode_graph is not None:
+                raise AssertionError(f"phase 3d ran another schedule: {engine.mixed_rounds_run} "
+                                     "mixed rounds")
+            return reqs, recorder.calls, tape.calls
+
+        reset_launches()
+        reqs, got, tokens = serve(dev)
+        launches = read_launches("scan-sliced model (3d)", (
+            "flash_attention", "ragged_decode_attention_int8", "int4_matmul"))
+        cpu_plain_model(model)
+        _, want, _ = serve(torch.device("cpu"), replay=list(tokens))
+        del model
+        # The runner's prefill (1 row), 16 mixed steps (2 rows: the runner,
+        # then the admission's slot, which is not live), the first token.
+        if not len(got) == len(want) == 2 * decode_chunk + 2:
+            raise AssertionError(f"logits computed {len(got)} times on the card, {len(want)} "
+                                 f"on the CPU")
+        pick = [0] + [slice(0, 1)] * (2 * decode_chunk) + [0]
+        got_t = torch.cat([g[p].reshape(1, -1) for g, p in zip(got, pick)])
+        want_t = torch.cat([w[p].reshape(1, -1) for w, p in zip(want, pick)])
+        if not torch.isfinite(got_t).all():
+            raise AssertionError("non-finite logits on the card")
+        errs = (got_t - want_t).abs().amax(dim=1)
+        tol = SERVE_LOGIT_RTOL_OF_MAX * float(want_t.abs().max())
+        log(f"  prompt tokens {[r.prompt_tokens for r in reqs]}; npt {MIXED_NPT}, 2 mixed rounds of "
+            f"{decode_chunk} steps; max |logit diff| runner prefill {float(errs[0]):.4g}, runner "
+            f"in the mixed steps {float(errs[1:-1].max()):.4g}, the admission's first token "
+            f"{float(errs[-1]):.4g} (tolerance {tol:.4g} = {SERVE_LOGIT_RTOL_OF_MAX} x max "
+            f"|plain logit| {float(want_t.abs().max()):.4g})")
+        if float(errs.max()) > tol:
+            raise AssertionError(f"mixed-round logits differ by {float(errs.max()):.4g} > {tol:.4g}")
+        torch.cuda.empty_cache()
+    return launches
 
 
 def slice_batch(cfg):
@@ -1713,6 +1894,339 @@ def phase_serving(smi: str, model, cfg, act_int8: bool = False):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: chunked prefill and the scan-sliced mixed admission at full size
+# ---------------------------------------------------------------------------
+
+class ShapeSpy:
+    """While a region runs, counts the query lengths T of the decoder's
+    prefill attention calls and the rows R of its int4 projections (by
+    wrapping the names ``models/qwen.py`` calls; the wrappers still count
+    the launches), and each kernel's launches inside the region."""
+
+    def __init__(self):
+        import collections
+
+        from chatts_tpu_torch.models import qwen
+
+        self.qwen, self.attention, self.int4 = qwen, qwen.attention, qwen.int4_matmul
+        self.t, self.r = collections.Counter(), collections.Counter()
+        self.regions, self.notes, self.wrapped, self.on = {}, {}, [], False
+        qwen.attention, qwen.int4_matmul = self._attention, self._int4
+
+    def _attention(self, q, *args, **kw):
+        if self.on:
+            self.t[q.shape[1]] += 1
+        return self.attention(q, *args, **kw)
+
+    def _int4(self, x, *args, **kw):
+        if self.on:
+            self.r[x.shape[0]] += 1
+        return self.int4(x, *args, **kw)
+
+    def region(self, owner, name: str, label: str, note=None) -> None:
+        """Wrap ``owner.name``: launches inside its calls add to
+        ``regions[label]``, and ``note(args)`` of each call to ``notes[label]``."""
+        inner = getattr(owner, name)
+        counts = self.regions.setdefault(label, {k: 0 for k in kernel_wrappers()})
+        notes = self.notes.setdefault(label, [])
+
+        def wrapped(*args, **kw):
+            before = {k: fn.launches for k, fn in kernel_wrappers().items()}
+            self.on = True
+            try:
+                return inner(*args, **kw)
+            finally:
+                self.on = False
+                for k, fn in kernel_wrappers().items():
+                    counts[k] += fn.launches - before[k]
+                if note is not None:
+                    notes.append(note(args))
+
+        setattr(owner, name, wrapped)
+        self.wrapped.append((owner, name, inner))
+
+    def remove(self) -> None:
+        self.qwen.attention, self.qwen.int4_matmul = self.attention, self.int4
+        for owner, name, inner in self.wrapped:
+            setattr(owner, name, inner)
+
+
+def long_chat_bodies(count: int, n_new: int) -> list:
+    """Phase 8b's second wave: ``count`` chat requests of about 2,400 to
+    2,900 prompt tokens, four series of 512 points each and a long text,
+    greedy, ``n_new`` tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 8)
+    bodies = []
+    for i in range(count):
+        parts = [{"type": "text", "text": "here are four metrics "}]
+        for j in range(4):
+            parts += [{"type": "timeseries", "timeseries": rng.normal(0, 10, 512).cumsum().tolist()},
+                      {"type": "text", "text": f" metric {j} "}]
+        filler = " ".join(f"word{k}" for k in range(2250 + 150 * i))
+        parts.append({"type": "text", "text": f". {filler} compare their local changes."})
+        bodies.append({"model": "chatts", "max_tokens": n_new, "temperature": 0.0,
+                       "messages": [{"role": "user", "content": parts}]})
+    return bodies
+
+
+def wave1_rate(reqs) -> dict:
+    """Phase 8's wave 1 decode rate while wave 2 is admitted: the tokens
+    after the first over the time from the first first token to the last
+    finish (tokens/s, all requests), and the mean time a token a request."""
+    n = sum(len(r.output_tokens) - 1 for r in reqs)
+    if not n:
+        return {}
+    span = max(r.finished_s for r in reqs) - min(r.first_token_s for r in reqs)
+    tpot = [(r.finished_s - r.first_token_s) / (len(r.output_tokens) - 1) for r in reqs]
+    return dict(wave1_tok_s=n / span, wave1_tpot_ms=1e3 * sum(tpot) / len(tpot))
+
+
+def profile_mixed_round(torch, engine, steps: int = 8, live: int = 8, a: int = 4,
+                        npt: int = 64, kv_limit: int = 4096) -> dict:
+    """The steps of a scan-sliced mixed round under ``torch.profiler``, as
+    phase 8b's second round runs them: the engine's round function with
+    ``steps`` steps (a quarter of the 32-step round: its steps have the same
+    shapes, and a whole round's 180,000 launches cost the profiler minutes),
+    run eagerly from this thread after the engine stopped, on copies of its
+    decode state with ``live`` slots live and ``a`` admission rows of
+    ``npt`` tokens a step in the last slots at offset kv_limit / 2 (its K/V
+    writes land in slots and positions no request reads).  Prints the ten
+    kernels with the most device time, and the share of the int8 prefix's
+    dequantized, token-major copies (``qwen._cache_prefix``, timed alone by
+    CUDA events for one layer, times the layers and steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chatts_tpu_torch.models import qwen
+    from chatts_tpu_torch.serve import scheduler
+
+    dev, b, chunk = engine.device, engine.max_batch_size, steps
+    hdim, layers = engine.cfg.llm.hidden_size, engine.cfg.llm.num_hidden_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    slots = torch.arange(b - a, b, device=dev)
+    seq_lens = torch.full((a,), kv_limit - 100, dtype=torch.int32, device=dev)
+    embeds = torch.randn((a, chunk * npt, hdim), generator=gen, device=dev).to(torch.bfloat16)
+
+    def run():
+        return scheduler._mixed_round(
+            engine.model, chunk, npt, kv_limit, engine.caches, engine.tokens.clone(),
+            engine.cur_lens.clone(), torch.arange(b, device=dev) < live,
+            torch.arange(live, device=dev), engine.temperature.clone(), engine.top_p.clone(),
+            engine._eos_dev, torch.full((b,), chunk, dtype=torch.int32, device=dev), slots, a,
+            embeds, kv_limit // 2, seq_lens,
+            torch.zeros((a, hdim), dtype=torch.float32, device=dev), gen)
+
+    with torch.inference_mode():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        prefix_ms = graph_ms(lambda: qwen._cache_prefix(engine.caches[0], slots, kv_limit,
+                                                         torch.bfloat16))
+    out = device_kernels(prof, f"{chunk} steps of a mixed round ({b} slots, {live} live, "
+                               f"a {a} x npt {npt}, kv_limit {kv_limit})",
+                         mark=("ragged_decode_int8_kernel", "decode_merge_kernel"))
+    prefix_steps_ms = prefix_ms * layers * chunk
+    out.update(steps=chunk, prefix_layer_ms=prefix_ms, prefix_steps_ms=prefix_steps_ms)
+    log(f"  {chunk} mixed steps: {out['busy_ms']:.3f} ms of device time "
+        f"({out['busy_ms'] / chunk:.2f} ms a step); the int8 decode attention "
+        f"{out['marked_ms']:.3f} ms ({out['marked_ms'] / out['busy_ms']:.1%}); the dequantized "
+        f"prefix copies {prefix_ms:.4f} ms a layer-step, {prefix_steps_ms:.1f} ms "
+        f"({prefix_steps_ms / out['busy_ms']:.1%} of the device time)")
+    return out
+
+
+def phase_chunked(smi: str, model, cfg, bf16_run) -> dict:
+    """Phase 8 at the 14B shape on phase 4's weights: (a) phase 4's batch
+    with ``prefill_chunk=512``; (b) ``ServeEngine`` at cap 6,144 behind
+    ``ChatTSServer``: 8 of phase 5's requests, then, while they decode, 4
+    requests of 2,400 to 2,900 tokens that no block can take (4 x T >
+    8,192): two scan-sliced rounds; (m) the same two waves with the block
+    budget raised to 4 x 6,144, so that wave 2 is admitted as one block
+    prefill next to the decoding slots, the route the scan-sliced one
+    replaces; (c) the same engine with ``prefill_chunk=1024`` and the 4 long
+    requests on an idle engine.  Each run twice, token-identical; then one
+    mixed round profiled.  Returns each path's launches."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    from chatts_tpu_torch.core.config import GenerationConfig
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
+    from chatts_tpu_torch.runtime.engine import InferenceEngine
+    from chatts_tpu_torch.serve import scheduler
+    from chatts_tpu_torch.serve.scheduler import ServeEngine
+    from chatts_tpu_torch.serve.server import ChatTSServer
+
+    dev = torch.device("cuda", 0)
+    paths, stats = {}, dict(card=smi)
+    layers = cfg.llm.num_hidden_layers
+    with Phase("8a", "chunked prefill at full size: phase 4's batch, prefill_chunk=512"):
+        batch = slice_batch(cfg)
+        mono = InferenceEngine(model, cfg, device=dev, cache_dtype=torch.bfloat16)
+        chunked = InferenceEngine(model, cfg, device=dev, cache_dtype=torch.bfloat16,
+                                  prefill_chunk=512)
+        first = {}
+        for name, engine in (("mono", mono), ("chunked", chunked)):
+            recorder = LogitRecorder(model.llm)
+            try:
+                engine.generate(batch, GenerationConfig(max_new_tokens=1, greedy=True))
+            finally:
+                recorder.remove()
+            first[name] = recorder.calls[0]
+        err = float((first["chunked"] - first["mono"]).abs().max())
+        tol = LOGIT_RTOL_OF_MAX * float(first["mono"].abs().max())
+        if not torch.isfinite(first["chunked"]).all() or err > tol:
+            raise AssertionError(f"chunked first-token logits differ by {err:.4g} > {tol:.4g}")
+        spy = ShapeSpy()
+        spy.region(chunked, "_chunked_prefill", "chunked")
+        greedy = GenerationConfig(max_new_tokens=64, greedy=True)
+        try:
+            reset_launches()
+            g1 = chunked.generate(batch, greedy)
+            g2 = chunked.generate(batch, greedy)
+            paths["chunked_batch"] = read_launches("chunked batch (8a)", (
+                "flash_attention", "ragged_decode_attention", "int4_matmul"))
+        finally:
+            spy.remove()
+        region = spy.regions["chunked"]
+        n_chunks = -(-batch.input_ids.shape[1] // 512)
+        if g1.token_ids != g2.token_ids:
+            raise AssertionError("chunked greedy generation is not deterministic")
+        if [len(t) for t in g1.token_ids] != [64] * len(g1.token_ids):
+            raise AssertionError("expected 64 tokens a row")
+        if (region["int4_matmul_a8"] or region["flash_attention"] != 2 * n_chunks * layers
+                or set(spy.t) != {512}):
+            raise AssertionError(f"chunked prefill launches {region}, attention T {dict(spy.t)}")
+        agree = sum(a == b for a, b in zip(g2.token_ids, bf16_run.token_ids))
+        stats["a"] = dict(ttft_s=[g1.ttft_s, g2.ttft_s], tpot_s=[g1.tpot_s, g2.tpot_s],
+                          mono_ttft_s=bf16_run.ttft_s, first_logit_err=err, tolerance=tol,
+                          chunk_launches=region, attention_t=dict(spy.t), int4_rows=dict(spy.r))
+        log(f"  {n_chunks} chunks of 512 over {batch.input_ids.shape[1]} tokens "
+            f"({batch.seq_lens.tolist()}); first-token logits against the monolithic prefill: "
+            f"max |diff| {err:.4g} (tolerance {tol:.4g}); TTFT {g1.ttft_s * 1e3:.1f}, "
+            f"{g2.ttft_s * 1e3:.1f} ms against phase 4's {bf16_run.ttft_s * 1e3:.1f} ms; TPOT "
+            f"{g2.tpot_s * 1e3:.2f} ms; rows equal to phase 4's tokens: {agree}/{len(batch.seq_lens)}"
+            f" (not gated); inside the chunked prefills: {region}, attention T {dict(spy.t)}, "
+            f"int4 R {dict(spy.r)}")
+        del mono, chunked
+        torch.cuda.empty_cache()
+
+    with Phase("8b", "scan-sliced admission at full size: ServeEngine, cap 6,144, int8 KV, "
+                     "behind ChatTSServer; then (8c) prefill_chunk=1024 on an idle engine"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        tokenizer = WordTokenizer()
+        engine = ServeEngine(model, cfg, ChatTSProcessor(tokenizer, cfg), device=dev,
+                             max_batch_size=24, max_model_len=6144, cache_dtype=torch.int8,
+                             decode_chunk=32, fuse=False, block_early_emit=True,
+                             admission_bucket=8)
+        gate = WaveGate(engine, 8)
+        server = ChatTSServer(engine, tokenizer, host="127.0.0.1", port=0)
+        wave1, wave2 = chat_bodies(8, 64), long_chat_bodies(4, 64)
+        spy = ShapeSpy()
+        spy.region(scheduler, "_mixed_round", "mixed", note=lambda args: args[2:4])
+        runs = {"b": [], "m": [], "c": []}
+        server.start_background()
+        try:
+            if server._httpd is None:
+                raise RuntimeError("the server did not come up")
+            port = server._httpd.server_address[1]
+            with concurrent.futures.ThreadPoolExecutor(12) as pool:
+                reset_launches()
+                for form in ("b", "b", "m", "m", "c", "c"):
+                    start = time.perf_counter()
+                    n_before, log_before = len(gate.all), len(engine.round_snapshot())
+                    futs = []
+                    engine.block_token_budget = 4 * 6144 if form == "m" else 8192
+                    if form != "c":
+                        gate.size = 8
+                        futs = [pool.submit(_post_chat, port, body) for body in wave1]
+                        deadline = time.time() + 600
+                        while (len(gate.all) < n_before + 8
+                               or any(r.first_token_s is None for r in gate.all[n_before:])):
+                            if time.time() > deadline or any(f.done() for f in futs):
+                                raise RuntimeError("wave 1 did not start decoding")
+                            time.sleep(0.005)
+                    else:
+                        engine.prefill_chunk = 1024
+                    # Wave 1 decodes (8b, 8m) or the engine idles (8c): wave 2.
+                    gate.size = 4
+                    futs += [pool.submit(_post_chat, port, body) for body in wave2]
+                    results = [f.result(timeout=600) for f in futs]
+                    runs[form].append((results, gate.all[n_before:], time.perf_counter() - start,
+                                       engine.round_snapshot()[log_before:]))
+                paths["serving_6144"] = read_launches("serving at cap 6,144 (8b, 8m, 8c)", (
+                    "flash_attention", "ragged_decode_attention_int8", "int4_matmul"))
+            engine_stats = engine.stats()
+        finally:
+            server.shutdown()
+            spy.remove()
+        profile = profile_mixed_round(torch, engine)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+        region = spy.regions["mixed"]
+        if engine.mixed_rounds_run < 1 or engine_stats.get("rounds_mixed", 0) != 8:
+            raise AssertionError(f"mixed rounds: {engine.mixed_rounds_run} run, {engine_stats}")
+        if region["int4_matmul_a8"] or not region["ragged_decode_attention_int8"]:
+            raise AssertionError(f"the mixed rounds launched {region}")
+        if set(spy.t) != {64} or 24 + 4 * 64 not in spy.r:
+            raise AssertionError(f"mixed rounds: attention T {dict(spy.t)}, int4 R {dict(spy.r)}")
+        if sorted({tuple(n) for n in spy.notes["mixed"]}) != [(64, 2048), (64, 4096)]:
+            raise AssertionError(f"mixed rounds (npt, kv_limit): {spy.notes['mixed']}")
+        summary = {}
+        for form, form_runs in runs.items():
+            for results, reqs, _, _ in form_runs:
+                if any(r.error for r in reqs):
+                    raise AssertionError(f"engine errors: {[r.error for r in reqs if r.error]}")
+                for res in results:
+                    if (res["finish"] != "length" or res["completion_tokens"] != 64
+                            or len(res["ids"]) != 64):
+                        raise AssertionError(f"a request ended {res['finish']} with "
+                                             f"{res['completion_tokens']} tokens")
+            if [r["ids"] for r in form_runs[0][0]] != [r["ids"] for r in form_runs[1][0]]:
+                raise AssertionError(f"8{form}: the second run gave other tokens")
+            lens = sorted(r.prompt_tokens for r in form_runs[0][1][-4:])
+            if lens[0] < 2400 or lens[-1] > 3000:
+                raise AssertionError(f"wave 2 prompt tokens {lens} outside 2,400..3,000")
+            kinds = {r["kind"] for _, _, _, rounds in form_runs for r in rounds}
+            if form == "m" and ("block_pre" not in kinds or "mixed" in kinds):
+                raise AssertionError(f"8m ran rounds {kinds}, not a block admission")
+            summary[form] = [dict(
+                wave2_ttft_ms=[r.ttft_s * 1e3 for r in reqs[-4:]],
+                wave1_ttft_ms=[r.ttft_s * 1e3 for r in reqs[:-4]], wall_s=wall,
+                rounds=[(r["kind"], round(r["round_s"], 4)) for r in rounds],
+                **wave1_rate(reqs[:-4]))
+                for _, reqs, wall, rounds in form_runs]
+        same = [r["ids"] for r in runs["b"][0][0][-4:]] == [r["ids"] for r in runs["c"][0][0]]
+        same_m = [r["ids"] for r in runs["b"][0][0]] == [r["ids"] for r in runs["m"][0][0]]
+        for form in ("b", "m", "c"):
+            for i, run in enumerate(summary[form]):
+                mixed = ", ".join(f"{t:.3f}" for k, t in run["rounds"] if k == "mixed")
+                wave2 = ", ".join(f"{x:.0f}" for x in run["wave2_ttft_ms"])
+                wave1 = (f"; wave 1 TTFT mean {np.mean(run['wave1_ttft_ms']):.1f} ms, decode "
+                         f"{run['wave1_tok_s']:.1f} tokens/s ({run['wave1_tpot_ms']:.2f} ms "
+                         "a token a request)" if run["wave1_ttft_ms"] else "")
+                log(f"  8{form} run {i + 1}: wave 2 TTFT mean {np.mean(run['wave2_ttft_ms']):.1f} "
+                    f"ms ({wave2}){wave1}; mixed rounds {mixed} s; rounds "
+                    f"{[k for k, _ in run['rounds']]}; wall {run['wall_s']:.2f} s")
+        log(f"  wave 2 prompt tokens {sorted(r.prompt_tokens for r in runs['b'][0][1][-4:])}; "
+            f"mixed rounds (npt, kv_limit) {sorted({tuple(n) for n in spy.notes['mixed']})}; "
+            f"inside them: {region}, attention T {dict(spy.t)}, int4 R {dict(spy.r)}; wave 2's "
+            f"tokens in 8c {'equal' if same else 'not equal'} to 8b's, both waves' in 8m "
+            f"{'equal' if same_m else 'not equal'} to 8b's (not gated); peak memory "
+            f"{peak_gb:.2f} GB; card {smi}")
+        stats.update(b=summary["b"], m=summary["m"], c=summary["c"], mixed_launches=region,
+                     attention_t=dict(spy.t), int4_rows=dict(spy.r), peak_memory_gb=peak_gb,
+                     mixed_round_profile=profile, c_equals_b=same, m_equals_b=same_m)
+        log("  chunked stats: " + json.dumps(stats))
+        del engine, server, gate
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: a checkpoint from disk
 # ---------------------------------------------------------------------------
 
@@ -2007,13 +2521,17 @@ def main() -> int:
     phase_model()
     phase_model_a8()
     phase_serving_model()
-    paths = {}
+    paths = {"mixed_model": phase_mixed_model()}
     paths["batch"], model, cfg, bf16_run = phase_slice(smi)
     paths["serving"] = phase_serving(smi, model, cfg)
     paths["batch_a8"] = phase_slice_a8(smi, model, cfg, bf16_run)
     paths["serving_a8"] = phase_serving(smi, model, cfg, act_int8=True)
     # The engines of phases 5 and 6b hold the model in reference cycles
-    # (WaveGate): collect them before phase 7 loads another model.
+    # (WaveGate): collect them before phase 8 makes its own, and phase 8's
+    # before phase 7 loads another model.  Phase 8 needs phase 4's weights.
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(phase_chunked(smi, model, cfg, bf16_run))
     del model
     gc.collect()
     torch.cuda.empty_cache()

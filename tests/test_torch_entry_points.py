@@ -210,7 +210,27 @@ def test_torch_serve_openai_build_answers_over_http(ckpt_with_tokenizer, monkeyp
         server.shutdown()
 
 
-def test_torch_serve_openai_refuses_prefill_chunk():
-    args = serve_openai.parse_args(["--device", "cpu", "--no-warmup", "--prefill-chunk", "256"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve_openai.build(args)
+def test_torch_serve_openai_takes_prefill_chunk(ckpt_with_tokenizer, monkeypatch):
+    """``--prefill-chunk 64`` builds a server whose engine has it, and a chat
+    request above 64 prompt tokens is admitted by the scan-sliced round."""
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    args = serve_openai.parse_args([
+        "--model", ckpt_with_tokenizer, "--device", "cpu", "--no-warmup", "--host",
+        "127.0.0.1", "--port", "0", "--max-batch-size", "2", "--max-model-len", "512",
+        "--decode-chunk", "4", "--prefill-chunk", "64"])
+    engine, server = serve_openai.build(args)
+    assert engine.prefill_chunk == 64
+    server.start_background()
+    try:
+        body = {"model": "chatts", "max_tokens": 3, "temperature": 0.0,
+                "messages": [{"role": "user", "content": [
+                    {"type": "text", "text": "Please analyze"},
+                    {"type": "timeseries", "timeseries": list(np.sin(np.arange(160) / 3.0))},
+                    {"type": "text", "text": "the local changes " * 30}]}]}
+        data = _post(server._httpd.server_address[1], body)
+        assert data["choices"][0]["finish_reason"] in ("length", "stop")
+        assert 1 <= data["usage"]["completion_tokens"] <= 3
+        assert data["usage"]["prompt_tokens"] > 64
+        assert engine.stats()["rounds_mixed"] >= 1
+    finally:
+        server.shutdown()

@@ -31,7 +31,6 @@ from chatts_tpu_torch.processor.processor import ChatTSProcessor
 from chatts_tpu_torch.runtime.sampling import TOP_K_CAP, sample_per_slot
 from chatts_tpu_torch.serve import scheduler
 from chatts_tpu_torch.serve.scheduler import (
-    MIXED_NOT_PORTED,
     Request,
     SamplingParams,
     ServeEngine,
@@ -220,21 +219,23 @@ def test_torch_serve_rejects_over_long_alone(setup):
     assert good.error is None and len(good.output_tokens) == 4
 
 
-def test_torch_serve_refuses_unported_paths(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_engine(setup, prefill_chunk=64)
-    # A live-slot admission that is not block-eligible would take the
-    # scan-sliced mixed path: its requests fail, the live slot goes on.
+def test_torch_serve_takes_the_formerly_refused_paths(setup, alone):
+    """``prefill_chunk`` is accepted, and a live-slot admission that is not
+    block-eligible takes the scan-sliced mixed path and finishes with the
+    tokens the request gets alone; the live slot goes on undisturbed."""
+    assert make_engine(setup, prefill_chunk=64).prefill_chunk == 64
     with make_engine(setup) as eng:
         runner = eng.submit(_req(RUNNER))
         wait_first_token(runner)
         eng.block_token_budget = 0
         late = eng.submit(_req(WAVE[0]))
         wait([late])
-        assert late.error == MIXED_NOT_PORTED
         eng.block_token_budget = 8192
         wait([runner])
-    assert runner.error is None and len(runner.output_tokens) == RUNNER[2]
+        stats = eng.stats()
+    assert late.error is None and late.output_tokens == alone[WAVE[0][0]]
+    assert runner.error is None and runner.output_tokens == alone[RUNNER[0]]
+    assert stats["rounds_mixed"] >= 1 and eng.mixed_rounds_run >= 1
 
 
 def test_torch_serve_survives_a_bad_step(setup, monkeypatch):

@@ -99,3 +99,52 @@ def test_torch_serve_decode_graph_matches_eager_rounds(tiny_int4, monkeypatch, t
         graphs[form] = type(eng._decode_graph).__name__
     assert graphs == {"graph": "_DecodeStepGraph", "eager": "EagerRounds"}
     assert len(tokens["graph"]) == 14 and tokens["graph"] == tokens["eager"]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_torch_serve_graph_replays_after_a_mixed_admission(tiny_int4, monkeypatch, temperature):
+    """A scan-sliced admission runs eagerly and updates the decode state in
+    place, so the decode graph captured before it replays the state after
+    it: one pure decode round (the capture), then a late request admitted by
+    mixed rounds next to the runner, then pure rounds to the end; the tokens
+    of both requests equal those of the same schedule with every decode
+    round eager.  Driven on the test thread, so the two schedules are one."""
+    cfg, model, proc = tiny_int4
+
+    class EagerRounds:
+        def __init__(self, *args):
+            self.args = args
+
+        def round(self):
+            return scheduler._decode_all_slots(*self.args)
+
+    def request(prompt, n):
+        return scheduler.Request(prompt, [np.sin(np.arange(40.0))],
+                                 SamplingParams(max_tokens=n, temperature=temperature))
+
+    monkeypatch.setattr(scheduler, "MIXED_NPT", 16)
+    tokens, graphs = {}, {}
+    for form in ("graph", "eager"):
+        if form == "eager":
+            monkeypatch.setattr(scheduler, "_DecodeStepGraph", EagerRounds)
+        eng = ServeEngine(model, cfg, proc, max_batch_size=2, max_model_len=256,
+                          cache_dtype=torch.int8, decode_chunk=4, seed=3)
+        eng.block_token_budget = 0
+        runner = request("runner <ts><ts/> keeps decoding the series", 20)
+        late = request("late " * 40 + "<ts><ts/> joins while it decodes", 10)
+        with torch.inference_mode():
+            eng.submit(runner)
+            eng._admit()
+            eng._complete_round(eng._dispatch_round())  # a pure decode round
+            eng.submit(late)
+            eng._admit()
+            assert eng._pending_mixed["mode"] == "mixed"
+            while eng._pending_mixed is not None or eng.live_host.any():
+                eng._complete_round(eng._dispatch_round())
+        assert runner.error is None and late.error is None
+        assert eng.mixed_rounds_run >= 2
+        tokens[form] = (runner.output_tokens, late.output_tokens)
+        graphs[form] = type(eng._decode_graph).__name__
+    assert graphs == {"graph": "_DecodeStepGraph", "eager": "EagerRounds"}
+    assert [len(t) for t in tokens["graph"]] == [20, 10]
+    assert tokens["graph"] == tokens["eager"]
