@@ -146,6 +146,20 @@ def check_launch(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def refuse_gradients(what: str, *tensors) -> None:
+    """Raise when autograd would record a call of kernel ``what``: the
+    kernels fill outputs through ``ctypes`` and have no backward, so their
+    outputs would carry no gradient and everything before them would
+    silently get none. Checked before the device dispatch, so the plain
+    version on the CPU refuses too. Training takes the plain attention
+    (``attn_impl="xla"``) and float projections instead."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no backward; call it under "
+                           "torch.no_grad() or with inputs that need no gradient")
+
+
 def load(name: str, signatures: Dict[str, Signature]) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, built first if stale, with
     ``restype``/``argtypes`` set from ``signatures``."""

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from chatts_tpu_torch.core.config import ChatTSConfig
+from chatts_tpu_torch.models import qwen
 from chatts_tpu_torch.models.qwen import QwenModel, embed_tokens, fuse_projections
 from chatts_tpu_torch.models.ts_encoder import TSEncoder
 
@@ -80,17 +81,31 @@ class ChatTSModel(nn.Module):
         kv_positions=None,
         kv_lengths=None,
         act_int8: bool = False,
+        attn_impl: str = "auto",
+        remat: bool = False,
     ):
-        """Merge-embed -> decoder.  Returns (hidden (B, T, H), caches)."""
+        """Merge-embed -> decoder.  Returns (hidden (B, T, H), caches).
+        ``attn_impl`` and ``remat``: see ``QwenModel.forward``."""
         embeds = self.input_embeddings(input_ids, ts_values, ts_mask, scatter_seq, scatter_tok)
         return self.llm(
             embeds, positions, kv_caches=kv_caches, write_pos=write_pos,
             kv_valid=kv_valid, kv_positions=kv_positions, kv_lengths=kv_lengths,
-            act_int8=act_int8,
+            act_int8=act_int8, attn_impl=attn_impl, remat=remat,
         )
 
     def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return self.llm.compute_logits(hidden)
+
+
+def init_params(cfg: ChatTSConfig, generator: torch.Generator, device="cuda",
+                dtype=None) -> ChatTSModel:
+    """A random float ChatTS model, unfused: the port of
+    ``chatts_tpu.models.chatts.init_params`` (the encoder in f32 from
+    ``TSEncoder.reset_parameters``, then ``qwen.init_params``), drawn from
+    ``generator`` on its own device and placed on ``device``."""
+    encoder = TSEncoder(cfg.ts, device=generator.device).reset_parameters(generator)
+    llm = qwen.init_params(cfg.llm, generator, device, dtype)
+    return ChatTSModel(cfg, encoder.to(device), llm)
 
 
 def maybe_fuse(model: ChatTSModel) -> ChatTSModel:

@@ -38,19 +38,29 @@ input rows to int8: int4 weights then take ``int4_matmul_a8`` and int8
 weights an int8 x int8 -> int32 product; float weights ignore it.
 
 ``load_torch_state_dict`` builds the decoder from an HF state dict
-(``models/weights.py`` loads checkpoint directories).
+(``models/weights.py`` loads checkpoint directories); ``init_params`` a
+random float one.
+
+Training (``chatts_tpu_torch/train/``) runs the uncached forward under
+autograd with ``attn_impl="xla"`` (the plain attention: the kernels have no
+backward and refuse gradients), optionally ``remat`` (each layer under
+``torch.utils.checkpoint``), and a float ``Dense`` folds in a LoRA adapter
+attached to it (``Dense.lora``).
 
 Recent-KV decode is TPU-only machinery and is not ported.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from chatts_tpu_torch.core.config import QwenConfig
 from chatts_tpu_torch.ops.attention import attention
@@ -113,17 +123,57 @@ def quantize_acts(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 quantize_kv = quantize_acts
 
 
+class _MatmulF32(torch.autograd.Function):
+    """(R, K) @ (K, N) of one 16-bit type to the f32 product, with the
+    backward of JAX's transpose rule for ``dot(x, w,
+    preferred_element_type=f32)``: the f32 cotangent times the other
+    operand, each gradient rounded to its operand's type (``dx`` in x's,
+    ``dw`` in w's).  The cotangent enters the products in the operands' type,
+    as the TPU's default precision rounds an f32 operand to bf16; the
+    products themselves are f32-output cuBLAS GEMMs."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(w.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g, w.t(), out_dtype=torch.float32).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x2.t(), g, out_dtype=torch.float32).to(w.dtype)
+        return dx, dw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., K) @ w (K, N) as the f32 product, not rounded to the operands'
     type: ``jnp.dot(x, w, preferred_element_type=float32)``.  On the card a
     bf16 or f16 pair takes cuBLAS's f32-output GEMM (``torch.mm`` with
-    ``out_dtype``, which that PyTorch registers only for CUDA); anything else
-    multiplies the operands cast to f32."""
+    ``out_dtype``, which that PyTorch registers only for CUDA), through
+    ``_MatmulF32`` when autograd records it; anything else multiplies the
+    operands cast to f32."""
     if x.device.type == "cuda" and x.dtype == w.dtype and x.dtype in (
             torch.bfloat16, torch.float16):
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            out = _MatmulF32.apply(x2, w)
+        else:
+            out = torch.mm(x2, w, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
+
+
+def lora_kernel(kernel: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                scale: float) -> torch.Tensor:
+    """A float kernel (in, out) with a LoRA adapter folded in, as
+    ``chatts_tpu/train/lora.py::apply_lora`` folds it: ``(W.float() +
+    (a.float() @ b.float()) * scale).to(W.dtype)``, a (in, r), b (r, out)."""
+    delta = (a.float() @ b.float()) * scale
+    return (kernel.float() + delta).to(kernel.dtype)
 
 
 def _int8_matmul(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -157,7 +207,11 @@ class Dense(nn.Module):
     Results are rounded as the reference rounds them: float and int8
     products are f32 (``matmul_f32``); the int4 kernels return x's type, which
     is then cast to f32; the bias is added in f32 and the sum cast to x's
-    type.  ``act_int8`` quantizes the rows of x first (``quantize_acts``)."""
+    type.  ``act_int8`` quantizes the rows of x first (``quantize_acts``).
+
+    ``lora``, None or (a, b, scale) set by ``train/lora.py::applied_lora``
+    on a float ``Dense``, folds the adapter into the kernel on every call
+    (``lora_kernel``)."""
 
     def __init__(self, kernel: Optional[torch.Tensor] = None, *,
                  kernel_q4: Optional[torch.Tensor] = None,
@@ -181,6 +235,7 @@ class Dense(nn.Module):
             kernel_q = kernel_q.t().contiguous().t()
         self.kernel = _frozen(kernel)
         self.bias = _frozen(bias)
+        self.lora: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None
         for name, t in (("kernel_q4", kernel_q4), ("scales4", scales4),
                         ("zeros4", zeros4), ("perm4", perm4),
                         ("kernel_q", kernel_q), ("scales", scales)):
@@ -227,6 +282,8 @@ class Dense(nn.Module):
                 out = out.reshape(*lead, out.shape[-1])
             else:
                 out = matmul_f32(x, self.kernel_q.to(x.dtype)) * self.scales
+        elif self.lora is not None:
+            out = matmul_f32(x, lora_kernel(self.kernel, *self.lora))
         else:
             out = matmul_f32(x, self.kernel)
         if self.bias is not None:
@@ -292,7 +349,10 @@ class Attention(nn.Module):
         kv_lengths: Optional[torch.Tensor],  # (B,) int32 for a decode step
         act_int8: bool = False,
         kv_limit: Optional[int] = None,
+        attn_impl: str = "auto",
     ) -> Tuple[torch.Tensor, Optional[LayerCache]]:
+        """``attn_impl`` picks the prefill attention of the T block
+        (``ops/attention.py::attention``): "auto" or "xla"."""
         cfg = self.cfg
         b, t, _ = x.shape
         h, d = cfg.num_attention_heads, cfg.head_dim
@@ -331,7 +391,7 @@ class Attention(nn.Module):
                 kv_positions = kv_positions[:, :t].contiguous()
             out = attention(
                 q, k, v, q_positions=positions, kv_positions=kv_positions,
-                kv_valid=kv_valid, scale=scale,
+                kv_valid=kv_valid, scale=scale, impl=attn_impl,
             )
         return self.o_proj(out.reshape(b, t, h * d), act_int8), kv_cache
 
@@ -454,11 +514,12 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, positions, rope, kv_cache, write_pos, kv_valid,
                 kv_positions, kv_lengths, act_int8: bool = False,
-                kv_limit: Optional[int] = None):
+                kv_limit: Optional[int] = None, attn_impl: str = "auto"):
         eps = self.cfg.rms_norm_eps
         attn_out, kv_cache = self.self_attn(
             rms_norm(x, self.input_layernorm, eps), positions, rope,
             kv_cache, write_pos, kv_valid, kv_positions, kv_lengths, act_int8, kv_limit,
+            attn_impl,
         )
         x = x + attn_out
         x = x + self.mlp(rms_norm(x, self.post_attention_layernorm, eps), act_int8)
@@ -469,6 +530,12 @@ class DecoderLayer(nn.Module):
         x = x + self.self_attn.forward_mixed(rms_norm(x, self.input_layernorm, eps), rope,
                                              kv_cache, step)
         return x + self.mlp(rms_norm(x, self.post_attention_layernorm, eps))
+
+
+def _recompute_contexts():
+    """``checkpoint``'s (forward, recompute) contexts: the recompute marked
+    for ``torch.profiler``."""
+    return contextlib.nullcontext(), torch.profiler.record_function("recompute")
 
 
 @dataclasses.dataclass
@@ -522,6 +589,8 @@ class QwenModel(nn.Module):
         kv_lengths: Optional[torch.Tensor] = None,
         act_int8: bool = False,
         kv_limit: Optional[int] = None,
+        attn_impl: str = "auto",
+        remat: bool = False,
     ) -> Tuple[torch.Tensor, Optional[List[LayerCache]]]:
         """Run the decoder stack; returns (hidden (B, T, hidden), caches).
 
@@ -533,7 +602,15 @@ class QwenModel(nn.Module):
         step (T = 1); without, a prefill chunk attending the cache prefix
         ``[:kv_limit]`` (all of it when None) under kv_valid / kv_positions
         (B, S).  Caches are updated in place.  ``act_int8`` quantizes every
-        projection's input rows (prefill)."""
+        projection's input rows (prefill).
+
+        ``attn_impl`` ("auto" or "xla") picks the T block's attention (see
+        ``Attention.forward``).  ``remat`` (no caches) runs each layer under
+        ``torch.utils.checkpoint``: autograd keeps a layer's input only and
+        recomputes the layer in the backward, marked "recompute" for
+        ``torch.profiler``."""
+        if remat and kv_caches is not None:
+            raise ValueError("remat is for the uncached forward")
         b, t, _ = inputs_embeds.shape
         positions = positions.to(torch.int32)
         if kv_caches is not None and write_pos is not None and kv_lengths is not None:
@@ -555,8 +632,13 @@ class QwenModel(nn.Module):
         x = inputs_embeds
         for i, layer in enumerate(self.layers):
             cache = kv_caches[i] if kv_caches is not None else None
-            x, _ = layer(x, positions, rope, cache, write_pos, kv_valid,
-                         kv_positions, kv_lengths, act_int8, kv_limit)
+            args = (x, positions, rope, cache, write_pos, kv_valid, kv_positions,
+                    kv_lengths, act_int8, kv_limit, attn_impl)
+            if remat:
+                x, _ = checkpoint(layer, *args, use_reentrant=False,
+                                  context_fn=_recompute_contexts, preserve_rng_state=False)
+            else:
+                x, _ = layer(*args)
         return rms_norm(x, self.norm, self.cfg.rms_norm_eps), kv_caches
 
     def forward_mixed(
@@ -636,6 +718,49 @@ def fuse_projections(model: QwenModel) -> QwenModel:
                 torch.cat([mlp.gate_proj.kernel, mlp.up_proj.kernel], dim=1))
             mlp.gate_proj = mlp.up_proj = None
     return model
+
+
+@torch.no_grad()
+def init_params(cfg: QwenConfig, generator: torch.Generator, device="cuda",
+                dtype=None) -> QwenModel:
+    """A random float decoder, unfused: the port of
+    ``chatts_tpu.models.qwen.init_params``, with its distributions and its
+    order of draws (kernels normal / sqrt(fan_in), biases 0, norms 1,
+    embeddings normal * 0.02, a separate head normal / sqrt(hidden)), drawn
+    in f32 from ``generator`` on the generator's device, then cast to
+    ``dtype`` (the config's by default) on ``device``."""
+    if dtype is None:
+        dtype = getattr(torch, cfg.dtype)
+    h, kvh, d, hid = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, cfg.hidden_size
+
+    def normal(shape, std: float) -> torch.Tensor:
+        t = torch.randn(shape, generator=generator, device=generator.device) * std
+        return t.to(device=device, dtype=dtype)
+
+    def fill(n: int, value: float) -> torch.Tensor:
+        return torch.full((n,), value, dtype=dtype, device=device)
+
+    def dense(fan_in: int, fan_out: int, bias: bool) -> Dense:
+        return Dense(normal((fan_in, fan_out), 1 / math.sqrt(fan_in)),
+                     bias=fill(fan_out, 0.0) if bias else None)
+
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        q = dense(hid, h * d, cfg.attention_bias)
+        k = dense(hid, kvh * d, cfg.attention_bias)
+        v = dense(hid, kvh * d, cfg.attention_bias)
+        o = dense(h * d, hid, False)
+        gate = dense(hid, cfg.intermediate_size, False)
+        up = dense(hid, cfg.intermediate_size, False)
+        down = dense(cfg.intermediate_size, hid, False)
+        norms = {"q_norm": fill(d, 1.0), "k_norm": fill(d, 1.0)} if cfg.qk_norm else {}
+        layers.append(DecoderLayer(
+            cfg, Attention(cfg, o, q_proj=q, k_proj=k, v_proj=v, **norms),
+            MLP(down, gate_proj=gate, up_proj=up), fill(hid, 1.0), fill(hid, 1.0)))
+    embed = normal((cfg.vocab_size, hid), 0.02)
+    lm_head = None if cfg.tie_word_embeddings else normal((hid, cfg.vocab_size),
+                                                          1 / math.sqrt(hid))
+    return QwenModel(cfg, embed, layers, fill(hid, 1.0), lm_head=lm_head)
 
 
 # ---------------------------------------------------------------------------

@@ -54,19 +54,27 @@ def attention(
     kv_positions: torch.Tensor,
     kv_valid: torch.Tensor,
     scale: Optional[float] = None,
+    impl: str = "auto",
 ) -> torch.Tensor:
-    """Prefill attention: the flash kernel for CUDA tensors, the plain version
-    for CPU tensors (see ``flash_attention.flash_attention``).
+    """Prefill attention.  ``impl="auto"``: the flash kernel for CUDA
+    tensors, the plain version for CPU tensors (see
+    ``flash_attention.flash_attention``); ``impl="xla"``: ``mha_reference``
+    on any device, the JAX package's name for its plain path.
 
-    Unlike the JAX dispatch, there is no length threshold: the v5e's
+    Unlike the JAX dispatch, "auto" has no length threshold: the v5e's
     crossover (T >= 512) does not carry over to the H100, so every CUDA call
-    takes the kernel until the crossover is measured on the card."""
+    takes the kernel until the crossover is measured on the card.
+
+    Training passes "xla": autograd differentiates the plain version, and
+    the kernel has no backward (its wrapper refuses gradients).  JAX's
+    "auto" takes its kernel only on a TPU, and JAX cannot differentiate it
+    there either, so its training losses pass "xla" too."""
+    kwargs = dict(q_positions=q_positions, kv_positions=kv_positions,
+                  kv_valid=kv_valid, scale=scale)
+    if impl == "xla":
+        return mha_reference(q, k, v, **kwargs)
+    if impl != "auto":
+        raise ValueError(f"attention impl must be 'auto' or 'xla', got {impl!r}")
     from chatts_tpu_torch.ops.flash_attention import flash_attention
 
-    return flash_attention(
-        q, k, v,
-        q_positions=q_positions,
-        kv_positions=kv_positions,
-        kv_valid=kv_valid,
-        scale=scale,
-    )
+    return flash_attention(q, k, v, **kwargs)

@@ -131,6 +131,7 @@ def flash_attention_tiled_reference(
 
 
 def _check(q, k, v, q_positions, kv_positions, kv_valid) -> None:
+    build.refuse_gradients("flash_attention", q, k, v)
     b, t, h, d = q.shape
     _, s, kvh, _ = k.shape
     tensors = (q, k, v, q_positions, kv_positions, kv_valid)
@@ -207,6 +208,7 @@ def flash_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Returns (B, T, H, D) in q's type."""
+    build.refuse_gradients("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(
             q, k, v, q_positions=q_positions, kv_positions=kv_positions,

@@ -152,6 +152,7 @@ def int4_matmul_grouped_reference(
 
 def _check(x, packed, scales, what: str = "int4_matmul",
            x_dtype=torch.bfloat16) -> None:
+    build.refuse_gradients(what, x, scales)
     if x.dim() != 2 or packed.dim() != 2 or scales.dim() != 2:
         raise ValueError(f"{what}: x, packed and scales must be 2-D")
     r, in_dim = x.shape
@@ -218,6 +219,7 @@ def int4_matmul(
     scales: torch.Tensor,  # (IN//G, OUT) float32
 ) -> torch.Tensor:
     """y = x @ dequantize(packed, scales) -> (R, OUT) in x's type."""
+    build.refuse_gradients("int4_matmul", x, scales)
     if x.device.type == "cpu":
         return int4_matmul_reference(x, packed, scales)
     return int4_matmul_on_path(x, packed, scales, int4_path(x.shape[0]))
@@ -284,6 +286,7 @@ def int4_matmul_a8(
 ) -> torch.Tensor:
     """y = diag(x_scale) @ (x_q @ dequantize(packed, scales)) -> (R, OUT) in
     ``out_dtype``; the kernel gives bf16."""
+    build.refuse_gradients("int4_matmul_a8", x_scale, scales)
     if x_q.device.type == "cpu":
         return int4_matmul_a8_reference(x_q, x_scale, packed, scales, out_dtype)
     return int4_matmul_a8_on_width(x_q, x_scale, packed, scales,

@@ -162,6 +162,7 @@ def ragged_decode_attention_split_reference(
 
 def _check(q, k_cache, v_cache, lengths, scales=(), *,
            what="ragged_decode_attention", cache_dtype=torch.bfloat16) -> None:
+    build.refuse_gradients(what, q, k_cache, v_cache, *scales)
     b, h, d = q.shape
     tensors = (q, k_cache, v_cache, lengths, *scales)
     if any(x.device != q.device for x in tensors):
@@ -251,6 +252,7 @@ def ragged_decode_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Returns (B, H, D) in q's type."""
+    build.refuse_gradients("ragged_decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return ragged_decode_attention_reference(q, k_cache, v_cache, lengths, scale=scale)
     _, kvh, s, _ = k_cache.shape
@@ -357,6 +359,7 @@ def ragged_decode_attention_int8(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Returns (B, H, D) in q's type."""
+    build.refuse_gradients("ragged_decode_attention_int8", q, k_scale, v_scale)
     if q.device.type == "cpu":
         return ragged_decode_attention_int8_reference(
             q, k_cache, v_cache, k_scale, v_scale, lengths, scale=scale)

@@ -82,7 +82,19 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      ``prefill_chunk=1024`` and the 4 long requests on an idle engine; each
      twice, token-identical, with the kernels' launches and shapes inside
      the chunked and mixed regions; then one mixed round under
-     ``torch.profiler``.
+     ``torch.profiler``;
+  9. (after phase 7, every earlier model freed) training: (a) the 14B
+     widths at 2 layers, bf16 float weights from ``init_params``, 2 SFT rows
+     of 234 tokens: the LoRA loss and every adapter gradient (b nonzero,
+     remat) held to the CPU's f32 plain path on the same weights, the merged
+     export loaded back bit-equal to ``merge_lora``, one full-parameter
+     AdamW step moving every tensor; (b) ``train_lora_sft`` on the 48-layer
+     ChatTS-14B shape (bf16, rank 8, remat, batch 2 x 1,024 tokens, two
+     256-point series a row), 4 steps twice from one seed, the same losses,
+     every b with a gradient at step 1 and every a at step 2; step time,
+     tokens/s, peak memory, and one step under ``torch.profiler`` by part
+     (projections, plain attention, LoRA merge, recompute, loss, each with
+     its backward).  No kernel launches on the training path.
 
 It prints a JSON line of per-kernel results (the kernel's, the plain
 version's and the library call's device times, the bound and what sets it),
@@ -171,6 +183,7 @@ INT4_UNFUSED_ROWS = (1, 24, 4096, 5120)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_S = 989e12
 PEAK_INT8_S = 1979e12
+PEAK_F32_S = 67e12  # outside the tensor cores
 
 SEED = 0
 
@@ -2497,6 +2510,426 @@ def phase_disk(smi: str, fused_run, fused_launches: dict) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: LoRA SFT and full-parameter training on the card
+# ---------------------------------------------------------------------------
+
+# 9a holds the card's bf16 LoRA loss and adapter gradients to the CPU's f32
+# plain path on the same weights: the loss within 1% relative, each gradient
+# tensor within 5% relative L2 error.  bf16 rounds the activations, the
+# merged kernels and the cotangents entering the backward products to 8 bits
+# of mantissa (2**-9 relative each); through two layers at 14B widths and the
+# 152,064-word head the loss keeps about 3 digits and a gradient tensor's L2
+# error stays a few bf16 roundings of its elements.  The measured numbers
+# are printed beside these bounds.
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_RL2 = 5e-2
+# 9b runs the same seed twice; both runs launch the same kernels in the same
+# order on the same inputs (cuBLAS picks the same algorithms, no atomics on
+# the LoRA path), so the losses are expected equal.  Allow 1e-6 relative.
+TRAIN_REPEAT_RTOL = 1e-6
+TRAIN_STEPS = 4
+
+
+def sft_rows(count: int, series_len: int, n_series: int, n_words: int, n_answer: int,
+             seed: int) -> list:
+    """SFT rows {input, output, timeseries}: a prompt of filler words with
+    ``n_series`` holes, random-walk series, an answer of ``n_answer`` words
+    (one token each with ``WordTokenizer``, EOS added)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(count):
+        holes = " ".join(f"series {j}: <ts><ts/>" for j in range(n_series))
+        words = " ".join(f"w{int(i)}" for i in rng.integers(0, 10 ** 6, n_words))
+        answer = " ".join(f"a{int(i)}" for i in rng.integers(0, 10 ** 6, n_answer))
+        rows.append({"input": f"Please analyze {holes} and then answer. {words}",
+                     "output": answer,
+                     "timeseries": [rng.normal(0.0, 10.0, series_len).cumsum().tolist()
+                                    for _ in range(n_series)]})
+    return rows
+
+
+def _nonzero_b(torch, adapters, seed: int) -> None:
+    """Every adapter b drawn normal * 0.02 (on the CPU, so the same values
+    land on both sides), so that every adapter gets a gradient."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for layer in adapters["layers"]:
+            for ab in layer.values():
+                ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen) * 0.02)
+
+
+def phase_train_2_layers(smi: str) -> dict:
+    """9a: the 14B widths at 2 layers, bf16 weights from ``init_params``."""
+    import tempfile
+
+    import torch
+
+    from chatts_tpu_torch.models import chatts, weights
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
+    from chatts_tpu_torch.train import data, lora, sft_driver, train_step
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    cfg = chatts_14b_config(num_layers=2)
+    model = chatts.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                               torch.bfloat16)
+    batch_np = data.build_sft_batch(ChatTSProcessor(WordTokenizer(), cfg),
+                                    sft_rows(2, 64, 1, 150, 60, SEED + 9))
+    log(f"  9a: {_model_gb(model):.2f} GB of bf16 weights; batch {batch_np['input_ids'].shape}, "
+        f"{batch_np['attention_mask'].sum(1).tolist()} tokens, "
+        f"{batch_np['loss_mask'].sum(1).tolist()} answer tokens")
+    lcfg = lora.LoRAConfig()
+    adapters = lora.init_lora(model, lcfg, torch.Generator().manual_seed(SEED))
+    _nonzero_b(torch, adapters, SEED + 1)
+    loss, _ = sft_driver.lora_loss_fn(adapters, model, lcfg, data.to_device(batch_np, dev),
+                                      remat=True)
+    torch.cuda.synchronize()
+
+    # The CPU's f32 plain path on the same weights: the same draws on the
+    # card's generator, cast to bf16 and placed on the CPU, then f32.
+    start = time.perf_counter()
+    cpu = chatts.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), "cpu",
+                             torch.bfloat16).float()
+    cpu_adapters = {"layers": [{m: {k: t.detach().cpu().requires_grad_() for k, t in ab.items()}
+                                for m, ab in layer.items()} for layer in adapters["layers"]]}
+    ref, _ = sft_driver.lora_loss_fn(cpu_adapters, cpu, lcfg, data.to_device(batch_np, "cpu"),
+                                     remat=False)
+    cpu_s = time.perf_counter() - start
+    del cpu
+    loss_err = abs(float(loss) - float(ref)) / abs(float(ref))
+    errs = {}
+    for i, (layer, cpu_layer) in enumerate(zip(adapters["layers"], cpu_adapters["layers"])):
+        for module, ab in layer.items():
+            for k in ("a", "b"):
+                got, want = ab[k].grad.float().cpu(), cpu_layer[module][k].grad
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"9a: non-finite gradient {i}.{module}.{k}")
+                errs[f"{i}.{module}.{k}"] = float((got - want).norm() / want.norm())
+    worst = max(errs, key=errs.get)
+    log(f"  9a LoRA (rank {lcfg.rank}, {lora.lora_param_count(adapters):,} adapter parameters, "
+        f"remat) on the card against the CPU's f32 plain path ({cpu_s:.1f} s): loss "
+        f"{float(loss):.6f} against {float(ref):.6f}, relative error {loss_err:.3g} (tolerance "
+        f"{TRAIN_LOSS_RTOL}); adapter gradients' relative L2 error median "
+        f"{sorted(errs.values())[len(errs) // 2]:.3g}, largest {errs[worst]:.3g} ({worst}; "
+        f"tolerance {TRAIN_GRAD_RL2})")
+    if loss_err > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"9a: the loss differs by {loss_err:.3g} relative")
+    if errs[worst] > TRAIN_GRAD_RL2:
+        raise AssertionError(f"9a: {worst}'s gradient differs by {errs[worst]:.3g} (rel L2)")
+    out.update(loss=float(loss), loss_rel_err=loss_err, grad_rel_l2_max=errs[worst],
+               grad_rel_l2_median=sorted(errs.values())[len(errs) // 2])
+
+    # The merged export, loaded back by the port's loader: bit-equal kernels.
+    with tempfile.TemporaryDirectory(prefix="chatts_phase9_") as tmp:
+        start = time.perf_counter()
+        sft_driver.export_merged(model, adapters, cfg, lcfg, tmp)
+        _, loaded = weights.load_checkpoint(tmp, dtype=torch.bfloat16, device=dev)
+        merged = lora.merge_lora(model, adapters, lcfg)
+        got = dict(loaded.named_parameters())
+        differ = [n for n, p in merged.named_parameters() if not torch.equal(got[n], p)]
+        changed = sum(not torch.equal(p, q) for p, q in zip(
+            merged.parameters(), model.parameters()))
+        log(f"  9a export_merged -> load_checkpoint ({time.perf_counter() - start:.1f} s): "
+            f"{len(got)} tensors, {len(differ)} differ from merge_lora's; merge_lora changed "
+            f"{changed} kernels and left the base as it was")
+        if differ:
+            raise AssertionError(f"9a: the loaded merge differs at {differ[:4]}")
+        if changed != 2 * len(lcfg.target_modules):
+            raise AssertionError(f"9a: merge_lora changed {changed} tensors")
+        del loaded, merged
+
+    # One full-parameter step: lr 1e-2 so that Adam's step of about lr moves
+    # even a bf16 norm weight of 1.0 (half its ulp is 2**-9).
+    before = [p.detach().clone() for p in model.parameters()]
+    step, _ = train_step.make_train_step(model, train_step.TrainConfig(learning_rate=1e-2))
+    metrics = step(data.to_device(batch_np, dev))
+    torch.cuda.synchronize()
+    moved = [not torch.equal(p, q) for p, q in zip(model.parameters(), before)]
+    log(f"  9a full-parameter train_step (remat, AdamW): loss {float(metrics['loss']):.6f}, "
+        f"gradient norm {float(metrics['grad_norm']):.4g}, {sum(moved)}/{len(moved)} tensors "
+        f"changed; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not torch.isfinite(metrics["loss"]) or not all(moved):
+        raise AssertionError("9a: the full-parameter step left a tensor unchanged or its "
+                             "loss is not finite")
+    out.update(full_step_loss=float(metrics["loss"]), tensors_changed=sum(moved))
+    del model, before, step, adapters
+    return out
+
+
+class TrainSpy:
+    """Wraps ``sft_driver.apply_update`` while active: after each step's
+    backward, records which adapter tensors have a nonzero gradient and the
+    host time when the step's update is done (synchronised)."""
+
+    def __init__(self):
+        from chatts_tpu_torch.train import sft_driver
+
+        self.module, self.steps = sft_driver, []
+
+    def __enter__(self):
+        import torch
+
+        inner = self.orig = self.module.apply_update
+
+        def spy(optimizer, tc):
+            params = [p for g in optimizer.param_groups for p in g["params"]]
+            nonzero = [bool(p.grad.any()) for p in params]
+            g_norm = inner(optimizer, tc)
+            torch.cuda.synchronize()
+            self.steps.append(dict(t=time.perf_counter(), nonzero=nonzero))
+            return g_norm
+
+        self.module.apply_update = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.apply_update = self.orig
+        return False
+
+
+class TrainLabels:
+    """Marks, while active, the training step's parts for ``torch.profiler``
+    with ``record_function``: each ``Dense`` call ("projection"), the LoRA
+    fold inside it ("lora_merge"), the plain attention ("attention"), the
+    head and the cross-entropy ("loss") and the optimizer ("optimizer").
+    The model marks each layer's recompute ("recompute") itself."""
+
+    def __init__(self):
+        from chatts_tpu_torch.models import chatts, qwen
+        from chatts_tpu_torch.ops import attention
+        from chatts_tpu_torch.train import sft_driver, train_step
+
+        self.targets = [(qwen.Dense, "forward", "projection"),
+                        (qwen, "lora_kernel", "lora_merge"),
+                        (attention, "mha_reference", "attention"),
+                        (chatts.ChatTSModel, "compute_logits", "loss"),
+                        (train_step, "cross_entropy", "loss"),
+                        (sft_driver, "apply_update", "optimizer")]
+
+    def __enter__(self):
+        import functools
+
+        import torch
+
+        self.saved = []
+        for owner, name, label in self.targets:
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+
+            def marked(*args, _fn=fn, _label=label, **kwargs):
+                with torch.profiler.record_function(_label):
+                    return _fn(*args, **kwargs)
+
+            setattr(owner, name, functools.wraps(fn)(marked))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+        return False
+
+
+TRAIN_LABELS = ("lora_merge", "attention", "projection", "loss", "optimizer")
+
+
+def train_step_shares(prof) -> dict:
+    """Device time of one profiled training step by part.  A kernel belongs
+    to the ops that launched it; an op under "recompute" to the recompute;
+    an op of the backward (under ``autograd::engine::evaluate_function``) to
+    the label of the forward op that made its autograd node (matched by
+    sequence number); any other op to its innermost label."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def chain(e):
+        names = []
+        while e is not None:
+            names.append(e)
+            e = e.cpu_parent
+        return names
+
+    def innermost(names):
+        return next((e.name for e in names if e.name in TRAIN_LABELS), None)
+
+    forward_label = {}
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::engine"):
+            names = chain(e)
+            if not any(n.name == "recompute" for n in names):
+                forward_label.setdefault(e.sequence_nr, innermost(names))
+    shares, busy = {}, 0.0
+    for e in events:
+        us = sum(k.duration for k in e.kernels)
+        if not us:
+            continue
+        busy += us
+        names = chain(e)
+        if any(n.name == "recompute" for n in names):
+            part = "recompute"
+        else:
+            node = next((n for n in names if n.name.startswith("autograd::engine")), None)
+            if node is not None:
+                part = f"backward of {forward_label.get(node.sequence_nr) or 'other'}"
+            else:
+                part = innermost(names) or "other forward"
+        shares[part] = shares.get(part, 0.0) + us
+    if busy <= 0:
+        raise AssertionError("the training step's profile saw no device time")
+    return {"busy_ms": busy / 1e3, **{k: v / 1e3 for k, v in sorted(
+        shares.items(), key=lambda kv: -kv[1])}}
+
+
+def lora_step_bound(cfg, rows: int, seq: int, targets) -> dict:
+    """The least time of one LoRA step with per-layer recompute on one H100,
+    from the shapes (``rows`` x ``seq`` tokens, all computed): every
+    projection and the head forward, every layer's projections again (the
+    recompute), every input gradient, and the weight gradients of the
+    adapted projections, as bf16 tensor-core operations; the plain
+    attention's two products (QK and PV, 2 rows seq seq head_dim heads each
+    a layer) forward, in the recompute and twice in the backward, as f32
+    operations outside the tensor cores, as the port runs them (its einsums
+    take f32 operands).  The weights' bytes (read four times) take less."""
+    lcfg = cfg.llm
+    hid, inter, d = lcfg.hidden_size, lcfg.intermediate_size, lcfg.head_dim
+    h, kvh, layers = lcfg.num_attention_heads, lcfg.num_key_value_heads, lcfg.num_hidden_layers
+    sizes = {"q_proj": hid * h * d, "k_proj": hid * kvh * d, "v_proj": hid * kvh * d,
+             "o_proj": h * d * hid, "gate_proj": hid * inter, "up_proj": hid * inter,
+             "down_proj": inter * hid}
+    tokens = rows * seq
+    layer, head = sum(sizes.values()), hid * lcfg.vocab_size
+    forward = 2.0 * tokens * (layers * layer + head)
+    bf16 = 2 * forward + 2.0 * tokens * layers * (layer + sum(sizes[m] for m in targets))
+    f32 = 4 * layers * 2 * (2.0 * rows * h * seq * seq * d)
+    return dict(bf16_tflop=bf16 / 1e12, bf16_ms=bf16 / PEAK_BF16_S * 1e3,
+                f32_tflop=f32 / 1e12, f32_ms=f32 / PEAK_F32_S * 1e3,
+                bound_ms=(bf16 / PEAK_BF16_S + f32 / PEAK_F32_S) * 1e3)
+
+
+def phase_train_full_depth(smi: str) -> dict:
+    """9b: ChatTS-14B at full width and depth, LoRA SFT through
+    ``train_lora_sft``, twice from one seed; then one step profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chatts_tpu_torch.models import chatts
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
+    from chatts_tpu_torch.train import data, lora, sft_driver, train_step
+
+    dev = torch.device("cuda", 0)
+    cfg = chatts_14b_config(num_layers=48)
+    start = time.perf_counter()
+    model = chatts.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                               torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"  9b: ChatTS-14B shape, 48 layers, {_model_gb(model):.2f} GB of bf16 weights made "
+        f"in {time.perf_counter() - start:.1f} s")
+    proc = ChatTSProcessor(WordTokenizer(), cfg)
+    rows = sft_rows(2, 256, 2, 820, 127, SEED + 11)
+    batch_np = data.build_sft_batch(proc, rows)
+    tokens = int(batch_np["attention_mask"].sum())
+    padded = batch_np["input_ids"].size
+    lcfg = lora.LoRAConfig(rank=8)
+    tc = train_step.TrainConfig(learning_rate=1e-4, remat=True)
+    runs = []
+    for run in range(2):
+        with TrainSpy() as spy:
+            t0 = time.perf_counter()
+            result = sft_driver.train_lora_sft(
+                model, cfg, proc, rows, lora_cfg=lcfg, train_cfg=tc, batch_size=2,
+                num_epochs=TRAIN_STEPS, max_steps=TRAIN_STEPS, seed=SEED, log_every=10 ** 9,
+                device=dev)
+        times = [t0] + [s["t"] for s in spy.steps]
+        step_s = [b - a for a, b in zip(times, times[1:])]
+        runs.append(dict(losses=result.losses, step_s=step_s, spy=spy.steps))
+        log(f"  9b run {run + 1}: {TRAIN_STEPS} LoRA steps (rank {lcfg.rank}, "
+            f"{lora.lora_param_count(result.lora_params):,} adapter parameters, remat, batch 2 "
+            f"x {batch_np['input_ids'].shape[1]}, {tokens} real tokens); losses "
+            f"{[round(x, 6) for x in result.losses]}; step seconds "
+            f"{[round(x, 3) for x in step_s]}")
+    first, second = runs
+    if len(first["losses"]) != TRAIN_STEPS or not all(
+            math.isfinite(x) for r in runs for x in r["losses"]):
+        raise AssertionError(f"9b: losses {first['losses']}, {second['losses']}")
+    repeat = max(abs(a - b) / abs(a) for a, b in zip(first["losses"], second["losses"]))
+    # Adapter tensors alternate a, b: at step 1 every b has a gradient and
+    # every a none (b = 0); at step 2 every a has one.
+    s1, s2 = first["spy"][0]["nonzero"], first["spy"][1]["nonzero"]
+    log(f"  9b: step 1: {sum(s1[1::2])}/{len(s1) // 2} b and {sum(s1[0::2])} a with a nonzero "
+        f"gradient; step 2: {sum(s2[0::2])}/{len(s2) // 2} a; two runs' losses differ by "
+        f"{repeat:.3g} relative (tolerance {TRAIN_REPEAT_RTOL})")
+    if not all(s1[1::2]) or any(s1[0::2]) or not all(s2[0::2]):
+        raise AssertionError("9b: an adapter got no gradient")
+    if repeat > TRAIN_REPEAT_RTOL:
+        raise AssertionError(f"9b: two runs from one seed differ by {repeat:.3g}")
+    warm = [s for r in runs for s in r["step_s"][1:]]
+    step_ms = 1e3 * sum(warm) / len(warm)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # One step under the profiler, with its parts marked.
+    adapters = result.lora_params
+    step, _ = sft_driver.make_lora_train_step(model, adapters, lcfg, tc)
+    batch = data.to_device(batch_np, dev)
+    step(batch)
+    torch.cuda.synchronize()
+    with TrainLabels(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    shares = train_step_shares(prof)
+    busy = shares.pop("busy_ms")
+    log(f"  9b one LoRA step under torch.profiler: {busy:.1f} ms of device time in "
+        f"{profiled_s * 1e3:.1f} ms on the host's clock (profiled); by part:")
+    for part, ms in shares.items():
+        log(f"    {ms:10.2f} ms {ms / busy:6.1%}  {part}")
+    bound = lora_step_bound(cfg, *batch_np["input_ids"].shape, lcfg.target_modules)
+    log(f"  9b bound: {bound['bf16_tflop']:.1f} TFLOP in bf16 ({bound['bf16_ms']:.1f} ms at the "
+        f"dense peak) and {bound['f32_tflop']:.2f} TFLOP of f32 attention "
+        f"({bound['f32_ms']:.1f} ms): {bound['bound_ms']:.1f} ms a step, "
+        f"{bound['bound_ms'] / step_ms:.1%} of the measured step")
+    out = dict(bound=bound, step_ms=step_ms, step_ms_all=[round(1e3 * s, 3) for r in runs for s in r["step_s"]],
+               tokens_per_s=tokens / step_ms * 1e3, padded_tokens_per_s=padded / step_ms * 1e3,
+               peak_gb=peak_gb, losses=first["losses"], repeat_rel=repeat,
+               profiled_busy_ms=busy, shares={k: v / busy for k, v in shares.items()})
+    log(f"  9b: {step_ms:.1f} ms a step (steps 2 to {TRAIN_STEPS} of both runs), "
+        f"{out['tokens_per_s']:.0f} real tokens/s ({out['padded_tokens_per_s']:.0f} with padding), "
+        f"peak memory {peak_gb:.2f} GB; {smi}")
+    del model, adapters, step, batch
+    return out
+
+
+def phase_train(smi: str) -> dict:
+    """Phase 9: training on the card, after every serving phase, with their
+    models freed.  Returns each kernel's launches on the training path (all
+    0: training reaches the plain attention through attn_impl="xla" and takes
+    float projections)."""
+    import torch
+
+    with Phase(9, "training: 9a LoRA and full-parameter steps at 14B widths (2 layers) "
+                  "against the CPU's f32 plain path; 9b LoRA SFT of the 48-layer ChatTS-14B "
+                  "shape"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        result = {"9a": phase_train_2_layers(smi)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        result["9b"] = phase_train_full_depth(smi)
+        launches = read_launches("training", ())
+        if any(launches.values()):
+            raise AssertionError(f"the training path launched a kernel: {launches}")
+        log("  train: " + json.dumps(result))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 REPLACES = {
     "flash_attention": "chatts_tpu/ops/flash_attention.py:129",
     "ragged_decode_attention": "chatts_tpu/ops/ragged_decode_attention.py:123",
@@ -2536,6 +2969,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(phase_disk(smi, bf16_run, paths["batch"]))
+    paths["training"] = phase_train(smi)
     # Each path counted from 0: "launches" is a kernel's sum over the paths,
     # and "launches_by_path" says which path launched what.
     by_path = {name: {path: counts[name] for path, counts in paths.items()}

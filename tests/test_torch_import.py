@@ -1,5 +1,5 @@
 """The PyTorch port imports without JAX, without the JAX package, without
-the safetensors and transformers packages and without CUDA, and
+the safetensors, transformers, optax and orbax packages and without CUDA, and
 chip_smoke.py refuses to run where there is no card or no
 checkout."""
 import json
@@ -24,6 +24,8 @@ print(json.dumps({
                           if m == "chatts_tpu" or m.startswith("chatts_tpu.")),
     "loader_packages": sorted(m for m in sys.modules
                               if m.split(".")[0] in ("safetensors", "transformers")),
+    "training_packages": sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("optax", "orbax")),
 }))
 """
 
@@ -42,6 +44,9 @@ def test_torch_port_imports_without_jax():
     # The loader reads safetensors itself; transformers loads only for a
     # checkpoint's tokenizer.
     assert report["loader_packages"] == []
+    # Training runs on torch.optim and torch.save, its adapters on the port's
+    # own safetensors reader.
+    assert report["training_packages"] == []
     # Every kernel module and its build/loader imported on a host without CUDA.
     for name in ("chatts_tpu_torch.kernels.build", "chatts_tpu_torch.ops.flash_attention",
                  "chatts_tpu_torch.ops.ragged_decode_attention",
@@ -54,7 +59,10 @@ def test_torch_port_imports_without_jax():
                  "chatts_tpu_torch.models.weights", "chatts_tpu_torch.utils.json_utils",
                  "chatts_tpu_torch.utils.llm_client", "chatts_tpu_torch.serve.stream_qa",
                  "chatts_tpu_torch.examples.quickstart", "chatts_tpu_torch.examples.serve_openai",
-                 "chatts_tpu_torch.scripts.rehearse_real_checkpoint"):
+                 "chatts_tpu_torch.scripts.rehearse_real_checkpoint",
+                 "chatts_tpu_torch.train.loss", "chatts_tpu_torch.train.data",
+                 "chatts_tpu_torch.train.lora", "chatts_tpu_torch.train.train_step",
+                 "chatts_tpu_torch.train.peft_io", "chatts_tpu_torch.train.sft_driver"):
         assert name in report["modules"]
 
 
