@@ -69,6 +69,18 @@ def timeseries_encoding(timeseries: np.ndarray, method: str):
         ) from None
 
 
+def timeseries_to_list(timeseries, digits: int = 6):
+    """Recursively round a (possibly nested) series to ``digits`` decimals
+    (reference: chatts/utils/encoding_utils.py:88-103)."""
+    if isinstance(timeseries, np.ndarray):
+        timeseries = timeseries.tolist()
+    if not isinstance(timeseries, list):
+        return round(float(timeseries), digits)
+    if timeseries and isinstance(timeseries[0], (int, float)):
+        return [round(float(v), digits) for v in timeseries]
+    return [timeseries_to_list(v, digits) for v in timeseries]
+
+
 def num_patches(series_len: int, patch_size: int) -> int:
     """Token budget of one series: ceil(L / patch_size)
     (reference: chatts/vllm/chatts_vllm.py:100,402)."""

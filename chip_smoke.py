@@ -48,7 +48,7 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      32, early emit) behind ``ChatTSServer`` on 127.0.0.1.  Two waves of 8
      bench-like chat requests with two series each (the second wave joins
      while the first decodes, one request streams), twice, token-identical,
-     every kernel of the path launched; then one decode round under
+     every kernel of the path launched; then 4 steps of a decode round under
      ``torch.profiler``, its top kernels by device time and the int8 decode
      attention's share;
   6. phases 4 and 5 again with ``prefill_act_int8=True`` on the same weights:
@@ -95,6 +95,18 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      tokens/s, peak memory, and one step under ``torch.profiler`` by part
      (projections, plain attention, LoRA merge, recompute, loss, each with
      its backward).  No kernel launches on the training path.
+ 10. (after phase 8, on phase 4's weights) ChatTS's batch evaluation, the
+     path of ``scripts/run_eval.sh``: 48 samples of
+     ``eval/make_eval_dataset.py::build_dataset`` (one series of 64 to 1,024
+     points, 3 or 4 numbered questions) at phase 5's engine configuration
+     (24 slots, int8 KV, decode chunk 32, early emit, cap 1,024 or the next
+     multiple of 512 that holds a prompt and 512 tokens): (a) 8 of them
+     greedy, 64 new tokens, through ``LLMClient("tpu-ts")`` twice, the same
+     answers; (b) ``chatts_tpu_torch/scripts/run_eval.py::main`` on all 48 at
+     the reference eval envelope (max_tokens 512, temperature 0.2), scored
+     with 8 workers in this process; every answer, one scored entry per
+     sample, samples/min, output tokens/s, TTFT, the decode rounds' host
+     times and the scoring seconds.
 
 It prints a JSON line of per-kernel results (the kernel's, the plain
 version's and the library call's device times, the bound and what sets it),
@@ -1700,40 +1712,43 @@ def device_kernels(prof, what: str, mark=()) -> dict:
                 marked_ms=marked_ms, marked_launches=sum(e.count for e in marked))
 
 
-def profile_decode_round(torch, engine, live: int = 16) -> dict:
-    """One decode round's kernels under ``torch.profiler``, which does not
-    see inside a CUDA graph's replay: the engine's round function runs once
-    eagerly, from this thread while the engine idles, on copies of its state
-    with ``live`` slots live at the lengths the served requests reached (its
-    K/V writes land past them, in freed slots).  Prints the ten kernels with
-    the most device time and the round's device time."""
+def profile_decode_round(torch, engine, live: int = 16, steps: int = 4) -> dict:
+    """The kernels of ``steps`` steps of a decode round under
+    ``torch.profiler``, which does not see inside a CUDA graph's replay: the
+    engine's round function runs once eagerly, from this thread while the
+    engine idles, on copies of its state with ``live`` slots live at the
+    lengths the served requests reached (its K/V writes land past them, in
+    freed slots).  Every step of a round launches the same kernels, so a few
+    steps give the round's shares at a fraction of the trace (a whole round
+    of 32 steps took about 100 s to profile).  Prints the ten kernels with
+    the most device time and the steps' device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from chatts_tpu_torch.serve import scheduler
 
     dev, b = engine.device, engine.max_batch_size
     active = torch.arange(b, device=dev) < live
-    budget = torch.full((b,), engine.decode_chunk, dtype=torch.int32, device=dev)
-    args = (engine.model, engine.decode_chunk, engine.caches, engine.tokens.clone(),
+    budget = torch.full((b,), steps, dtype=torch.int32, device=dev)
+    args = (engine.model, steps, engine.caches, engine.tokens.clone(),
             engine.cur_lens.clone(), active, engine.temperature.clone(), engine.top_p.clone(),
             engine._eos_dev, budget, torch.Generator(device=dev).manual_seed(SEED))
     with torch.inference_mode():
         scheduler._decode_all_slots(*args)
-        budget.fill_(engine.decode_chunk)
+        budget.fill_(steps)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             scheduler._decode_all_slots(*args)
             torch.cuda.synchronize()
-    out = device_kernels(prof, f"one decode round ({engine.decode_chunk} steps, {b} slots, "
-                               f"{live} live)",
+    out = device_kernels(prof, f"{steps} steps of a decode round ({b} slots, {live} live)",
                          mark=("ragged_decode_int8_kernel", "decode_merge_kernel"))
-    calls = engine.decode_chunk * engine.cfg.llm.num_hidden_layers
+    calls = steps * engine.cfg.llm.num_hidden_layers
     if out["marked_launches"] < calls:
         raise AssertionError("the decode round's profile holds no int8 decode attention")
-    log(f"  decode round: {out['busy_ms']:.3f} ms of device time, of it "
-        f"ragged_decode_attention_int8 (split and merge) {out['marked_ms']:.3f} ms "
-        f"({out['marked_ms'] / out['busy_ms']:.1%}) in {out['marked_launches']} launches "
-        f"({out['marked_ms'] / calls * 1e3:.1f} us a call)")
+    log(f"  {steps} decode steps: {out['busy_ms']:.3f} ms of device time "
+        f"({out['busy_ms'] / steps:.3f} ms a step), of it ragged_decode_attention_int8 (split "
+        f"and merge) {out['marked_ms']:.3f} ms ({out['marked_ms'] / out['busy_ms']:.1%}) in "
+        f"{out['marked_launches']} launches ({out['marked_ms'] / calls * 1e3:.1f} us a call)")
+    out["steps"] = steps
     return out
 
 
@@ -2511,6 +2526,249 @@ def phase_disk(smi: str, fused_run, fused_launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: ChatTS's batch evaluation at full size
+# ---------------------------------------------------------------------------
+
+EVAL_SAMPLES = 48
+EVAL_GREEDY_SAMPLES = 8
+
+
+class RecordingEngine:
+    """Builds the ``ServeEngine`` subclass that ``run_eval.main`` is handed
+    while it runs: each engine made and each request submitted is kept, so
+    the phase reads the rounds and the requests' times afterwards."""
+
+    def __init__(self):
+        from chatts_tpu_torch.serve import scheduler
+
+        self.engines, self.requests = [], []
+        outer = self
+
+        class Recording(scheduler.ServeEngine):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                outer.engines.append(self)
+
+            def submit(self, request):
+                outer.requests.append(request)
+                return super().submit(request)
+
+        self.cls = Recording
+
+
+def eval_cap(cfg, samples, max_tokens: int) -> tuple:
+    """(cache capacity, prompt token counts): 1,024, phase 5's, or the next
+    multiple of 512 that holds the longest prompt with ``max_tokens`` new
+    tokens (the port's engine refuses a write past its capacity)."""
+    import numpy as np
+
+    from chatts_tpu_torch.eval.inference import CHAT_TEMPLATE
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
+
+    proc = ChatTSProcessor(WordTokenizer(), cfg)
+    lens = [int(proc([CHAT_TEMPLATE.format(prompt=s["question"])],
+                     [np.asarray(t) for t in s["timeseries"]]).seq_lens[0]) for s in samples]
+    return max(1024, -(-(max(lens) + max_tokens) // 512) * 512), lens
+
+
+def check_answers(reqs, max_tokens: int, what: str) -> None:
+    """Every request finished without an error, at EOS (fewer tokens, none
+    of them EOS) or at ``max_tokens``."""
+    for r in reqs:
+        if r.error or r.finished_s is None:
+            raise AssertionError(f"{what}: a request failed: {r.error}")
+        n = len(r.output_tokens)
+        if not ((r.finish_reason == "length" and n == max_tokens)
+                or (r.finish_reason == "stop" and n < max_tokens)):
+            raise AssertionError(f"{what}: a request ended {r.finish_reason} with {n} tokens")
+        if WordTokenizer.eos_token_id in r.output_tokens:
+            raise AssertionError(f"{what}: EOS inside an answer")
+
+
+def phase_eval(smi: str, model, cfg) -> dict:
+    """Phase 10: ChatTS's batch evaluation, the user's path of
+    ``scripts/run_eval.sh``, at full size on phase 4's weights. (a) 8
+    samples greedy, 64 new tokens, through ``LLMClient("tpu-ts")`` twice in
+    one admission wave each (``WaveGate``): the same answers. (b)
+    ``chatts_tpu_torch/scripts/run_eval.py::main`` on 48 samples of
+    ``build_dataset(48, seed=SEED, seq_len=None)`` at the reference eval
+    envelope (max_tokens 512, temperature 0.2), scored with 8 workers in this
+    process (threads: the process holds a CUDA context). Returns 10b's
+    kernel launches."""
+    import os
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from chatts_tpu_torch.eval import inference, scorers
+    from chatts_tpu_torch.eval.inference import CHAT_TEMPLATE
+    from chatts_tpu_torch.eval.make_eval_dataset import build_dataset
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
+    from chatts_tpu_torch.scripts import run_eval
+    from chatts_tpu_torch.serve import scheduler
+    from chatts_tpu_torch.utils.llm_client import LLMClient
+
+    dev = torch.device("cuda", 0)
+    max_tokens = 512  # run_eval's default, with temperature 0.2: eval/inference.py's envelope
+    root = tempfile.mkdtemp(prefix="chatts_phase10_")
+    # No judge endpoint: rule scores only, and nothing leaves the machine.
+    saved_env = {k: os.environ.get(k) for k in ("CONFIG_PATH", "CHATTS_JUDGE_URL")}
+    os.environ["CONFIG_PATH"] = f"{root}/no_judge.toml"
+    os.environ.pop("CHATTS_JUDGE_URL", None)
+    stats = dict(card=smi)
+    try:
+        samples = build_dataset(EVAL_SAMPLES, seed=SEED, seq_len=None)
+        cap, lens = eval_cap(cfg, samples, max_tokens)
+        series_lens = [len(s["timeseries"][0]) for s in samples]
+        log(f"  {len(samples)} samples, series of {min(series_lens)} to {max(series_lens)} "
+            f"points, prompts of {min(lens)} to {max(lens)} tokens; cache capacity {cap}"
+            + ("" if cap == 1024 else " (1,024 does not hold the longest prompt and 512)"))
+
+        with Phase("10a", f"greedy eval answers twice: {EVAL_GREEDY_SAMPLES} samples, 64 new "
+                          f"tokens, LLMClient('tpu-ts'), one wave each"):
+            tok = WordTokenizer()
+            # Phase 5's serving configuration (bench.py's 14B engine), as 10b's.
+            engine = scheduler.ServeEngine(model, cfg, ChatTSProcessor(tok, cfg), device=dev,
+                                           max_batch_size=24, max_model_len=cap,
+                                           cache_dtype=torch.int8, decode_chunk=32,
+                                           block_early_emit=True,
+                                           eos_token_ids=(tok.eos_token_id,))
+            gate = WaveGate(engine, EVAL_GREEDY_SAMPLES)
+            client = LLMClient(engine="tpu-ts", serve_engine=engine,
+                               sampling_params={"max_tokens": 64, "temperature": 0.0})
+            sub = samples[:EVAL_GREEDY_SAMPLES]
+            prompts = [CHAT_TEMPLATE.format(prompt=s["question"]) for s in sub]
+            series = [[np.asarray(t) for t in s["timeseries"]] for s in sub]
+            try:
+                runs = []
+                for _ in range(2):
+                    start = time.perf_counter()
+                    runs.append((client.llm_batch_generate(prompts, series),
+                                 time.perf_counter() - start))
+            finally:
+                client.kill()
+            check_answers(gate.all, 64, "10a")
+            if any(a is None for out, _ in runs for a in out) or runs[0][0] != runs[1][0]:
+                raise AssertionError("the second greedy run gave other answers")
+            stats["greedy_s"] = [s for _, s in runs]
+            stats["greedy_tokens"] = [len(r.output_tokens) for r in gate.all[:len(sub)]]
+            log(f"  identical answers twice in {runs[0][1]:.2f} / {runs[1][1]:.2f} s; tokens "
+                f"a sample {stats['greedy_tokens']}")
+            del engine, gate, client
+            gc.collect()
+
+        with Phase("10b", f"run_eval.main: {EVAL_SAMPLES} samples, max_tokens {max_tokens}, "
+                          f"temperature 0.2, scored with 8 workers"):
+            dataset = f"{root}/dataset.json"
+            with open(dataset, "w") as f:
+                json.dump(samples, f)
+            recorder, timing, raw = RecordingEngine(), {}, []
+
+            def timed_inference(dataset_, client, exp, **kw):
+                generate = client.llm_batch_generate
+
+                def keep(prompts, ts_list=None, **kw_):
+                    out = generate(prompts, ts_list, **kw_)
+                    raw.extend(out)
+                    return out
+
+                client.llm_batch_generate = keep
+                start = time.perf_counter()
+                out = run_inference_(dataset_, client, exp, **kw)
+                timing["inference_s"] = time.perf_counter() - start
+                return out
+
+            def timed_scoring(*args, **kw):
+                timing["fork_is_safe"] = scorers.fork_is_safe()
+                start = time.perf_counter()
+                out = evaluate_experiment_(*args, **kw)
+                timing["scoring_s"] = time.perf_counter() - start
+                return out
+
+            run_inference_ = inference.run_inference
+            evaluate_experiment_ = inference.evaluate_experiment
+            argv = [dataset, "random-chatts-14b-int4", "eval", "--exp-root", f"{root}/exp",
+                    "--max-batch-size", "24", "--max-model-len", str(cap), "--decode-chunk",
+                    "32", "--kv-int8", "--early-first-token", "--device", "cuda"]
+            reset_launches()
+            with mock.patch.object(scheduler, "ServeEngine", recorder.cls), \
+                    mock.patch.object(inference, "run_inference", timed_inference), \
+                    mock.patch.object(inference, "evaluate_experiment", timed_scoring):
+                summary = run_eval.main(argv, loaded=(cfg, model, WordTokenizer()))
+            launches = read_launches("eval", ("flash_attention", "ragged_decode_attention_int8",
+                                              "int4_matmul"))
+            if launches["int4_matmul_a8"]:
+                raise AssertionError("the eval loop launched the int8-activation matmul")
+            (engine,) = recorder.engines
+            if engine.cache_dtype != torch.int8 or engine.max_batch_size != 24:
+                raise AssertionError("run_eval built another engine than phase 5's")
+            reqs = recorder.requests
+            if len(reqs) != EVAL_SAMPLES or len(raw) != EVAL_SAMPLES or None in raw:
+                raise AssertionError(f"{len(raw)} answers for {EVAL_SAMPLES} samples")
+            check_answers(reqs, max_tokens, "10b")
+            if timing["fork_is_safe"]:
+                raise AssertionError("scoring would fork a process that holds a CUDA context")
+            out_dir = f"{root}/exp/eval"
+            with open(f"{out_dir}/generated_answer.json") as f:
+                answers = json.load(f)
+            with open(f"{out_dir}/detailed_result.json") as f:
+                detailed = json.load(f)
+            with open(f"{out_dir}/result.json") as f:
+                if json.load(f) != summary:
+                    raise AssertionError("result.json is not the printed summary")
+            if [a["idx"] for a in answers] != list(range(EVAL_SAMPLES)):
+                raise AssertionError("generated_answer.json misses samples")
+            if sorted(d["idx"] for d in detailed) != list(range(EVAL_SAMPLES)):
+                raise AssertionError(f"{len(detailed)} scored samples of {EVAL_SAMPLES}: "
+                                     "scoring dropped some")
+            if summary["consumed_tokens"] <= 0:
+                raise AssertionError("no tokens counted")
+
+            out_tokens = [len(r.output_tokens) for r in reqs]
+            ttft = np.asarray([r.ttft_s for r in reqs]) * 1e3
+            decode = [r["round_s"] for r in engine.round_snapshot() if r["kind"] == "decode"]
+            rounds = {k: v for k, v in engine.stats().items() if k.startswith("round")}
+            wall = timing["inference_s"]
+            stats.update(
+                samples_per_min=EVAL_SAMPLES / wall * 60, output_tok_s=sum(out_tokens) / wall,
+                inference_s=wall, scoring_s=timing["scoring_s"], scoring_pool="thread",
+                ttft_p50_ms=float(np.percentile(ttft, 50)),
+                ttft_p90_ms=float(np.percentile(ttft, 90)),
+                output_tokens=sum(out_tokens), ended_at_eos=sum(r.finish_reason == "stop"
+                                                                for r in reqs),
+                prompt_tokens=[min(lens), max(lens)], cap=cap,
+                decode_round_ms=[min(decode) * 1e3, float(np.median(decode)) * 1e3,
+                                 max(decode) * 1e3], decode_rounds=len(decode), rounds=rounds,
+                decode_graph_capture_s=engine.decode_graph_capture_s,
+                summary=summary)
+            log(f"  {EVAL_SAMPLES} samples in {wall:.2f} s: {stats['samples_per_min']:.1f} "
+                f"samples/min, {stats['output_tok_s']:.1f} output tokens/s ({sum(out_tokens)} "
+                f"tokens, {stats['ended_at_eos']} answers ended at EOS); TTFT p50 "
+                f"{stats['ttft_p50_ms']:.1f} ms, p90 {stats['ttft_p90_ms']:.1f} ms")
+            log(f"  decode rounds on the host: {len(decode)}, {stats['decode_round_ms'][0]:.1f} "
+                f"/ {stats['decode_round_ms'][1]:.1f} / {stats['decode_round_ms'][2]:.1f} ms "
+                f"(min / median / max); rounds {json.dumps(rounds)}")
+            log(f"  scoring {timing['scoring_s']:.2f} s on threads (CUDA context held); "
+                f"overall categorical {summary['overall_categorical']}, numerical "
+                f"{summary['overall_numerical']}; card {smi}")
+            log("  eval stats: " + json.dumps(stats))
+            del engine, recorder
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: LoRA SFT and full-parameter training on the card
 # ---------------------------------------------------------------------------
 
@@ -2965,6 +3223,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(phase_chunked(smi, model, cfg, bf16_run))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["eval"] = phase_eval(smi, model, cfg)
     del model
     gc.collect()
     torch.cuda.empty_cache()

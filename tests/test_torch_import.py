@@ -1,6 +1,6 @@
 """The PyTorch port imports without JAX, without the JAX package, without
-the safetensors, transformers, optax and orbax packages and without CUDA, and
-chip_smoke.py refuses to run where there is no card or no
+the safetensors, transformers, optax, orbax, yaml and matplotlib packages and
+without CUDA, and chip_smoke.py refuses to run where there is no card or no
 checkout."""
 import json
 import os
@@ -26,6 +26,8 @@ print(json.dumps({
                               if m.split(".")[0] in ("safetensors", "transformers")),
     "training_packages": sorted(m for m in sys.modules
                                 if m.split(".")[0] in ("optax", "orbax")),
+    "optional_packages": sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("yaml", "matplotlib")),
 }))
 """
 
@@ -47,6 +49,9 @@ def test_torch_port_imports_without_jax():
     # Training runs on torch.optim and torch.save, its adapters on the port's
     # own safetensors reader.
     assert report["training_packages"] == []
+    # The eval harness and datagen load yaml and matplotlib only inside the
+    # functions that need them (the card's machine has neither).
+    assert report["optional_packages"] == []
     # Every kernel module and its build/loader imported on a host without CUDA.
     for name in ("chatts_tpu_torch.kernels.build", "chatts_tpu_torch.ops.flash_attention",
                  "chatts_tpu_torch.ops.ragged_decode_attention",
@@ -62,7 +67,16 @@ def test_torch_port_imports_without_jax():
                  "chatts_tpu_torch.scripts.rehearse_real_checkpoint",
                  "chatts_tpu_torch.train.loss", "chatts_tpu_torch.train.data",
                  "chatts_tpu_torch.train.lora", "chatts_tpu_torch.train.train_step",
-                 "chatts_tpu_torch.train.peft_io", "chatts_tpu_torch.train.sft_driver"):
+                 "chatts_tpu_torch.train.peft_io", "chatts_tpu_torch.train.sft_driver",
+                 "chatts_tpu_torch.datagen.config", "chatts_tpu_torch.datagen.trends",
+                 "chatts_tpu_torch.datagen.changes", "chatts_tpu_torch.datagen.generator",
+                 "chatts_tpu_torch.datagen.align.mts_local_template_qa",
+                 "chatts_tpu_torch.eval.scorers", "chatts_tpu_torch.eval.inference",
+                 "chatts_tpu_torch.eval.make_eval_dataset",
+                 "chatts_tpu_torch.eval.openai_client", "chatts_tpu_torch.eval.ragas_judge",
+                 "chatts_tpu_torch.eval.judge_config", "chatts_tpu_torch.eval.ts_tools",
+                 "chatts_tpu_torch.eval.train_rocket_tsc", "chatts_tpu_torch.eval.react_agent",
+                 "chatts_tpu_torch.eval.baselines", "chatts_tpu_torch.scripts.run_eval"):
         assert name in report["modules"]
 
 
