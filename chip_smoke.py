@@ -107,6 +107,20 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      with 8 workers in this process; every answer, one scored entry per
      sample, samples/min, output tokens/s, TTFT, the decode rounds' host
      times and the scoring seconds.
+ 11. (after phase 10, on phase 4's weights) the dataset scripts, the path of
+     ``scripts/generate_align_datasets.sh`` and ``generate_sft_datasets.sh``:
+     (a) both of the port's scripts on the CPU with a scripted LLM whose
+     every answer is 1,024 words, which sizes the cache for the longest
+     prompt; (b) ``examples/serve_openai.py``'s ``build`` at phase 5's
+     engine configuration (24 slots, int8 KV, decode chunk 32, early emit)
+     on 127.0.0.1, ``CHATTS_LLM_URL`` pointing at it, and
+     ``chatts_tpu_torch/scripts/generate_align_datasets.py::main`` then
+     ``generate_sft_datasets.py::main`` at NUM_DATA 4: every stage's files,
+     no hole left and the JAX package's label keys in the three
+     hole-filling stages, the template files byte-equal to (a)'s, one
+     request a prompt, each ended at EOS or 1,024 tokens; per stage its
+     prompts, rows, parse failures and seconds, and output tokens/s and
+     TTFT over the phase.
 
 It prints a JSON line of per-kernel results (the kernel's, the plain
 version's and the library call's device times, the bound and what sets it),
@@ -2769,6 +2783,230 @@ def phase_eval(smi: str, model, cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the datagen scripts through the port's OpenAI server
+# ---------------------------------------------------------------------------
+
+# NUM_DATA of both scripts. Every LLM stage costs at least one wave of
+# 1,024-token answers (about 17 s at 24 slots), and at 8 TSEvol alone sends
+# 255 prompts (3 for each of 85 seed rows), so the phase runs at 4.
+DATAGEN_NUM = 4
+DATAGEN_MAX_TOKENS = 1024  # OpenAIClient's default, which the scripts keep
+# The scripts' --llm-timeout: a request may wait behind a whole wave of
+# 1,024-token answers, so the client's 60 s default would send it again.
+DATAGEN_TIMEOUT_S = 900
+DATAGEN_HOLE_STAGES = ("uts_llm_qa", "mts_local_llm_qa", "mts_shape_llm_qa")
+DATAGEN_TEMPLATE_FILES = ("uts_template_qa.jsonl", "mts_shape_template_qa.jsonl",
+                          "mts_local_template_qa.jsonl", "seed_template_qa.jsonl",
+                          "evol_labels/seed_template_qa.json")
+
+
+def run_datagen_scripts(out: str, llm_client=None):
+    """``generate_align_datasets.main`` then ``generate_sft_datasets.main``
+    into ``out`` at ``DATAGEN_NUM``: (the stages' report, {stage: [(prompt,
+    answer)]}). Without ``llm_client`` the scripts take CHATTS_LLM_URL."""
+    from unittest import mock
+
+    from chatts_tpu_torch.scripts import generate_align_datasets, generate_sft_datasets
+    from chatts_tpu_torch.utils.llm_client import LLMClient
+
+    calls, current = {}, [None]
+    run, generate = generate_align_datasets.Stages.run, LLMClient.llm_batch_generate
+
+    def staged(self, name, fn):
+        current[0] = name
+        calls[name] = []
+        return run(self, name, fn)
+
+    def recorded(self, prompts, ts_list=None, progress_callback=None):
+        answers = generate(self, prompts, ts_list, progress_callback)
+        calls[current[0]].extend(zip(prompts, answers))
+        return answers
+
+    argv = ["--output-dir", out, "--num-data", str(DATAGEN_NUM), "--seed", str(SEED),
+            "--llm-timeout", str(DATAGEN_TIMEOUT_S)]
+    with mock.patch.object(generate_align_datasets.Stages, "run", staged), \
+            mock.patch.object(LLMClient, "llm_batch_generate", recorded):
+        report = generate_align_datasets.main(argv, llm_client)
+        report.update(generate_sft_datasets.main(argv, llm_client))
+    return report, calls
+
+
+def datagen_parse_failures(stage: str, calls) -> int:
+    """Answers a JSON-parsing stage could not read: QA lists for the seed
+    LLM QA and the reasoning sets, one QA object for TSEvol's mutations
+    (its verdicts are words, not JSON). The hole-filling stages parse
+    nothing."""
+    from chatts_tpu_torch.utils.json_utils import parse_llm_json
+
+    if stage in DATAGEN_HOLE_STAGES:
+        return 0
+    want = dict if stage == "tsevol" else list
+    return sum(not isinstance(parse_llm_json(a or ""), want)
+               for p, a in calls if "Your Judgement" not in p and "请检查" not in p)
+
+
+def check_datagen_labels(out: str) -> None:
+    """The hole-filling stages' rows and labels: no ``<|prompt`` hole left,
+    labels with the JAX package's keys (tests/test_sft_chain.py:42-65)."""
+    import os
+
+    for name in DATAGEN_HOLE_STAGES:
+        files = [f"{out}/{name}.jsonl", f"{out}/labels/{name}.json",
+                 f"{out}/evol_labels/{name}.json"]
+        for path in files:
+            with open(path) as f:
+                if "<|prompt" in f.read():
+                    raise AssertionError(f"{os.path.relpath(path, out)}: a hole was left")
+        with open(files[1]) as f:
+            labels = json.load(f)
+        with open(files[2]) as f:
+            evol_labels = json.load(f)
+        if not labels or not all({"attribute_pool", "fields"} <= set(e) for e in evol_labels):
+            raise AssertionError(f"{name}: labels or evol labels lack their keys")
+        for entry in labels:
+            label = entry["label"]
+            if name == "uts_llm_qa":
+                ok = "ts_idx" in entry
+            elif name == "mts_local_llm_qa":
+                ok = ({"cols", "position", "situation"} <= set(label)
+                      and all(set(c) == {"pair", "explain", "label"}
+                              for c in label["correlations"]))
+            else:
+                ok = bool(label["clusters"]) and all(
+                    set(c) == {"col_idx", "cols", "explain"}
+                    and len(c["col_idx"]) == len(c["cols"]) for c in label["clusters"])
+            if not ok:
+                raise AssertionError(f"{name}: a label without the JAX schema: {sorted(label)}")
+
+
+def phase_datagen(smi: str, model, cfg) -> dict:
+    """Phase 11: the dataset scripts, the user's path of
+    ``scripts/generate_align_datasets.sh`` and ``generate_sft_datasets.sh``,
+    with every LLM stage served by the port's OpenAI server on phase 4's
+    weights. First a CPU run of both scripts with a scripted LLM that gives
+    every prompt a 1,024-word answer (the most a request can return): its
+    longest prompt sizes the cache, and its template files are the
+    reference for the card run's. Then ``examples/serve_openai.py``'s
+    ``build`` at phase 5's engine configuration on 127.0.0.1,
+    ``CHATTS_LLM_URL`` set, and both scripts' ``main`` at NUM_DATA
+    ``DATAGEN_NUM``. Returns the card run's kernel launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from chatts_tpu_torch.examples import serve_openai
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
+    from chatts_tpu_torch.serve.server import apply_qwen_chat_template
+    from chatts_tpu_torch.utils.llm_client import LLMClient
+
+    root = tempfile.mkdtemp(prefix="chatts_phase11_")
+    saved_url = os.environ.get("CHATTS_LLM_URL")
+    stats = dict(card=smi, num_data=DATAGEN_NUM)
+    try:
+        with Phase("11a", f"datagen scripts on the CPU, NUM_DATA {DATAGEN_NUM}, a scripted "
+                          f"LLM answering {DATAGEN_MAX_TOKENS} words"):
+            def longest(prompt):
+                return " ".join(f"t{10 + (len(prompt) + i) % 390}"
+                                for i in range(DATAGEN_MAX_TOKENS))
+
+            _, cpu_calls = run_datagen_scripts(
+                f"{root}/cpu", LLMClient(engine="openai", openai_client=longest))
+            proc = ChatTSProcessor(WordTokenizer(), cfg)
+            lens = [int(proc([apply_qwen_chat_template([{"role": "user", "content": p}])[0]],
+                             []).seq_lens[0]) for c in cpu_calls.values() for p, _ in c]
+            cap = max(1024, -(-(max(lens) + DATAGEN_MAX_TOKENS) // 512) * 512)
+            stats.update(cpu_prompts={k: len(v) for k, v in cpu_calls.items() if v},
+                         longest_prompt_tokens=max(lens), cap=cap)
+            log(f"  {len(lens)} prompts of up to {max(lens)} tokens by stage "
+                f"{json.dumps(stats['cpu_prompts'])}; cache capacity {cap}")
+
+        with Phase(11, f"datagen scripts through serve_openai.build: NUM_DATA {DATAGEN_NUM}, "
+                       f"24 slots, cap {cap}, int8 KV, decode chunk 32, early emit"):
+            args = serve_openai.parse_args([
+                "--kv-int8", "--max-batch-size", "24", "--max-model-len", str(cap),
+                "--decode-chunk", "32", "--admission-bucket", "8", "--early-first-token",
+                "--no-warmup", "--host", "127.0.0.1", "--port", "0"])
+            engine, server = serve_openai.build(args, loaded=(cfg, model, WordTokenizer()))
+            reqs, submit = [], engine.submit
+
+            def recorded_submit(req):
+                reqs.append(req)
+                return submit(req)
+
+            engine.submit = recorded_submit
+            server.start_background()
+            try:
+                if server._httpd is None:
+                    raise RuntimeError("the server did not come up")
+                os.environ["CHATTS_LLM_URL"] = (
+                    f"http://127.0.0.1:{server._httpd.server_address[1]}/v1")
+                reset_launches()
+                start = time.perf_counter()
+                report, calls = run_datagen_scripts(f"{root}/card")
+                wall = time.perf_counter() - start
+                launches = read_launches("datagen", ("flash_attention",
+                                                     "ragged_decode_attention_int8",
+                                                     "int4_matmul"))
+            finally:
+                server.shutdown()
+
+            def files(d):
+                return sorted(os.path.relpath(os.path.join(dp, f), d)
+                              for dp, _, fs in os.walk(d) for f in fs)
+
+            if files(f"{root}/card") != files(f"{root}/cpu") or set(report) != set(calls):
+                raise AssertionError(f"the stages wrote {files(f'{root}/card')}, the CPU run "
+                                     f"{files(f'{root}/cpu')}")
+            for name in DATAGEN_TEMPLATE_FILES:
+                with open(f"{root}/card/{name}", "rb") as a, open(f"{root}/cpu/{name}", "rb") as b:
+                    if a.read() != b.read():
+                        raise AssertionError(f"{name} differs from the CPU run's")
+            check_datagen_labels(f"{root}/card")
+            sent = sum(len(c) for c in calls.values())
+            if len(reqs) != sent or any(a is None for c in calls.values() for _, a in c):
+                raise AssertionError(f"the server saw {len(reqs)} requests for {sent} prompts")
+            check_answers(reqs, DATAGEN_MAX_TOKENS, "11")
+            if any(report[s]["rows"] < 1 for s in DATAGEN_HOLE_STAGES):
+                raise AssertionError("a hole-filling stage wrote no rows")
+
+            out_tokens = sum(len(r.output_tokens) for r in reqs)
+            ttft = np.asarray([r.ttft_s for r in reqs]) * 1e3
+            rounds = {k: v for k, v in engine.stats().items() if k.startswith("round")}
+            stages = {name: dict(prompts=len(calls[name]), rows=report[name]["rows"],
+                                 parse_failures=datagen_parse_failures(name, calls[name]),
+                                 seconds=report[name]["seconds"]) for name in report}
+            stats.update(stages=stages, seconds=wall, requests=len(reqs),
+                         output_tokens=out_tokens, output_tok_s=out_tokens / wall,
+                         ended_at_eos=sum(r.finish_reason == "stop" for r in reqs),
+                         ttft_p50_ms=float(np.percentile(ttft, 50)),
+                         ttft_p90_ms=float(np.percentile(ttft, 90)), rounds=rounds,
+                         prompt_tokens=[min(r.prompt_tokens for r in reqs),
+                                        max(r.prompt_tokens for r in reqs)])
+            for name, st in stages.items():
+                log(f"  {name}: {st['prompts']} prompts, {st['rows']} rows, "
+                    f"{st['parse_failures']} parse failures, {st['seconds']:.2f} s")
+            log(f"  {len(reqs)} requests (one a prompt) in {wall:.2f} s: "
+                f"{stats['output_tok_s']:.1f} output tokens/s ({out_tokens} tokens, "
+                f"{stats['ended_at_eos']} ended at EOS); TTFT p50 {stats['ttft_p50_ms']:.1f} "
+                f"ms, p90 {stats['ttft_p90_ms']:.1f} ms; card {smi}")
+            log(f"  rounds {json.dumps(rounds)}")
+            log("  datagen stats: " + json.dumps(stats))
+            del engine, server
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if saved_url is None:
+            os.environ.pop("CHATTS_LLM_URL", None)
+        else:
+            os.environ["CHATTS_LLM_URL"] = saved_url
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: LoRA SFT and full-parameter training on the card
 # ---------------------------------------------------------------------------
 
@@ -3226,6 +3464,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["eval"] = phase_eval(smi, model, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["datagen"] = phase_datagen(smi, model, cfg)
     del model
     gc.collect()
     torch.cuda.empty_cache()

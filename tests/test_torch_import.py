@@ -76,7 +76,21 @@ def test_torch_port_imports_without_jax():
                  "chatts_tpu_torch.eval.openai_client", "chatts_tpu_torch.eval.ragas_judge",
                  "chatts_tpu_torch.eval.judge_config", "chatts_tpu_torch.eval.ts_tools",
                  "chatts_tpu_torch.eval.train_rocket_tsc", "chatts_tpu_torch.eval.react_agent",
-                 "chatts_tpu_torch.eval.baselines", "chatts_tpu_torch.scripts.run_eval"):
+                 "chatts_tpu_torch.eval.baselines", "chatts_tpu_torch.scripts.run_eval",
+                 "chatts_tpu_torch.datagen.metric_catalog", "chatts_tpu_torch.datagen.metric_set",
+                 "chatts_tpu_torch.datagen.seed_template_qa",
+                 "chatts_tpu_torch.datagen.align.uts_template_qa",
+                 "chatts_tpu_torch.datagen.align.mts_shape_template_qa",
+                 "chatts_tpu_torch.datagen.align.uts_llm_qa",
+                 "chatts_tpu_torch.datagen.align.mts_llm_qa", "chatts_tpu_torch.datagen.sft",
+                 "chatts_tpu_torch.datagen.sft.evol", "chatts_tpu_torch.datagen.sft.tsevol",
+                 "chatts_tpu_torch.datagen.sft.rewrite",
+                 "chatts_tpu_torch.datagen.sft.generate_llm_qa",
+                 "chatts_tpu_torch.datagen.sft.generate_ift_dataset",
+                 "chatts_tpu_torch.datagen.sft.reason",
+                 "chatts_tpu_torch.scripts.generate_align_datasets",
+                 "chatts_tpu_torch.scripts.generate_sft_datasets",
+                 "chatts_tpu_torch.examples.demo_ts_generator"):
         assert name in report["modules"]
 
 
