@@ -14,7 +14,7 @@ from torch import nn
 
 from chatts_tpu_torch.core.config import ChatTSConfig
 from chatts_tpu_torch.models import qwen
-from chatts_tpu_torch.models.qwen import QwenModel, embed_tokens, fuse_projections
+from chatts_tpu_torch.models.qwen import QwenModel, fuse_projections
 from chatts_tpu_torch.models.ts_encoder import TSEncoder
 
 
@@ -51,6 +51,11 @@ class ChatTSModel(nn.Module):
         self.ts_encoder = ts_encoder
         self.llm = llm
 
+    @property
+    def mesh(self):
+        """The mesh a tensor-parallel model is placed on, else None."""
+        return self.llm.mesh
+
     def input_embeddings(
         self,
         input_ids: torch.Tensor,  # (B, T)
@@ -60,7 +65,7 @@ class ChatTSModel(nn.Module):
         scatter_tok: Optional[torch.Tensor] = None,  # (N, Pmax)
     ) -> torch.Tensor:
         """Token embeddings with the TS patch embeddings merged in."""
-        embeds = embed_tokens(self.llm.embed_tokens, input_ids)
+        embeds = self.llm.embed(input_ids)
         if ts_values is not None and ts_values.shape[0] > 0:
             patch_embeds, _, _ = self.ts_encoder(ts_values, ts_mask)
             embeds = merge_embeddings(embeds, patch_embeds, scatter_seq, scatter_tok)
@@ -110,9 +115,10 @@ def init_params(cfg: ChatTSConfig, generator: torch.Generator, device="cuda",
 
 def maybe_fuse(model: ChatTSModel) -> ChatTSModel:
     """Fuse qkv / gate_up projections of float weights, in place; a model
-    already fused or quantized is returned as it is."""
+    already fused or quantized, or placed on a mesh (its projections are
+    Megatron shards, as JAX keeps them unfused), is returned as it is."""
     attn = model.llm.layers[0].self_attn
-    if attn.qkv_proj is not None or attn.q_proj.kernel is None:
+    if model.mesh is not None or attn.qkv_proj is not None or attn.q_proj.kernel is None:
         return model
     fuse_projections(model.llm)
     return model

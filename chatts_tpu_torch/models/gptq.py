@@ -32,6 +32,7 @@ import torch
 
 from chatts_tpu_torch.models.qwen import state_tensor
 from chatts_tpu_torch.ops.int4_matmul import DEFAULT_GROUP
+from chatts_tpu_torch.parallel import sharding
 
 BITS = 4
 PACK = 32 // BITS  # codes per int32
@@ -113,7 +114,8 @@ def permute_rows(packed: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return (rows[0::2] | (rows[1::2] << 4)).view(torch.int8)
 
 
-def to_native_int4(sd, name: str, device="cpu") -> Optional[Dict[str, torch.Tensor]]:
+def to_native_int4(sd, name: str, device="cpu", kind: str = "", index: int = 0,
+                   count: int = 1) -> Optional[Dict[str, torch.Tensor]]:
     """Losslessly convert the GPTQ linear at ``name`` to the port's int4
     layout on ``device``: returns {'kernel_q4', 'scales4'[, 'zeros4'][,
     'perm4']}, bit-equal to ``chatts_tpu.models.gptq.to_native_int4``, or None
@@ -131,13 +133,71 @@ def to_native_int4(sd, name: str, device="cpu") -> Optional[Dict[str, torch.Tens
       ``perm4`` records the input permutation the activations follow at run
       time (one column gather per matmul).
 
-    Only ``qweight`` goes to ``device`` before it is converted; the zeros,
-    scales and group map are small and are read on the host."""
-    qzeros = np.asarray(sd[name + ".qzeros"])
-    scales = np.asarray(sd[name + ".scales"], np.float32)
-    zeros = unpack_int4(qzeros, axis=1) + 1  # (groups, out)
-    in_dim, out_dim = 8 * sd_shape(sd, name + ".qweight")[0], scales.shape[1]
-    groups = scales.shape[0]
+    With ``kind`` "col" or "row" the result is shard ``index`` of ``count``
+    of the whole layer's, to the bit, each field cut where
+    ``parallel/sharding.py::shard_dim`` cuts it: "col" OUT/count output
+    columns (``perm4`` whole), "row" IN/count input rows and their groups
+    (``perm4`` this shard's part: the rows of the sorted groups, in the
+    original input's numbering); a split that leaves partial groups raises.
+
+    Only ``qweight`` goes to ``device`` before it is converted, and only the
+    shard's rows or columns of it and of ``scales`` are read, except by an
+    activation-order row shard, whose rows lie all over ``qweight``: it
+    reads it whole.  The zeros and the group map are small and are read
+    whole, on the host, for the export-wide decisions."""
+    plan = _native_plan(sd, name)
+    if plan is None:
+        return None
+    zeros, perm = plan
+
+    def dim(field: str) -> Optional[int]:
+        return sharding.shard_dim(kind, field) if kind else None
+
+    def read(key: str, field: str, dev) -> torch.Tensor:
+        d = dim(field)
+        if d is None:
+            return state_tensor(sd, key, dev)
+        start, stop = sharding.split_range(sd_shape(sd, key)[d], index, count)
+        if hasattr(sd, "get_slice"):
+            return sd.get_slice(key, d, start, stop, dev)
+        return _cut(state_tensor(sd, key, dev), d, index, count).contiguous()
+
+    scales = read(name + ".scales", "scales4", "cpu").float().numpy()
+    perm_t = None if perm is None else torch.from_numpy(perm).to(device)
+    if perm_t is not None and dim("kernel_q4") == 0:  # the input rows are cut
+        whole = permute_rows(native_codes(state_tensor(sd, name + ".qweight", device)), perm_t)
+        packed = _cut(whole, dim("kernel_q4"), index, count).contiguous()
+    else:
+        packed = native_codes(read(name + ".qweight", "kernel_q4", device))
+        if perm_t is not None:
+            packed = permute_rows(packed, perm_t)
+    out = {"kernel_q4": packed, "scales4": torch.from_numpy(scales).to(device)}
+    if perm_t is not None:
+        out["perm4"] = _cut(perm_t, dim("perm4"), index, count).contiguous()
+    if zeros is not None:
+        zeros = _cut(zeros, dim("zeros4"), index, count)
+        out["zeros4"] = torch.from_numpy((scales * (8.0 - zeros)).astype(np.float32)).to(device)
+    return out
+
+
+def _cut(a, d: Optional[int], index: int, count: int):
+    """Part ``index`` of ``count`` of array or tensor ``a`` along dim ``d``
+    (``a`` itself for None)."""
+    if d is None:
+        return a
+    start, stop = sharding.split_range(a.shape[d], index, count)
+    return a[(slice(None),) * d + (slice(start, stop),)]
+
+
+def _native_plan(sd, name: str):
+    """(zero-points (groups, out) or None for a symmetric export, the
+    desc_act input permutation or None) when the GPTQ linear at ``name``
+    converts natively, else None: the export-wide decisions of
+    ``to_native_int4``, from the small ``qzeros`` and ``g_idx`` and the
+    headers."""
+    zeros = unpack_int4(np.asarray(sd[name + ".qzeros"]), axis=1) + 1  # (groups, out)
+    in_dim = 8 * sd_shape(sd, name + ".qweight")[0]
+    groups, out_dim = sd_shape(sd, name + ".scales")
     if in_dim % groups != 0:
         return None
     group_size = in_dim // groups
@@ -151,15 +211,7 @@ def to_native_int4(sd, name: str, device="cpu") -> Optional[Dict[str, torch.Tens
             perm = np.argsort(g_idx, kind="stable").astype(np.int32)
     if group_size != DEFAULT_GROUP or in_dim % 128 or out_dim % 128:
         return None
-    packed = native_codes(state_tensor(sd, name + ".qweight", device))
-    out = {"kernel_q4": packed, "scales4": torch.from_numpy(scales).to(device)}
-    if perm is not None:
-        out["perm4"] = torch.from_numpy(perm).to(device)
-        out["kernel_q4"] = permute_rows(packed, out["perm4"])
-    if not np.all(zeros == 8):
-        zeros4 = (scales * (8.0 - zeros)).astype(np.float32)
-        out["zeros4"] = torch.from_numpy(zeros4).to(device)
-    return out
+    return (None if np.all(zeros == 8) else zeros), perm
 
 
 def load_gptq_kernel(sd, name: str) -> np.ndarray:

@@ -19,6 +19,7 @@ from chatts_tpu_torch.models.chatts import ChatTSModel
 from chatts_tpu_torch.models.qwen import MLP, Attention, DecoderLayer, Dense, QwenModel
 from chatts_tpu_torch.models.ts_encoder import TSEncoder
 from chatts_tpu_torch.ops.int4_matmul import DEFAULT_GROUP, pack_int4
+from chatts_tpu_torch.parallel.mesh import max_tp
 
 QUANT_TARGETS = (
     "q_proj", "k_proj", "v_proj", "o_proj", "qkv_proj",
@@ -37,11 +38,14 @@ def _int4_tiles(in_dim: int, out_dim: int) -> bool:
     return in_dim % DEFAULT_GROUP == 0 and out_dim % 128 == 0
 
 
-def quantize_dense(dense: Dense) -> Dense:
+def quantize_dense(dense: Dense, mesh=None) -> Dense:
     """A float Dense -> an int8 Dense with the same bias: per-column scales
-    max |W| / 127 (1 for an all-zero column), codes rounded half to even."""
+    max |W| / 127 (1 for an all-zero column), codes rounded half to even.
+    With ``mesh`` the kernel is this rank's rows of a row-parallel layer and
+    a column's maximum is taken over the whole column, so the codes and
+    scales are the whole layer's."""
     kernel = dense.kernel.float()
-    amax = kernel.abs().amax(dim=0)
+    amax = max_tp(mesh, kernel.abs().amax(dim=0))
     scales = amax / torch.full_like(amax, 127.0)  # IEEE division on the card too
     scales = torch.where(scales == 0, 1.0, scales)
     q = torch.clamp(torch.round(kernel / scales), -127, 127).to(torch.int8)

@@ -47,6 +47,16 @@ backward and refuse gradients), optionally ``remat`` (each layer under
 ``torch.utils.checkpoint``), and a float ``Dense`` folds in a LoRA adapter
 attached to it (``Dense.lora``).
 
+Under tensor parallelism (``parallel/sharding.py::place_params``) each rank
+holds its Megatron shard and the model carries the mesh: q, k, v, gate and
+up are column-parallel and o and down row-parallel (``Dense.tp_kind``), a
+row projection's bias added once, after the sum over tp; attention runs on
+the rank's heads, through ``ragged_decode_attention_tp`` and
+``..._int8_tp`` in decode; the embedding is vocab-parallel (a masked lookup,
+then a sum) and the head column-parallel, its logits gathered over the
+vocab.  A part that tp does not divide is replicated whole and runs with no
+collective.
+
 Recent-KV decode is TPU-only machinery and is not ported.
 """
 from __future__ import annotations
@@ -64,11 +74,14 @@ from torch.utils.checkpoint import checkpoint
 
 from chatts_tpu_torch.core.config import QwenConfig
 from chatts_tpu_torch.ops.attention import attention
-from chatts_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_a8
+from chatts_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_a8, int4_matmul_tp
 from chatts_tpu_torch.ops.ragged_decode_attention import (
     ragged_decode_attention,
     ragged_decode_attention_int8,
+    ragged_decode_attention_int8_tp,
+    ragged_decode_attention_tp,
 )
+from chatts_tpu_torch.parallel.mesh import all_gather_tp, all_reduce_tp, max_tp
 
 LayerCache = Tuple[torch.Tensor, ...]
 
@@ -104,14 +117,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
-def quantize_acts(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_acts(x: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 over the last axis, one scale per row: the port of
     ``qwen._quantize_acts`` (and of ``_quantize_kv``, the same arithmetic).
     x (..., K) -> (int8 codes, f32 scales (...)).  ``torch.round`` rounds
     half to even, as ``jnp.round`` does, so the same f32 input gives the
-    same codes and scales, on the CPU and on the card."""
+    same codes and scales, on the CPU and on the card.  With ``mesh`` x is
+    this rank's part of rows split over tp, and a row's maximum is taken
+    over the whole row, as GSPMD takes it."""
     xf = x.float()
-    amax = xf.abs().amax(dim=-1)
+    amax = max_tp(mesh, xf.abs().amax(dim=-1))
     # A tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
     # multiply by its reciprocal, which can round the other way.
     scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
@@ -211,7 +226,22 @@ class Dense(nn.Module):
 
     ``lora``, None or (a, b, scale) set by ``train/lora.py::applied_lora``
     on a float ``Dense``, folds the adapter into the kernel on every call
-    (``lora_kernel``)."""
+    (``lora_kernel``).
+
+    ``mesh`` is the mesh of a model placed on one, and ``tp_kind`` the
+    layer's tensor-parallel kind there (``parallel/sharding.py``): "" is
+    replicated (the whole layer, no collective); "col" holds this rank's
+    output columns and takes the whole input; "row" holds its input rows
+    (and their groups; ``perm4`` this rank's part of the permutation,
+    ``scales`` and the bias whole) and takes this rank's part of the input,
+    and the partial products are summed over tp before the bias: int4 ones
+    in x's type through ``int4_matmul_tp``, as JAX's psum sums them, and
+    those of asymmetric, activation-order, float and int8 layers in f32
+    (int8 activations in int32), as GSPMD reduces their dots.  Under a mesh
+    int4 layers, replicated ones too, ignore ``act_int8``, as JAX's do
+    (``chatts_tpu/models/qwen.py`` takes its a8 kernel only without a
+    mesh); an activation-order row layer gathers its input over tp first,
+    since its permutation is global."""
 
     def __init__(self, kernel: Optional[torch.Tensor] = None, *,
                  kernel_q4: Optional[torch.Tensor] = None,
@@ -220,8 +250,12 @@ class Dense(nn.Module):
                  perm4: Optional[torch.Tensor] = None,
                  kernel_q: Optional[torch.Tensor] = None,
                  scales: Optional[torch.Tensor] = None,
-                 bias: Optional[torch.Tensor] = None):
+                 bias: Optional[torch.Tensor] = None,
+                 mesh=None, tp_kind: str = ""):
         super().__init__()
+        if tp_kind not in ("", "col", "row") or (tp_kind and mesh is None):
+            raise ValueError(f"tp_kind is '', 'col' or 'row', and a shard takes a mesh; "
+                             f"got tp_kind {tp_kind!r}")
         if sum(w is not None for w in (kernel, kernel_q4, kernel_q)) != 1:
             raise ValueError("Dense takes one of a float kernel, kernel_q4 + scales4 "
                              "or kernel_q + scales")
@@ -235,6 +269,7 @@ class Dense(nn.Module):
             kernel_q = kernel_q.t().contiguous().t()
         self.kernel = _frozen(kernel)
         self.bias = _frozen(bias)
+        self.mesh, self.tp_kind = mesh, tp_kind
         self.lora: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None
         for name, t in (("kernel_q4", kernel_q4), ("scales4", scales4),
                         ("zeros4", zeros4), ("perm4", perm4),
@@ -257,11 +292,17 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor, act_int8: bool = False) -> torch.Tensor:
         lead = x.shape[:-1]
+        mesh = self.mesh if self.tp_kind == "row" else None  # the group a row layer sums over
+        reduced = False
         if self.kernel_q4 is not None:
             x2 = x.reshape(-1, x.shape[-1])
             if self.perm4 is not None:
-                x2 = x2.index_select(1, self.perm4.long())
-            if act_int8:
+                x2 = all_gather_tp(mesh, x2, dim=1).index_select(1, self.perm4.long())
+            if self.tp_kind and self.zeros4 is None and self.perm4 is None:
+                y = int4_matmul_tp(x2.contiguous(), self.kernel_q4, self.scales4,
+                                   mesh=self.mesh, kind=self.tp_kind)
+                reduced = True
+            elif act_int8 and self.mesh is None:
                 xq, xs = quantize_acts(x2)
                 y = int4_matmul_a8(xq, xs, self.kernel_q4, self.scales4, out_dtype=x.dtype)
             else:
@@ -277,15 +318,19 @@ class Dense(nn.Module):
             out = out.reshape(*lead, out.shape[-1])
         elif self.kernel_q is not None:
             if act_int8:
-                xq, xs = quantize_acts(x.reshape(-1, x.shape[-1]))
-                out = _int8_matmul(xq, self.kernel_q).float() * xs[:, None] * self.scales
+                xq, xs = quantize_acts(x.reshape(-1, x.shape[-1]), mesh)
+                acc = all_reduce_tp(mesh, _int8_matmul(xq, self.kernel_q))
+                out = acc.float() * xs[:, None] * self.scales
                 out = out.reshape(*lead, out.shape[-1])
             else:
-                out = matmul_f32(x, self.kernel_q.to(x.dtype)) * self.scales
+                out = all_reduce_tp(mesh, matmul_f32(x, self.kernel_q.to(x.dtype))) * self.scales
+            reduced = True
         elif self.lora is not None:
             out = matmul_f32(x, lora_kernel(self.kernel, *self.lora))
         else:
             out = matmul_f32(x, self.kernel)
+        if not reduced:
+            out = all_reduce_tp(mesh, out)
         if self.bias is not None:
             out = out + self.bias.float()
         return out.to(x.dtype)
@@ -297,14 +342,20 @@ class Dense(nn.Module):
 
 class Attention(nn.Module):
     """GQA self-attention.  Projections are either ``qkv_proj`` (fused, output
-    laid out [q | k | v]) or ``q_proj``/``k_proj``/``v_proj``."""
+    laid out [q | k | v]) or ``q_proj``/``k_proj``/``v_proj``.
+    ``num_heads`` and ``num_kv_heads`` are the heads this module computes
+    (the config's unless a tensor-parallel shard holds fewer); ``mesh``
+    marks heads sharded over its tp, whose decode takes the ``_tp``
+    wrappers."""
 
     def __init__(self, cfg: QwenConfig, o_proj: Dense, *,
                  qkv_proj: Optional[Dense] = None,
                  q_proj: Optional[Dense] = None, k_proj: Optional[Dense] = None,
                  v_proj: Optional[Dense] = None,
                  q_norm: Optional[torch.Tensor] = None,
-                 k_norm: Optional[torch.Tensor] = None):
+                 k_norm: Optional[torch.Tensor] = None,
+                 num_heads: Optional[int] = None, num_kv_heads: Optional[int] = None,
+                 mesh=None):
         super().__init__()
         if (qkv_proj is None) == (q_proj is None):
             raise ValueError("Attention takes either qkv_proj or q/k/v_proj")
@@ -315,13 +366,16 @@ class Attention(nn.Module):
         self.o_proj = o_proj
         self.q_norm = _frozen(q_norm)
         self.k_norm = _frozen(k_norm)
+        self.num_heads = cfg.num_attention_heads if num_heads is None else num_heads
+        self.num_kv_heads = cfg.num_key_value_heads if num_kv_heads is None else num_kv_heads
+        self.mesh = mesh
 
     def _qkv(self, x, rope, act_int8: bool = False):
         """q (B, T, H, D), k and v (B, T, KVH, D) of x (B, T, hidden): the
         projections, the Qwen3 q/k norms and RoPE."""
         cfg = self.cfg
         b, t, _ = x.shape
-        h, kvh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        h, kvh, d = self.num_heads, self.num_kv_heads, cfg.head_dim
         if self.qkv_proj is not None:
             q, k, v = self.qkv_proj(x, act_int8).split([h * d, kvh * d, kvh * d], dim=-1)
         else:
@@ -355,7 +409,7 @@ class Attention(nn.Module):
         (``ops/attention.py::attention``): "auto" or "xla"."""
         cfg = self.cfg
         b, t, _ = x.shape
-        h, d = cfg.num_attention_heads, cfg.head_dim
+        h, d = self.num_heads, cfg.head_dim
         q, k, v = self._qkv(x, rope, act_int8)
         scale = d ** -0.5
         if kv_cache is not None:
@@ -366,11 +420,12 @@ class Attention(nn.Module):
             # Decode step or prefill chunk: write the block at write_pos
             # first, then attend over the cache.
             rows = torch.arange(b, device=x.device)[:, None, None]
-            heads = torch.arange(cfg.num_key_value_heads, device=x.device)[None, :, None]
+            heads = torch.arange(self.num_kv_heads, device=x.device)[None, :, None]
             _write_cache(kv_cache, (rows, heads, write_pos.long()[:, None, :]), values)
             if kv_lengths is not None:
                 # Decode: the first kv_lengths positions (the new one counted).
-                out = _decode_attention(q[:, 0].contiguous(), kv_cache, kv_lengths, scale)[:, None]
+                out = _decode_attention(q[:, 0].contiguous(), kv_cache, kv_lengths, scale,
+                                        self.mesh)[:, None]
             else:
                 # Chunk: the cache prefix [:kv_limit], masked by kv_valid and
                 # by position (slots not written yet lie after the chunk).
@@ -401,7 +456,7 @@ class Attention(nn.Module):
         ``qwen._mixed_attention``): x (1, B + A*npt, hidden) packed, decode
         tokens first.  Returns (1, B + A*npt, hidden)."""
         cfg = self.cfg
-        h, d = cfg.num_attention_heads, cfg.head_dim
+        h, d = self.num_heads, cfg.head_dim
         b, a, npt = step.b, step.a, step.npt
         q, k, v = (z[0] for z in self._qkv(x, rope))  # (Tp, H|KVH, D)
         scale = d ** -0.5
@@ -409,7 +464,7 @@ class Attention(nn.Module):
         if step.dec_rows.numel():
             # One position per active decode row; inactive rows (the
             # admission's slots among them) write nothing.
-            heads = torch.arange(cfg.num_key_value_heads, device=x.device)[None, :]
+            heads = torch.arange(self.num_kv_heads, device=x.device)[None, :]
             _write_cache(kv_cache, (step.dec_rows[:, None], heads, step.dec_pos[:, None]),
                          [None if z is None else z[:b][step.dec_rows] for z in values])
         if step.n_real:
@@ -420,7 +475,8 @@ class Attention(nn.Module):
                          [None if z is None else
                           z[b:].reshape(a, npt, *z.shape[1:])[:step.n_real].transpose(1, 2)
                           for z in values])
-        out_dec = _decode_attention(q[:b].contiguous(), kv_cache, step.dec_kv_lengths, scale)
+        out_dec = _decode_attention(q[:b].contiguous(), kv_cache, step.dec_kv_lengths, scale,
+                                    self.mesh)
         # Prompt tokens: their slots' cache prefix, masked by each row's
         # length and by position.
         k_adm, v_adm = _cache_prefix(kv_cache, step.adm_slots, step.kv_limit, q.dtype)
@@ -453,14 +509,20 @@ def _write_cache(kv_cache: LayerCache, index, values) -> None:
 
 
 def _decode_attention(q1: torch.Tensor, kv_cache: LayerCache, kv_lengths: torch.Tensor,
-                      scale: float) -> torch.Tensor:
+                      scale: float, mesh=None) -> torch.Tensor:
     """One query a row (B, H, D) over each row's first kv_lengths positions
-    of the head-major cache: B4 for an int8 cache, else B2."""
+    of the head-major cache: B4 for an int8 cache, else B2; through their
+    ``_tp`` wrappers on heads sharded over ``mesh``."""
     if len(kv_cache) == 4:
+        if mesh is not None:
+            return ragged_decode_attention_int8_tp(q1, *kv_cache, kv_lengths, mesh=mesh,
+                                                   scale=scale)
         return ragged_decode_attention_int8(q1, *kv_cache, kv_lengths, scale=scale)
-    k_cache, v_cache = kv_cache
-    return ragged_decode_attention(q1, k_cache.to(q1.dtype), v_cache.to(q1.dtype),
-                                   kv_lengths, scale=scale)
+    k_cache, v_cache = (c.to(q1.dtype) for c in kv_cache)
+    if mesh is not None:
+        return ragged_decode_attention_tp(q1, k_cache, v_cache, kv_lengths, mesh=mesh,
+                                          scale=scale)
+    return ragged_decode_attention(q1, k_cache, v_cache, kv_lengths, scale=scale)
 
 
 def _cache_prefix(kv_cache: LayerCache, rows: Optional[torch.Tensor], limit: int, dtype):
@@ -563,12 +625,18 @@ class MixedStep:
 # ---------------------------------------------------------------------------
 
 class QwenModel(nn.Module):
-    """The decoder stack with its embedding table, final norm and head."""
+    """The decoder stack with its embedding table, final norm and head.
+
+    ``mesh`` is the mesh a tensor-parallel model is placed on; with
+    ``vocab_start`` set, ``embed_tokens`` holds vocabulary rows
+    [vocab_start, vocab_start + its rows) of this rank and the head the same
+    columns."""
 
     def __init__(self, cfg: QwenConfig, embed_tokens: torch.Tensor,
                  layers: Sequence[DecoderLayer], norm: torch.Tensor, *,
                  lm_head: Optional[torch.Tensor] = None,
-                 lm_head_q: Optional[Dense] = None):
+                 lm_head_q: Optional[Dense] = None,
+                 mesh=None, vocab_start: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = _frozen(embed_tokens)
@@ -576,6 +644,27 @@ class QwenModel(nn.Module):
         self.norm = _frozen(norm)
         self.lm_head = _frozen(lm_head)  # (hidden, vocab)
         self.lm_head_q = lm_head_q
+        self.mesh = mesh
+        self.vocab_start = vocab_start
+
+    @property
+    def kv_heads(self) -> int:
+        """The kv heads a layer's cache holds on this rank."""
+        return self.layers[0].self_attn.num_kv_heads
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Token embeddings (..., hidden) of ``input_ids``.  Vocab-parallel:
+        each rank looks up the ids in its rows, zeros for the rest, and the
+        tp group sums the parts (exact: one part is nonzero)."""
+        if self.vocab_start is None:
+            return embed_tokens(self.embed_tokens, input_ids)
+        rows = self.embed_tokens.shape[0]
+        local = input_ids.long() - self.vocab_start
+        inside = (local >= 0) & (local < rows)
+        out = F.embedding(local.clamp(0, rows - 1), self.embed_tokens)
+        out = torch.where(inside[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                               device=out.device))
+        return all_reduce_tp(self.mesh, out)
 
     def forward(
         self,
@@ -687,12 +776,14 @@ class QwenModel(nn.Module):
     def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """hidden (B, T, hidden) -> logits (B, T, vocab), f32.  A quantized
         head returns hidden's type cast to f32, a float head the f32 product,
-        as the reference does."""
+        as the reference does.  A vocab-parallel head's columns are gathered
+        over tp."""
+        mesh = self.mesh if self.vocab_start is not None else None
         if self.lm_head_q is not None:
-            return self.lm_head_q(hidden).float()
+            return all_gather_tp(mesh, self.lm_head_q(hidden)).float()
         if self.cfg.tie_word_embeddings or self.lm_head is None:
-            return matmul_f32(hidden, self.embed_tokens.t())
-        return matmul_f32(hidden, self.lm_head)
+            return all_gather_tp(mesh, matmul_f32(hidden, self.embed_tokens.t()))
+        return all_gather_tp(mesh, matmul_f32(hidden, self.lm_head))
 
 
 def fuse_projections(model: QwenModel) -> QwenModel:

@@ -1,11 +1,19 @@
 """Checkpoint I/O: HF safetensors directories <-> the port's ``ChatTSModel``.
 
-The port of ``chatts_tpu/models/weights.py`` (its ``mesh`` argument is
-multi-GPU work, not ported). Tensors stream from the safetensors shards
-(``utils/safetensors_io.py``: memory-mapped, one tensor read at a time)
-straight to ``device``, and are cast and quantized there, so the host holds
-about one tensor and the card the quantized model plus the tensor being
-converted. The reference loads checkpoints through vLLM's AutoWeightsLoader
+The port of ``chatts_tpu/models/weights.py``. Tensors stream from the
+safetensors shards (``utils/safetensors_io.py``: memory-mapped, one tensor
+read at a time) straight to ``device``, and are cast and quantized there,
+so the host holds about one tensor and the card the quantized model plus
+the tensor being converted.
+
+With a ``mesh`` each rank reads only its shard of each tensor (the layout
+of ``parallel/sharding.py``: a column-parallel projection's output rows of
+the HF weight, a row-parallel one's input columns, its groups for GPTQ) and
+converts it on its device; the result is bit-equal to ``place_params`` of
+the whole load. Two reads are wider: an int8 row shard takes each column's
+maximum over tp (one collective), and a GPTQ projection that does not
+convert natively (and an activation-order row shard, whose rows are spread
+over ``qweight``) is read whole, then cut. The reference loads checkpoints through vLLM's AutoWeightsLoader
 with a prefix mapper (reference: chatts/vllm/chatts_vllm.py:467-470,612-625)
 or HF ``from_pretrained`` remote code; the naming variants of both load here.
 
@@ -38,8 +46,10 @@ from chatts_tpu_torch.core.config import ChatTSConfig
 from chatts_tpu_torch.models import gptq
 from chatts_tpu_torch.models import ts_encoder as ts_encoder_lib
 from chatts_tpu_torch.models.chatts import ChatTSModel
-from chatts_tpu_torch.models.qwen import Dense, QwenModel, build_layers
-from chatts_tpu_torch.models.quantize import quantize_dense, quantize_dense_int4
+from chatts_tpu_torch.models.qwen import MLP, Attention, DecoderLayer, Dense, QwenModel
+from chatts_tpu_torch.models.quantize import _int4_tiles, quantize_dense
+from chatts_tpu_torch.ops.int4_matmul import DEFAULT_GROUP, pack_int4
+from chatts_tpu_torch.parallel import sharding
 from chatts_tpu_torch.utils import safetensors_io
 
 TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "vocab.json")
@@ -79,6 +89,12 @@ class LazyStateDict:
 
     def get_tensor(self, name: str, device=None) -> torch.Tensor:
         return self._file(self._name_to_file[name]).get(name, device)
+
+    def get_slice(self, name: str, dim: int, start: int, stop: int,
+                  device=None) -> torch.Tensor:
+        """``[start, stop)`` of dimension ``dim`` of a tensor; only those
+        bytes are read."""
+        return self._file(self._name_to_file[name]).get_slice(name, dim, start, stop, device)
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.get_tensor(name)
@@ -156,6 +172,12 @@ class ResolvedStateDict:
         self.used.add(actual)
         return self._sd.get_tensor(actual, device)
 
+    def get_slice(self, name: str, dim: int, start: int, stop: int,
+                  device=None) -> torch.Tensor:
+        actual = self._actual(name)
+        self.used.add(actual)
+        return self._sd.get_slice(actual, dim, start, stop, device)
+
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.get_tensor(name)
 
@@ -174,6 +196,7 @@ def load_checkpoint(
     dtype=torch.bfloat16,
     device="cuda",
     quantize_bits: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[ChatTSConfig, ChatTSModel]:
     """Load a ChatTS HF checkpoint directory into (config, model) on
     ``device`` (the card unless the caller asks for the CPU).
@@ -184,7 +207,9 @@ def load_checkpoint(
     where a shape does not tile), and the separate head into ``lm_head_q``.
     GPTQ-Int4 projections convert to int4 losslessly with bits 4
     (``gptq.to_native_int4``), and are dequantized otherwise. A ``cfg`` with
-    fewer layers than the checkpoint loads its first layers."""
+    fewer layers than the checkpoint loads its first layers. With ``mesh``
+    (``parallel/mesh.py``) the model is this rank's tensor-parallel shard,
+    read and converted as the module docstring says."""
     if quantize_bits not in (None, 4, 8):
         raise ValueError(f"quantize_bits must be 4 or 8, got {quantize_bits}")
     if cfg is None:
@@ -204,41 +229,137 @@ def load_checkpoint(
         if tied != cfg.llm.tie_word_embeddings:
             cfg = dataclasses.replace(
                 cfg, llm=dataclasses.replace(cfg.llm, tie_word_embeddings=tied))
-
-        def get(name: str) -> torch.Tensor:
-            return sd.get_tensor(name, device).to(dtype)
-
-        def quantized(kernel: torch.Tensor, bias: Optional[torch.Tensor] = None) -> Dense:
-            if quantize_bits == 4:
-                return quantize_dense_int4(Dense(kernel, bias=bias))
-            if quantize_bits == 8:
-                return quantize_dense(Dense(kernel, bias=bias))
-            return Dense(kernel, bias=bias)
-
-        def dense(name: str, bias: bool) -> Dense:
-            b = get(name + ".bias") if bias and name + ".bias" in sd else None
-            if name + ".weight" in sd:
-                return quantized(get(name + ".weight").t().contiguous(), b)
-            if not gptq.has_gptq_tensors(sd, name):
-                raise KeyError(f"{name}: neither .weight nor .qweight found")
-            native = gptq.to_native_int4(sd, name, device) if quantize_bits == 4 else None
-            if native is not None:
-                return Dense(**native, bias=b)
-            # f32 first, as the JAX package takes the f64 result.
-            kernel = torch.from_numpy(gptq.load_gptq_kernel(sd, name).astype(np.float32))
-            return quantized(kernel.to(device=device, dtype=dtype), b)
-
-        layers = build_layers(cfg.llm, get, dense)
-        lm_head = lm_head_q = None
-        if not tied and quantize_bits is None:
-            lm_head = get("lm_head.weight").t().contiguous()
-        elif not tied:
-            lm_head_q = _quantize_head(get("lm_head.weight"), quantized)
-        llm = QwenModel(cfg.llm, get("model.embed_tokens.weight"), layers,
-                        get("model.norm.weight"), lm_head=lm_head, lm_head_q=lm_head_q)
+        llm = _Reader(sd, dtype, device, quantize_bits, mesh).llm(cfg.llm, tied)
         # TS encoder: f32 for numerical parity on value-QA (SURVEY §7).
         encoder = ts_encoder_lib.load_torch_state_dict(sd, cfg.ts, device=device)
-    return cfg, ChatTSModel(cfg, encoder, llm)
+    model = ChatTSModel(cfg, encoder, llm)
+    if mesh is not None:
+        sharding.check_kernel_shapes(model, device)
+    return cfg, model
+
+
+class _Reader:
+    """The decoder of a checkpoint, read a tensor at a time: whole, or on a
+    ``mesh`` this rank's shard of each tensor (the module docstring).  One
+    path for both: a unit the mesh does not split (every unit without one)
+    is read whole, and a shard takes the format the whole layer's shape
+    decides."""
+
+    def __init__(self, sd, dtype, device, quantize_bits, mesh):
+        self.sd, self.dtype, self.device = sd, dtype, device
+        self.bits, self.mesh = quantize_bits, mesh
+
+    def part(self, name: str, dim: Optional[int]) -> torch.Tensor:
+        """This rank's range of dimension ``dim`` of a tensor (all of it
+        for None), in the dtype."""
+        if dim is None:
+            return self.sd.get_tensor(name, self.device).to(self.dtype)
+        start, stop = sharding.shard_range(self.sd.shape(name)[dim], self.mesh)
+        return self.sd.get_slice(name, dim, start, stop, self.device).to(self.dtype)
+
+    def dims(self, name: str) -> Tuple[int, int]:
+        """(IN, OUT) of the whole projection at ``name``."""
+        if name + ".weight" in self.sd:
+            out_dim, in_dim = self.sd.shape(name + ".weight")
+            return in_dim, out_dim
+        return 8 * self.sd.shape(name + ".qweight")[0], self.sd.shape(name + ".scales")[1]
+
+    def int4_groups(self, name: str) -> Optional[int]:
+        """The projection's int4 groups once loaded, None unless int4."""
+        in_dim, out_dim = self.dims(name)
+        return in_dim // DEFAULT_GROUP if self.bits == 4 and _int4_tiles(in_dim, out_dim) else None
+
+    def quantized(self, kernel: torch.Tensor, bias, kind: str, in_dim: int,
+                  out_dim: int) -> Dense:
+        """A (shard's) kernel in the format the whole (in_dim, out_dim)
+        layer's shape decides: int4 where it tiles with bits 4, else int8
+        with bits 4 or 8, else float."""
+        shard = dict(bias=bias, mesh=self.mesh, tp_kind=kind)
+        if self.bits == 4 and _int4_tiles(in_dim, out_dim):
+            packed, scales = pack_int4(kernel)
+            return Dense(kernel_q4=packed, scales4=scales, **shard)
+        if self.bits in (4, 8):
+            q = quantize_dense(Dense(kernel), self.mesh if kind == "row" else None)
+            return Dense(kernel_q=q.kernel_q, scales=q.scales, **shard)
+        return Dense(kernel, **shard)
+
+    def dense(self, name: str, bias: bool, kind: str) -> Dense:
+        """The projection at ``name``: whole (``kind`` "") or this rank's
+        "col" or "row" shard."""
+        sd = self.sd
+
+        def dim(field: str) -> Optional[int]:
+            return sharding.shard_dim(kind, field) if kind else None
+
+        b = self.part(name + ".bias", dim("bias")) if bias and name + ".bias" in sd else None
+        in_dim, out_dim = self.dims(name)
+        if name + ".weight" in sd:  # HF's (out, in): the kernel transposed
+            kdim = dim("kernel")
+            kernel = self.part(name + ".weight", None if kdim is None else 1 - kdim)
+            return self.quantized(kernel.t().contiguous(), b, kind, in_dim, out_dim)
+        if not gptq.has_gptq_tensors(sd, name):
+            raise KeyError(f"{name}: neither .weight nor .qweight found")
+        if self.bits == 4:
+            index, count = (self.mesh.tp_index, self.mesh.tp) if kind else (0, 1)
+            native = gptq.to_native_int4(sd, name, self.device, kind, index, count)
+            if native is not None:
+                return Dense(**native, bias=b, mesh=self.mesh, tp_kind=kind)
+        # f32 first, as the JAX package takes the f64 result.
+        kernel = torch.from_numpy(gptq.load_gptq_kernel(sd, name).astype(np.float32))
+        kernel = kernel.to(device=self.device, dtype=self.dtype)
+        if kind:
+            start, stop = sharding.shard_range(kernel.shape[dim("kernel")], self.mesh)
+            kernel = kernel.narrow(dim("kernel"), start, stop - start).contiguous()
+        return self.quantized(kernel, b, kind, in_dim, out_dim)
+
+    def layers(self, lcfg) -> list:
+        """The decoder layers, in the reference loader's order of reads; a
+        unit that tp does not divide (``parallel/sharding.py``) whole."""
+        mesh, out = self.mesh, []
+        for i in range(lcfg.num_hidden_layers):
+            lp = f"model.layers.{i}."
+            attn = lp + "self_attn."
+            input_norm = self.part(lp + "input_layernorm.weight", None)
+            post_norm = self.part(lp + "post_attention_layernorm.weight", None)
+            a = sharding.attention_sharded(lcfg, mesh, self.int4_groups(attn + "o_proj"))
+            col, row = ("col", "row") if a else ("", "")
+            projs = {p: self.dense(attn + p, lcfg.attention_bias, col)
+                     for p in ("q_proj", "k_proj", "v_proj")}
+            o = self.dense(attn + "o_proj", False, row)
+            m = sharding.mlp_sharded(lcfg, mesh, self.int4_groups(lp + "mlp.down_proj"))
+            mcol, mrow = ("col", "row") if m else ("", "")
+            gate = self.dense(lp + "mlp.gate_proj", False, mcol)
+            up = self.dense(lp + "mlp.up_proj", False, mcol)
+            down = self.dense(lp + "mlp.down_proj", False, mrow)
+            norms = {}
+            if lcfg.qk_norm:
+                norms = {"q_norm": self.part(attn + "q_norm.weight", None),
+                         "k_norm": self.part(attn + "k_norm.weight", None)}
+            heads = (dict(num_heads=lcfg.num_attention_heads // mesh.tp,
+                          num_kv_heads=lcfg.num_key_value_heads // mesh.tp, mesh=mesh)
+                     if a else {})
+            out.append(DecoderLayer(
+                lcfg, Attention(lcfg, o, **projs, **norms, **heads),
+                MLP(down, gate_proj=gate, up_proj=up), input_norm, post_norm))
+        return out
+
+    def llm(self, lcfg, tied: bool) -> QwenModel:
+        layers = self.layers(lcfg)
+        vocab = sharding.vocab_sharded(lcfg, self.mesh)
+        kind = "col" if vocab else ""
+        embed = self.part("model.embed_tokens.weight", 0 if vocab else None)
+        lm_head = lm_head_q = None
+        if not tied:
+            weight = self.part("lm_head.weight", 0 if vocab else None)  # (vocab, hidden)
+            if self.bits is None:
+                lm_head = weight.t().contiguous()
+            else:
+                hidden, vocab_size = lcfg.hidden_size, lcfg.vocab_size
+                lm_head_q = _quantize_head(
+                    weight, lambda k: self.quantized(k, None, kind, hidden, vocab_size))
+        start = sharding.shard_range(lcfg.vocab_size, self.mesh)[0] if vocab else None
+        return QwenModel(lcfg, embed, layers, self.part("model.norm.weight", None),
+                         lm_head=lm_head, lm_head_q=lm_head_q, mesh=self.mesh, vocab_start=start)
 
 
 def _quantize_head(weight: torch.Tensor, quantized) -> Dense:
@@ -256,7 +377,8 @@ def _quantize_head(weight: torch.Tensor, quantized) -> Dense:
     if len(parts) == 1:
         return parts[0]
     fields = ("kernel_q4", "scales4") if parts[0].kernel_q4 is not None else ("kernel_q", "scales")
-    return Dense(**{f: torch.cat([getattr(p, f) for p in parts], dim=-1) for f in fields})
+    return Dense(**{f: torch.cat([getattr(p, f) for p in parts], dim=-1) for f in fields},
+                 mesh=parts[0].mesh, tp_kind=parts[0].tp_kind)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -537,11 +659,12 @@ def load_tokenizer(model_path: str):
 
 
 def from_pretrained(
-    model_path: str, *, dtype=torch.bfloat16, device="cuda",
+    model_path: str, *, dtype=torch.bfloat16, device="cuda", mesh=None,
 ) -> Tuple[ChatTSConfig, ChatTSModel, object]:
     """(config, model, tokenizer) from an HF checkpoint directory; the
-    tokenizer is None when the directory has no tokenizer files."""
-    cfg, model = load_checkpoint(model_path, dtype=dtype, device=device)
+    tokenizer is None when the directory has no tokenizer files. With
+    ``mesh`` the model is this rank's tensor-parallel shard."""
+    cfg, model = load_checkpoint(model_path, dtype=dtype, device=device, mesh=mesh)
     return cfg, model, load_tokenizer(model_path)
 
 

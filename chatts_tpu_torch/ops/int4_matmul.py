@@ -24,6 +24,7 @@ from typing import Tuple
 import torch
 
 from chatts_tpu_torch.kernels import build
+from chatts_tpu_torch.parallel.mesh import all_reduce_tp
 
 DEFAULT_GROUP = 128
 
@@ -294,3 +295,46 @@ def int4_matmul_a8(
 
 
 int4_matmul_a8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the port of ``int4_matmul_tp``.  JAX's shard_map gives
+# each device its Megatron shard of the weights; here each rank holds its
+# shard already (``parallel/sharding.py``).  Column-parallel (q, k, v, gate,
+# up, the head: OUT over tp, x whole) is B3 on the rank's columns;
+# row-parallel (o, down: IN over tp, x split with it) is B3 on the rank's
+# input groups, then a sum over tp in x's type, as JAX's psum sums the
+# kernel's x-typed output (``chatts_tpu/ops/int4_matmul.py:396-398``).
+# ---------------------------------------------------------------------------
+
+def supported_tp(mesh, in_dim: int, out_dim: int, group: int, kind: str) -> bool:
+    """Whether the per-rank shapes of a (in_dim, out_dim) projection of
+    ``kind`` ("col" or "row") still tile: JAX's rule (tp divides OUT, or IN
+    and its groups), and the port's own, B3's (group 128, the rank's IN and
+    OUT multiples of 128)."""
+    tp = mesh.shape.get("tp", 1)
+    if group != DEFAULT_GROUP or in_dim % group:
+        return False
+    if kind == "col":
+        return out_dim % tp == 0 and (out_dim // tp) % 128 == 0 and in_dim % 128 == 0
+    if kind == "row":
+        ng = in_dim // group
+        return (in_dim % tp == 0 and ng % tp == 0 and (in_dim // tp) % 128 == 0
+                and out_dim % 128 == 0)
+    return False
+
+
+def int4_matmul_tp(
+    x: torch.Tensor,  # (R, IN) whole ("col") or (R, IN/tp) this rank's part ("row")
+    packed: torch.Tensor,  # this rank's shard: (IN//2, OUT/tp) or (IN/tp//2, OUT)
+    scales: torch.Tensor,  # (IN//G, OUT/tp) or (IN/tp//G, OUT)
+    *,
+    mesh,
+    kind: str,  # "col" | "row"
+) -> torch.Tensor:
+    """This rank's (R, OUT/tp) columns ("col"), or the whole (R, OUT) summed
+    over the tp group ("row"), in x's type."""
+    if kind not in ("col", "row"):
+        raise ValueError(f"int4_matmul_tp: kind is 'col' or 'row', not {kind!r}")
+    y = int4_matmul(x, packed, scales)
+    return all_reduce_tp(mesh, y) if kind == "row" else y

@@ -370,3 +370,62 @@ def ragged_decode_attention_int8(
 
 
 ragged_decode_attention_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the port of ``ragged_decode_attention_tp`` and
+# ``ragged_decode_attention_int8_tp``.  JAX's shard_map splits the kv-head
+# axis over tp (queries ride along with their head group) and the rows over
+# dp, and runs the single-device kernel on each shard; here each rank holds
+# its shard already (``parallel/sharding.py``), so the wrappers run B2 or B4
+# on it.  Attention never mixes heads or rows, so there is no collective:
+# o_proj's row-parallel product reduces afterwards.
+# ---------------------------------------------------------------------------
+
+def supported_tp(mesh, batch: int, kv_heads: int, num_heads: int) -> bool:
+    """Whether the (dp, tp) mesh divides the whole decode attention's grid
+    (``batch`` rows, ``kv_heads`` and ``num_heads`` heads): JAX's rule, and
+    the port's own, at most MAX_GROUP query heads a kv head."""
+    tp = mesh.shape.get("tp", 1)
+    dp = mesh.shape.get("dp", 1)
+    return (kv_heads % tp == 0 and num_heads % tp == 0 and batch % dp == 0
+            and num_heads % kv_heads == 0 and num_heads // kv_heads <= MAX_GROUP)
+
+
+def _check_tp(mesh, q: torch.Tensor, k_cache: torch.Tensor, what: str) -> None:
+    b, h, _ = q.shape
+    kvh = k_cache.shape[1]
+    if not supported_tp(mesh, b * mesh.dp, kvh * mesh.tp, h * mesh.tp):
+        raise ValueError(f"{what}: a shard of {b} rows, {h} heads over {kvh} kv heads "
+                         f"does not come from a (dp {mesh.dp}, tp {mesh.tp}) split")
+
+
+def ragged_decode_attention_tp(
+    q: torch.Tensor,  # (B/dp, H/tp, D): this rank's rows and heads
+    k_cache: torch.Tensor,  # (B/dp, KVH/tp, S, D)
+    v_cache: torch.Tensor,  # (B/dp, KVH/tp, S, D)
+    lengths: torch.Tensor,  # (B/dp,) int32
+    *,
+    mesh,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """This rank's (B/dp, H/tp, D) share of the decode attention."""
+    _check_tp(mesh, q, k_cache, "ragged_decode_attention_tp")
+    return ragged_decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+
+
+def ragged_decode_attention_int8_tp(
+    q: torch.Tensor,  # (B/dp, H/tp, D)
+    k_cache: torch.Tensor,  # (B/dp, KVH/tp, S, D) int8
+    v_cache: torch.Tensor,  # (B/dp, KVH/tp, S, D) int8
+    k_scale: torch.Tensor,  # (B/dp, KVH/tp, S) f32
+    v_scale: torch.Tensor,  # (B/dp, KVH/tp, S) f32
+    lengths: torch.Tensor,  # (B/dp,) int32
+    *,
+    mesh,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """This rank's (B/dp, H/tp, D) share of the int8-cache decode attention."""
+    _check_tp(mesh, q, k_cache, "ragged_decode_attention_int8_tp")
+    return ragged_decode_attention_int8(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                                        scale=scale)

@@ -1,0 +1,144 @@
+"""The (dp, tp) mesh over a ``torch.distributed`` world, and its collectives.
+
+Counterpart of ``chatts_tpu/parallel/mesh.py``.  JAX runs every device from
+one controller and GSPMD inserts the collectives; PyTorch runs one process a
+rank, so the port's mesh is this rank's place in the world plus the process
+groups its collectives run in.  Ranks lie on the mesh as JAX lays devices
+out (``np.asarray(devices).reshape(dp, tp)``): rank r is at dp index r // tp
+and tp index r % tp, so a tp group is tp consecutive ranks.
+
+Every collective of the port lives here: ``all_reduce_tp`` (row-parallel
+projections, the vocab-parallel embedding), ``all_gather_tp`` (the vocab of
+the logits, an activation-order projection's input), ``max_tp`` (an int8
+row-parallel projection's column or row maxima) and ``broadcast_from_driver``
+(tp rank 0's sampled ids and, for the serving engine, its plans).  Each is
+the identity without a mesh or at tp = 1.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+DATA_AXIS = "dp"
+MODEL_AXIS = "tp"
+
+
+@dataclasses.dataclass(eq=False)
+class Mesh:
+    """This rank's place on a (dp, tp) mesh and the groups it talks in."""
+
+    shape: Dict[str, int]  # {DATA_AXIS: dp, MODEL_AXIS: tp}, as JAX's mesh.shape
+    dp_index: int
+    tp_index: int
+    tp_ranks: Tuple[int, ...]  # the world ranks of this rank's tp group, by tp index
+    dp_ranks: Tuple[int, ...]  # the world ranks of this rank's dp group, by dp index
+    tp_group: Any
+    dp_group: Any
+    backend: str
+
+    @property
+    def tp(self) -> int:
+        return self.shape[MODEL_AXIS]
+
+    @property
+    def dp(self) -> int:
+        return self.shape[DATA_AXIS]
+
+    @property
+    def driver_rank(self) -> int:
+        """The world rank of tp index 0 in this rank's tp group."""
+        return self.tp_ranks[0]
+
+    @property
+    def is_driver(self) -> bool:
+        return self.tp_index == 0
+
+
+def create_mesh(dp: Optional[int] = None, tp: Optional[int] = None) -> Optional[Mesh]:
+    """The (dp, tp) mesh over the initialized world, JAX's defaults: all
+    ranks on the model axis unless told otherwise.  Every rank must call it,
+    with the same arguments, in the same order as its other group calls.  A
+    world of one rank (or none initialized) gives None: a single-device
+    model, as JAX's ``infer_mesh`` reports for unsharded parameters."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if dp is None and tp is None:
+        dp, tp = 1, n
+    elif dp is None:
+        dp = n // tp
+    elif tp is None:
+        tp = n // dp
+    if dp * tp != n:
+        raise ValueError(f"dp*tp = {dp}*{tp} != {n} devices")
+    if n == 1:
+        return None
+    rank = dist.get_rank()
+    mine: Dict[str, Any] = {}
+    # new_group is collective over the world: every rank makes every group.
+    for d in range(dp):
+        ranks = tuple(range(d * tp, (d + 1) * tp))
+        group = dist.new_group(list(ranks))
+        if rank in ranks:
+            mine["tp"] = (ranks, group)
+    for t in range(tp):
+        ranks = tuple(range(t, n, tp))
+        group = dist.new_group(list(ranks))
+        if rank in ranks:
+            mine["dp"] = (ranks, group)
+    return Mesh(shape={DATA_AXIS: dp, MODEL_AXIS: tp}, dp_index=rank // tp,
+                tp_index=rank % tp, tp_ranks=mine["tp"][0], dp_ranks=mine["dp"][0],
+                tp_group=mine["tp"][1], dp_group=mine["dp"][1],
+                backend=dist.get_backend())
+
+
+def _tp_active(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.tp > 1
+
+
+def all_reduce_tp(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the tp group, in x's type, in place."""
+    if _tp_active(mesh):
+        dist.all_reduce(x, group=mesh.tp_group)
+    return x
+
+
+def max_tp(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the tp group, in place."""
+    if _tp_active(mesh):
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.tp_group)
+    return x
+
+
+def all_gather_tp(mesh: Optional[Mesh], x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The tp group's ``x`` concatenated along ``dim`` in tp order."""
+    if not _tp_active(mesh):
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.tp)]
+    dist.all_gather(parts, x, group=mesh.tp_group)
+    return torch.cat(parts, dim=dim)
+
+
+def all_gather_dp(mesh: Optional[Mesh], obj: Any) -> list:
+    """Every dp group's picklable ``obj``, in dp order."""
+    if mesh is None or mesh.dp == 1:
+        return [obj]
+    out = [None] * mesh.dp
+    dist.all_gather_object(out, obj, group=mesh.dp_group)
+    return out
+
+
+def broadcast_from_driver(mesh: Optional[Mesh], value: Any) -> Any:
+    """tp rank 0's ``value`` on every rank of its tp group: a tensor in
+    place (every rank passes one of the same shape and type), anything else
+    pickled (what the other ranks pass is ignored)."""
+    if not _tp_active(mesh):
+        return value
+    if isinstance(value, torch.Tensor):
+        dist.broadcast(value, src=mesh.driver_rank, group=mesh.tp_group)
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=mesh.driver_rank, group=mesh.tp_group)
+    return box[0]

@@ -22,6 +22,12 @@ per-step-scatter decode, ``decode_recent_kv=False``).  ``generate`` takes a
    and the host syncs once per chunk.  The steps run as a Python loop (a CUDA
    graph of the step is later work).
 
+On a model placed on a mesh (``parallel/sharding.py``) every rank runs
+``generate`` on the same ``ProcessedBatch``: each dp group takes its rows
+(``local_batch``), tp rank 0 samples and its ids are broadcast over the tp
+group, so ranks never diverge on near-tied logits, and the dp groups' token
+ids are gathered at the end.
+
 TTFT and TPOT are host-clock times around work that ends in a device sync.
 """
 from __future__ import annotations
@@ -38,7 +44,8 @@ from chatts_tpu_torch.core.config import ChatTSConfig, GenerationConfig
 from chatts_tpu_torch.processor.processor import ProcessedBatch
 from chatts_tpu_torch.models.chatts import ChatTSModel, maybe_fuse
 from chatts_tpu_torch.models.convert import from_jax_params
-from chatts_tpu_torch.models.qwen import embed_tokens
+from chatts_tpu_torch.parallel.mesh import all_gather_dp, broadcast_from_driver
+from chatts_tpu_torch.parallel.sharding import infer_mesh, local_batch
 from chatts_tpu_torch.runtime import kv_cache, sampling
 
 CACHE_BUCKET = 256
@@ -105,6 +112,7 @@ class InferenceEngine:
         if fuse:
             model = maybe_fuse(model)
         self.model = model.eval()
+        self.mesh = infer_mesh(model)
         self.cfg = cfg
         self.cache_dtype = cache_dtype
         self.decode_chunk = decode_chunk
@@ -116,15 +124,19 @@ class InferenceEngine:
     def _tensor(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
 
+    def _sample(self, logits, generator, gen_cfg) -> torch.Tensor:
+        """Next ids (B,) int32; under a mesh tp rank 0's, broadcast."""
+        return broadcast_from_driver(self.mesh, sampling.sample(logits, generator, gen_cfg))
+
     def _decode_step(self, caches, tokens, cur_lens, generator, gen_cfg):
         llm = self.model.llm
         positions = cur_lens[:, None]
         hidden, _ = llm(
-            embed_tokens(llm.embed_tokens, tokens[:, None]), positions,
+            llm.embed(tokens[:, None]), positions,
             kv_caches=caches, write_pos=positions, kv_lengths=cur_lens + 1,
         )
         logits = llm.compute_logits(hidden)[:, 0]
-        return sampling.sample(logits, generator, gen_cfg)
+        return self._sample(logits, generator, gen_cfg)
 
     def _chunked_prefill(self, batch: ProcessedBatch, seq_lens: torch.Tensor,
                          caches, cache_len: int) -> torch.Tensor:
@@ -176,6 +188,8 @@ class InferenceEngine:
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         dev = self.device
+        prompt_lens = [int(x) for x in batch.seq_lens]
+        batch = local_batch(batch, self.mesh)
         b, t = batch.input_ids.shape
         chunked = self.prefill_chunk is not None and t > self.prefill_chunk
         if cache_len is None:
@@ -191,7 +205,8 @@ class InferenceEngine:
 
         start = time.perf_counter()
         seq_lens = self._tensor(batch.seq_lens, torch.int32)
-        caches = kv_cache.allocate(self.cfg.llm, b, cache_len, self.cache_dtype, dev)
+        caches = kv_cache.allocate(self.cfg.llm, b, cache_len, self.cache_dtype, dev,
+                                   kv_heads=self.model.llm.kv_heads)
         if chunked:
             hidden = self._chunked_prefill(batch, seq_lens, caches, cache_len)
         else:
@@ -210,7 +225,7 @@ class InferenceEngine:
             )
         last_idx = (seq_lens.long() - 1)[:, None, None].expand(b, 1, hidden.shape[-1])
         logits = self.model.compute_logits(hidden.gather(1, last_idx))[:, 0]
-        tokens = sampling.sample(logits, generator, gen_cfg)
+        tokens = self._sample(logits, generator, gen_cfg)
         _sync(dev)
         first_tokens = tokens.cpu().numpy()
         ttft = time.perf_counter() - start
@@ -257,9 +272,10 @@ class InferenceEngine:
                         break
                     row.append(int(tok))
             outputs.append(row)
+        outputs = [row for part in all_gather_dp(self.mesh, outputs) for row in part]
         return GenerateResult(
             token_ids=outputs,
-            prompt_lens=[int(x) for x in batch.seq_lens],
+            prompt_lens=prompt_lens,
             ttft_s=ttft,
             tpot_s=tpot,
             total_s=total,

@@ -11,7 +11,7 @@ Counterpart of ``chatts_tpu/runtime/kv_cache.py``.  Caches are head-major
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -28,9 +28,13 @@ def _check(dtype) -> None:
 
 
 def allocate(cfg: QwenConfig, batch_size: int, max_seq_len: int,
-             dtype=torch.bfloat16, device=None) -> List[LayerCache]:
+             dtype=torch.bfloat16, device=None, kv_heads: Optional[int] = None
+             ) -> List[LayerCache]:
+    """Zeroed caches of ``kv_heads`` heads a layer (the config's by default;
+    a tensor-parallel rank holds its share, ``QwenModel.kv_heads``)."""
     _check(dtype)
-    shape = (batch_size, cfg.num_key_value_heads, max_seq_len, cfg.head_dim)
+    kvh = cfg.num_key_value_heads if kv_heads is None else kv_heads
+    shape = (batch_size, kvh, max_seq_len, cfg.head_dim)
     if dtype == torch.int8:
         sshape = shape[:3]
         return [

@@ -56,6 +56,22 @@ What differs from the reference, and why:
   ``mixed_npt`` default is the module constant ``MIXED_NPT``.
 - Shape keys that mark a round's first XLA compile (``fresh``) have no
   counterpart: nothing compiles per shape.
+
+Tensor parallelism (a model from ``parallel/sharding.py``, dp = 1): JAX runs
+every device from the one engine loop; here every rank builds a
+``ServeEngine`` on its shard, and the driver, tp rank 0, owns the queue, the
+loop thread and every decision, since admission depends on arrival times
+and on the loop's timing.  Before each piece of device work (a monolithic
+admission, the staging of a block or scan-sliced one, a round, the first
+tokens of a scan-sliced admission, the rows going live) it broadcasts the
+plan, the op's name and its host arguments (the processed batch, slots,
+sampling parameters, budgets, the live slots); the other ranks run
+``follow()``, which runs each plan's op on their shard until the driver
+stops.  Sampled ids are tp rank 0's, broadcast.  The decode step's CUDA
+graph is captured only under NCCL (unverified); gloo collectives cannot be
+captured, so under gloo every decode round runs eagerly, by the
+constructor's choice, which ``stats()`` reports with its reason.  dp > 1
+raises: every rank would run its own loop.
 """
 from __future__ import annotations
 
@@ -79,12 +95,17 @@ from chatts_tpu_torch.processor.processor import ChatTSProcessor
 from chatts_tpu_torch.utils.profiling import MetricsAggregator
 from chatts_tpu_torch.models.chatts import ChatTSModel, maybe_fuse
 from chatts_tpu_torch.models.convert import from_jax_params
-from chatts_tpu_torch.models.qwen import embed_tokens
+from chatts_tpu_torch.parallel.mesh import broadcast_from_driver
+from chatts_tpu_torch.parallel.sharding import infer_mesh
 from chatts_tpu_torch.runtime import kv_cache, sampling
 
 # The most prompt tokens an admission row consumes in one step of a
 # scan-sliced mixed round (the reference engine's ``mixed_npt`` default).
 MIXED_NPT = 64
+# Under tensor parallelism an idle driver sends an empty plan this often, so
+# the followers' wait for the next plan never reaches the group's timeout
+# (``init_process_group``'s: 30 minutes by default for gloo, 10 for NCCL).
+HEARTBEAT_S = 10.0
 
 
 @dataclasses.dataclass
@@ -228,13 +249,19 @@ def _block_prefill_merge(
             bbuf[dst, :, :n] = sbuf[src, :, :n]
     last = (seq_lens.long() - 1).clamp(min=0)[:, None, None].expand(a, 1, hidden.shape[-1])
     logits = model.compute_logits(hidden.gather(1, last))[:, 0]
-    first = sampling.sample_per_slot(logits, generator, adm_temp, adm_topp)
+    first = _sample(model.mesh, logits, generator, adm_temp, adm_topp)
     tokens[dst] = first[src]
     cur_lens[dst] = seq_lens[src]
     temperature[dst] = adm_temp[src]
     top_p[dst] = adm_topp[src]
     budget[dst] = adm_budget[src] - 1
     return first
+
+
+def _sample(mesh, logits, generator, temperature, top_p) -> torch.Tensor:
+    """``sample_per_slot``'s ids; under a mesh tp rank 0's, broadcast."""
+    return broadcast_from_driver(
+        mesh, sampling.sample_per_slot(logits, generator, temperature, top_p))
 
 
 def _decode_step(llm, caches, tokens, cur_lens, active, live, budget, temperature, top_p,
@@ -246,19 +273,20 @@ def _decode_step(llm, caches, tokens, cur_lens, active, live, budget, temperatur
     ``_advance`` returns."""
     positions = cur_lens[:, None]
     hidden, _ = llm(
-        embed_tokens(llm.embed_tokens, tokens[:, None]), positions,
+        llm.embed(tokens[:, None]), positions,
         kv_caches=caches, write_pos=positions,
         kv_lengths=torch.where(active, cur_lens + 1, 1),
     )
     return _advance(llm.compute_logits(hidden)[:, 0], tokens, cur_lens, live, budget,
-                    temperature, top_p, eos_ids, generator)
+                    temperature, top_p, eos_ids, generator, llm.mesh)
 
 
-def _advance(logits, tokens, cur_lens, live, budget, temperature, top_p, eos_ids, generator):
+def _advance(logits, tokens, cur_lens, live, budget, temperature, top_p, eos_ids, generator,
+             mesh=None):
     """Sample every slot's next token from its logits (B, V) and advance the
     live slots.  Returns (emitted (B,) int32, -1 where a slot did not emit;
     then the next tokens, cur_lens, budget and live)."""
-    next_tok = sampling.sample_per_slot(logits, generator, temperature, top_p)
+    next_tok = _sample(mesh, logits, generator, temperature, top_p)
     emitted = torch.where(live, next_tok, -1)
     hit_eos = (next_tok[:, None] == eos_ids[None, :]).any(dim=1)
     budget = budget - live.to(budget.dtype)
@@ -371,7 +399,7 @@ def _sample_admission_first(model: ChatTSModel, last_hidden, temperature, top_p,
     model's type)."""
     hidden = last_hidden.to(model.llm.embed_tokens.dtype)[:, None]
     logits = model.compute_logits(hidden)[:, 0]
-    return sampling.sample_per_slot(logits, generator, temperature, top_p)
+    return _sample(model.mesh, logits, generator, temperature, top_p)
 
 
 def _mixed_round(model: ChatTSModel, chunk_size: int, npt: int, kv_limit: int, caches,
@@ -399,7 +427,7 @@ def _mixed_round(model: ChatTSModel, chunk_size: int, npt: int, kv_limit: int, c
     for i in range(chunk_size):
         off = adm_offset + i * npt
         pro_pos = torch.arange(off, off + npt, dtype=torch.int32, device=dev)
-        dec_embeds = embed_tokens(llm.embed_tokens, tokens)
+        dec_embeds = llm.embed(tokens)
         x = torch.cat([dec_embeds, adm_embeds[:, i * npt:(i + 1) * npt]
                        .reshape(a * npt, hdim).to(dec_embeds.dtype)])[None]
         positions = torch.cat([cur_lens, pro_pos.repeat(a)])[None]
@@ -409,7 +437,7 @@ def _mixed_round(model: ChatTSModel, chunk_size: int, npt: int, kv_limit: int, c
             adm_seq_lens=adm_seq_lens, span_start=off, kv_limit=kv_limit)
         emit, tokens, cur_lens, budget, live = _advance(
             llm.compute_logits(hidden[0, :b, None])[:, 0], tokens, cur_lens, live, budget,
-            temperature, top_p, eos_ids, generator)
+            temperature, top_p, eos_ids, generator, llm.mesh)
         emitted.append(emit)
         captured = pro_pos[None, :] == (adm_seq_lens - 1)[:, None]  # (A, npt)
         last_hidden += torch.where(captured[..., None], hidden[0, b:].reshape(a, npt, hdim).float(),
@@ -425,7 +453,9 @@ def _mixed_round(model: ChatTSModel, chunk_size: int, npt: int, kv_limit: int, c
 
 class ServeEngine:
     """Slot-based continuous-batching engine with a background step loop, on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU).  On a
+    tensor-parallel shard every rank makes one: tp rank 0 serves (``start``,
+    ``submit``) and the others call ``follow()``."""
 
     def __init__(
         self,
@@ -458,6 +488,11 @@ class ServeEngine:
         if fuse:
             model = maybe_fuse(model)
         self.model = model.eval()
+        self.mesh = infer_mesh(model)
+        if self.mesh is not None and self.mesh.dp > 1:
+            raise ValueError(f"ServeEngine serves tensor parallelism only (dp = 1); this "
+                             f"model's mesh has dp {self.mesh.dp}")
+        self.is_driver = self.mesh is None or self.mesh.is_driver
         self.cfg = cfg
         self.processor = processor
         # Pin the series-count bucket, as the reference does, so admission
@@ -499,7 +534,8 @@ class ServeEngine:
         with torch.inference_mode():
             self._eos_dev = torch.tensor(list(self.eos_token_ids) or [-1],
                                          dtype=torch.int32, device=dev)
-            self.caches = kv_cache.allocate(cfg.llm, b, max_model_len, cache_dtype, dev)
+            self.caches = kv_cache.allocate(cfg.llm, b, max_model_len, cache_dtype, dev,
+                                            kv_heads=self.model.llm.kv_heads)
             self.tokens = torch.zeros((b,), dtype=torch.int32, device=dev)
             self.cur_lens = torch.zeros((b,), dtype=torch.int32, device=dev)
             self.temperature = torch.zeros((b,), dtype=torch.float32, device=dev)
@@ -513,6 +549,23 @@ class ServeEngine:
         # them, captured in the first.
         self._decode_graph: Optional[_DecodeStepGraph] = None
         self.decode_graph_capture_s = 0.0
+        # Why decode rounds run eagerly, or None when they replay the graph.
+        self.eager_decode_reason: Optional[str] = None
+        if self.device.type != "cuda":
+            self.eager_decode_reason = "no CUDA graphs off the card"
+        elif self.mesh is not None and self.mesh.backend != "nccl":
+            self.eager_decode_reason = (f"{self.mesh.backend} collectives cannot be captured "
+                                        f"in a CUDA graph")
+            print(f"[ServeEngine] decode rounds run eagerly: {self.eager_decode_reason}",
+                  file=sys.stderr)
+        # Under tensor parallelism: the time of the driver's last plan, and
+        # whether the followers were told to stop; an error that ended the
+        # driver's loop (the ranks cannot be brought back into step).
+        self._last_plan_s = time.perf_counter()
+        self._followers_stopped = False
+        self.loop_error: Optional[str] = None
+        # The scan-sliced admission whose first tokens are to be sampled.
+        self._finalizing: Optional[Dict[str, Any]] = None
 
         self.slots: List[Optional[Request]] = [None] * b
         self.live_host = np.zeros((b,), bool)
@@ -679,7 +732,12 @@ class ServeEngine:
             time.sleep(0.01)
 
     def submit(self, request: Request) -> Request:
+        if not self.is_driver:
+            raise RuntimeError("a follower rank takes no requests: submit to tp rank 0")
         self.total_requests += 1
+        if self.loop_error is not None:
+            self._fail(request, f"the engine loop ended: {self.loop_error}")
+            return request
         self.waiting.put(request)
         self._wake.set()
         return request
@@ -701,6 +759,8 @@ class ServeEngine:
         return req
 
     def start(self):
+        if not self.is_driver:
+            raise RuntimeError("a follower rank runs follow(), not the engine loop")
         if self._thread is None:
             self._thread = threading.Thread(target=self._loop, daemon=True)
             self._thread.start()
@@ -711,6 +771,39 @@ class ServeEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        elif self.mesh is not None and self.is_driver and self.loop_error is None:
+            self._stop_followers()  # driven by hand, with no loop to tell them
+
+    # -- tensor parallelism -------------------------------------------------
+
+    def _run(self, op: str, *args):
+        """Run the device op ``_op_<op>(*args)``; under tensor parallelism
+        the driver broadcasts it as a plan first, so every rank runs it."""
+        if self.mesh is not None:
+            broadcast_from_driver(self.mesh, (op, args))
+            self._last_plan_s = time.perf_counter()
+        return getattr(self, "_op_" + op)(*args)
+
+    def _stop_followers(self) -> None:
+        if not self._followers_stopped:
+            self._followers_stopped = True
+            broadcast_from_driver(self.mesh, ("stop", ()))
+
+    def follow(self) -> None:
+        """A follower rank's loop: run the driver's plans until it stops."""
+        if self.is_driver:
+            raise RuntimeError("follow() is for the ranks other than tp rank 0")
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        with torch.inference_mode():
+            while True:
+                op, args = broadcast_from_driver(self.mesh, None)
+                if op == "stop":
+                    return
+                getattr(self, "_op_" + op)(*args)
+
+    def _op_idle(self) -> None:
+        """The idle driver's heartbeat."""
 
     def __enter__(self):
         self.start()
@@ -864,6 +957,8 @@ class ServeEngine:
         except Exception as err:
             for req in admitted:
                 self._fail(req, f"{type(err).__name__}: {err}")
+            if self.mesh is not None:
+                raise  # the ranks may have parted mid-step: the loop ends
 
     def _prefill_requests(self, reqs: List[Request], slots: List[int], batch,
                           keep_rows: List[int], mode: str = "mono") -> None:
@@ -878,10 +973,8 @@ class ServeEngine:
             return
         kb, t = batch.input_ids.shape
         mono_t0 = time.perf_counter()
-        embeds = self._embed(batch)
         # Every processed row computes (rejected over-long rows included);
         # only the admitted rows land in a slot.
-        seq_lens = batch.seq_lens.astype(np.int32)
         temp = np.zeros((kb,), np.float32)
         topp = np.ones((kb,), np.float32)
         budget = np.zeros((kb,), np.int32)
@@ -889,13 +982,7 @@ class ServeEngine:
             temp[row] = req.params.temperature
             topp[row] = req.params.top_p
             budget[row] = req.params.max_tokens
-        first = _block_prefill_merge(
-            self.model, self.caches, self.tokens, self.cur_lens, self.temperature,
-            self.top_p, self.budget,
-            self._tensor(keep_rows, torch.int64), self._tensor(slots, torch.int64),
-            embeds, self._tensor(seq_lens, torch.int32), self._tensor(temp, torch.float32),
-            self._tensor(topp, torch.float32), self._tensor(budget, torch.int32),
-            self.generator, self.prefill_act_int8)
+        first = self._run("mono", batch, keep_rows, slots, temp, topp, budget)
         self._finalize_admission(reqs, slots, keep_rows, first.cpu().numpy())
         # Monolithic admissions run outside the round loop and block on the
         # first-token fetch; they are logged as their own round kind.
@@ -903,6 +990,16 @@ class ServeEngine:
         self._log_round(kind="mono", admit_s=0.0, round_s=mono_s, live=0, a=len(reqs),
                         rows=kb, emitted=len(reqs), gap_s=0.0)
         self._event("mono_admission", mono_s, rows=kb, t=t)
+
+    def _op_mono(self, batch, keep_rows, slots, temp, topp, budget) -> torch.Tensor:
+        """A monolithic admission's prefill: the first tokens (A,)."""
+        return _block_prefill_merge(
+            self.model, self.caches, self.tokens, self.cur_lens, self.temperature,
+            self.top_p, self.budget,
+            self._tensor(keep_rows, torch.int64), self._tensor(slots, torch.int64),
+            self._embed(batch), self._tensor(batch.seq_lens, torch.int32),
+            self._tensor(temp, torch.float32), self._tensor(topp, torch.float32),
+            self._tensor(budget, torch.int32), self.generator, self.prefill_act_int8)
 
     def _embed(self, batch) -> torch.Tensor:
         """Merged prompt embeddings (A, T, H) of a processed batch."""
@@ -944,15 +1041,22 @@ class ServeEngine:
             going_live.append((slot, tok, req))
         if device_synced or not going_live:
             return
-        rows = self._tensor([slot for slot, _, _ in going_live], torch.int64)
-        for state, values, dtype in (
-                (self.tokens, [tok for _, tok, _ in going_live], torch.int32),
-                (self.cur_lens, [r.prompt_tokens for _, _, r in going_live], torch.int32),
-                (self.temperature, [r.params.temperature for _, _, r in going_live],
-                 torch.float32),
-                (self.top_p, [r.params.top_p for _, _, r in going_live], torch.float32),
-                (self.budget, [r.params.max_tokens - 1 for _, _, r in going_live],
-                 torch.int32)):
+        self._run("go_live", [slot for slot, _, _ in going_live],
+                  [tok for _, tok, _ in going_live],
+                  [r.prompt_tokens for _, _, r in going_live],
+                  [r.params.temperature for _, _, r in going_live],
+                  [r.params.top_p for _, _, r in going_live],
+                  [r.params.max_tokens - 1 for _, _, r in going_live])
+
+    def _op_go_live(self, slots, tokens, cur_lens, temperature, top_p, budget) -> None:
+        """Write the rows of a scan-sliced admission that go live into the
+        decode state, one indexed assignment an array, in place."""
+        rows = self._tensor(slots, torch.int64)
+        for state, values, dtype in ((self.tokens, tokens, torch.int32),
+                                     (self.cur_lens, cur_lens, torch.int32),
+                                     (self.temperature, temperature, torch.float32),
+                                     (self.top_p, top_p, torch.float32),
+                                     (self.budget, budget, torch.int32)):
             state[rows] = self._tensor(values, dtype)
 
     def _mixed_plan(self, n_reqs: int, t: int):
@@ -999,7 +1103,6 @@ class ServeEngine:
         if kb != len(reqs) or keep_rows != list(range(kb)) or kb > a:
             raise RuntimeError(f"a mixed admission packs exactly its {len(reqs)} "
                                f"admitted rows, not {kb}")
-        embeds = F.pad(self._embed(batch), (0, 0, 0, t_pad - t, 0, a - kb))
         seq_lens = np.zeros((a,), np.int32)  # 0 for pad rows: nothing captured
         adm_slots = np.zeros((a,), np.int64)  # pad rows read slot 0, write nothing
         temp = np.zeros((a,), np.float32)
@@ -1010,8 +1113,16 @@ class ServeEngine:
             temp[row] = req.params.temperature
             topp[row] = req.params.top_p
             self.slots[slot] = req
+        self._run("stage_mixed", batch, slots, keep_rows, a, npt, t_pad, seq_lens, adm_slots,
+                  temp, topp)
+        self._pending_mixed["reqs"] = reqs
+
+    def _op_stage_mixed(self, batch, slots, keep_rows, a, npt, t_pad, seq_lens, adm_slots,
+                        temp, topp) -> None:
+        kb, t = batch.input_ids.shape
+        embeds = F.pad(self._embed(batch), (0, 0, 0, t_pad - t, 0, a - kb))
         self._pending_mixed = {
-            "mode": "mixed", "reqs": reqs, "slots": slots, "keep_rows": keep_rows,
+            "mode": "mixed", "slots": slots, "keep_rows": keep_rows,
             "embeds": embeds, "o": 0, "t_pad": t_pad, "npt": npt, "n_real": kb,
             "adm_slots": self._tensor(adm_slots, torch.int64),
             "seq_lens": self._tensor(seq_lens, torch.int32),
@@ -1031,15 +1142,21 @@ class ServeEngine:
                                f"admitted rows, not {kb}")
         for req, slot in zip(reqs, slots):
             self.slots[slot] = req
+        self._run("stage_block", batch, slots, keep_rows,
+                  [r.params.temperature for r in reqs], [r.params.top_p for r in reqs],
+                  [r.params.max_tokens for r in reqs])
+        self._pending_mixed["reqs"] = reqs
+
+    def _op_stage_block(self, batch, slots, keep_rows, temp, topp, budget) -> None:
         self._pending_mixed = {
-            "mode": "block", "reqs": reqs, "slots": slots, "keep_rows": keep_rows,
+            "mode": "block", "slots": slots, "keep_rows": keep_rows,
             "embeds": self._embed(batch),
             "src": self._tensor(keep_rows, torch.int64),
             "dst": self._tensor(slots, torch.int64),
             "seq_lens": self._tensor(batch.seq_lens, torch.int32),
-            "temp": self._tensor([r.params.temperature for r in reqs], torch.float32),
-            "topp": self._tensor([r.params.top_p for r in reqs], torch.float32),
-            "budget": self._tensor([r.params.max_tokens for r in reqs], torch.int32),
+            "temp": self._tensor(temp, torch.float32),
+            "topp": self._tensor(topp, torch.float32),
+            "budget": self._tensor(budget, torch.int32),
         }
 
     def _dispatch_block(self):
@@ -1053,7 +1170,7 @@ class ServeEngine:
             first = _block_prefill_merge(
                 self.model, self.caches, self.tokens, self.cur_lens, self.temperature,
                 self.top_p, self.budget, *adm)
-            return ("block_pre", first, st, len(st["reqs"]), rows)
+            return ("block_pre", first, st, len(st["slots"]), rows)
         tokens, cur_lens, budget, packed = _block_admission_round(
             self.model, self.decode_chunk, self.caches, self.tokens, self.cur_lens,
             self._active_device(), self.temperature, self.top_p, self._eos_dev,
@@ -1061,7 +1178,7 @@ class ServeEngine:
         for state, new in ((self.tokens, tokens), (self.cur_lens, cur_lens),
                            (self.budget, budget)):
             state.copy_(new)
-        return ("block", packed, st, len(st["reqs"]), rows)
+        return ("block", packed, st, len(st["slots"]), rows)
 
     def _dispatch_mixed(self):
         """One scan-sliced round: every slot advances ``decode_chunk`` steps
@@ -1084,7 +1201,7 @@ class ServeEngine:
         self.mixed_rounds_run += 1
         finalize = None
         if st["o"] >= st["t_pad"]:
-            finalize = st
+            finalize = self._finalizing = st
             self._pending_mixed = None
         a = st["embeds"].shape[0]
         return ("mixed", packed, finalize, a, a * npt)
@@ -1112,12 +1229,17 @@ class ServeEngine:
         if finalize is not None:
             # The scan-sliced admission's last round: sample the first tokens
             # from the captured hidden states, then the rows go live.
-            first = _sample_admission_first(self.model, finalize["last_hidden"],
-                                            finalize["temp"], finalize["topp"],
-                                            self.generator)
+            first = self._run("mixed_first")
             self._finalize_admission(finalize["reqs"], finalize["slots"],
                                      finalize["keep_rows"], first.cpu().numpy(),
                                      device_synced=False)
+
+    def _op_mixed_first(self) -> torch.Tensor:
+        """The first tokens (A,) of the scan-sliced admission whose last
+        round ran."""
+        st, self._finalizing = self._finalizing, None
+        return _sample_admission_first(self.model, st["last_hidden"], st["temp"],
+                                       st["topp"], self.generator)
 
     def _finish(self, slot: int, reason: str) -> None:
         req = self.slots[slot]
@@ -1142,7 +1264,7 @@ class ServeEngine:
         args = (self.model, self.decode_chunk, self.caches, self.tokens, self.cur_lens,
                 self._active_device(), self.temperature, self.top_p, self._eos_dev,
                 self.budget, self.generator)
-        if self.device.type != "cuda":
+        if self.eager_decode_reason is not None:
             packed = _decode_all_slots(*args)
         else:
             if self._decode_graph is None:
@@ -1159,13 +1281,18 @@ class ServeEngine:
         for slot, req in enumerate(self.slots):
             if req is not None and req.cancelled and self.live_host[slot]:
                 self._finish(slot, "cancelled")
+        if self._pending_mixed is None and not self.live_host.any():
+            return None
+        return self._run("round", self.live_host.copy())
+
+    def _op_round(self, live: np.ndarray):
+        """The round the staged admission and the ``live`` slots call for."""
+        self.live_host[:] = live  # a follower's mirror of the driver's
         if self._pending_mixed is not None:
             if self._pending_mixed["mode"] == "block":
                 return self._dispatch_block()
             return self._dispatch_mixed()
-        if self.live_host.any():
-            return self._dispatch_decode()
-        return None
+        return self._dispatch_decode()
 
     def _process_emitted(self, emitted_host: np.ndarray, live_host: np.ndarray) -> None:
         for slot, req in enumerate(self.slots):
@@ -1195,7 +1322,10 @@ class ServeEngine:
         round N decodes its replacement in round N + 1.  A bounded grace
         (admit_grace_s) after a round that freed slots lets replacement
         submissions join the same wave.  A failed step fails every
-        in-flight request and the loop keeps serving."""
+        in-flight request and the loop keeps serving; under tensor
+        parallelism it also ends the loop (``loop_error``), since the ranks
+        may have parted mid-step.  A loop that ends normally tells the
+        followers to stop."""
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         with torch.inference_mode():
@@ -1214,6 +1344,9 @@ class ServeEngine:
                         elif self._pending_mixed is None and not self.live_host.any():
                             self._wake.wait(timeout=0.05)
                             self._wake.clear()
+                            if (self.mesh is not None
+                                    and time.perf_counter() - self._last_plan_s > HEARTBEAT_S):
+                                self._run("idle")
                         continue
                     fin0 = self._finished_total
                     self._complete_round(handle)
@@ -1246,6 +1379,16 @@ class ServeEngine:
                             self._fail(req, f"engine step failed: {err}")
                             self.slots[slot] = None
                     self.live_host[:] = False
+                    if self.mesh is not None:
+                        # The ranks may have parted mid-step and cannot be
+                        # brought back into step: the loop ends.
+                        self.loop_error = f"{type(err).__name__}: {err}"
+                        while not self.waiting.empty():
+                            self._fail(self.waiting.get_nowait(), "engine step failed: "
+                                       f"{self.loop_error}")
+                        return
+            if self.mesh is not None:
+                self._stop_followers()
 
     # -- metrics -----------------------------------------------------------
 
@@ -1261,6 +1404,9 @@ class ServeEngine:
             "waiting": self.waiting.qsize(),
             "total_requests": self.total_requests,
             "total_output_tokens": self.total_output_tokens,
+            "decode_graph": self.eager_decode_reason is None,
+            "eager_decode_reason": self.eager_decode_reason,
+            "loop_error": self.loop_error,
         }
         agg: Dict[str, list] = collections.defaultdict(lambda: [0, 0.0, 0, 0.0])
         for r in self.round_snapshot():

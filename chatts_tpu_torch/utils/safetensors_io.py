@@ -9,7 +9,8 @@ bytes, offsets counted from the end of the header.
 ``SafetensorsFile`` memory-maps a file and reads one tensor at a time: the
 tensor's byte range is viewed in the map and copied once, to the CPU or
 straight to the requested device, so the host holds about one tensor (and
-the page cache). ``shape`` reads the header only.
+the page cache). ``get_slice`` copies only a range of one dimension (a
+tensor-parallel rank's shard). ``shape`` reads the header only.
 
 ``save_file`` writes one file; ``ShardedWriter`` writes
 ``model-00001.safetensors``, ... of about ``max_shard_bytes`` each plus
@@ -96,6 +97,30 @@ class SafetensorsFile:
         # aligned, wherever the offset falls in the file.
         raw = raw.clone() if device.type == "cpu" else raw.to(device)
         return raw.view(dtype).reshape(shape)
+
+    def get_slice(self, name: str, dim: int, start: int, stop: int,
+                  device=None) -> torch.Tensor:
+        """``tensor[..., start:stop, ...]`` along ``dim`` on ``device``: the
+        slice's bytes are gathered from the map into one host copy (a
+        contiguous range for dim 0), then moved."""
+        entry = self._entries[name]
+        dtype, shape = DTYPES[entry["dtype"]], tuple(entry["shape"])
+        if not 0 <= start <= stop <= shape[dim]:
+            raise ValueError(f"{name}: slice [{start}, {stop}) of dim {dim} of {shape}")
+        begin, end = entry["data_offsets"]
+        device = torch.device(device or "cpu")
+        out_shape = shape[:dim] + (stop - start,) + shape[dim + 1:]
+        if end == begin or start == stop:
+            return torch.empty(out_shape, dtype=dtype, device=device)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        outer = int(np.prod(shape[:dim], dtype=np.int64))
+        inner = int(np.prod(shape[dim + 1:], dtype=np.int64)) * itemsize
+        raw = torch.frombuffer(self._map, dtype=torch.uint8, count=end - begin,
+                               offset=self._data_start + begin)
+        part = raw.view(outer, shape[dim], inner)[:, start:stop].contiguous()
+        if device.type != "cpu":
+            part = part.to(device)
+        return part.view(dtype).reshape(out_shape)
 
     def close(self) -> None:
         self._map.close()

@@ -66,7 +66,15 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      2 layers of the directory on the card against the same on the CPU in
      f32 (plain path), bf16 and act_int8 prefill, (f) phase 4's batch through
      ``InferenceEngine`` on the loaded model, greedy twice, token-identical,
-     and once with act_int8, (g) the model served through
+     and once with act_int8, (t) tensor parallelism: two ranks on cuda:0
+     over gloo each load their tp shard of the directory
+     (``load_checkpoint(mesh=)``), compute phase 4's first-step logits
+     (held to 3% of the largest of (c)'s model's), generate phase 4's batch
+     (tokens against (f)'s) and serve 4 requests with an int8 KV cache, rank
+     0 driving and rank 1 in ``follow()`` (first-token logits held the same
+     way against a single-device ``ServeEngine``), each rank's launches of
+     B1 to B4 summed as the path "tp", and the times, with the share of a
+     decode step in collectives, (g) the model served through
      ``examples/serve_openai.py``'s ``build`` at phase 5's configuration, one
      wave of 8 chat requests twice, token-identical, (h) the activation-order
      and asymmetric exports at 2 layers, ``perm4`` and ``zeros4`` on the
@@ -2338,6 +2346,446 @@ def _logits_against_cpu(torch, ckpt: str, cfg, dev, what: str, extra=None) -> di
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7t: tensor-parallel serving, two ranks on the card
+# ---------------------------------------------------------------------------
+
+# Phase 7t runs ``TP_RANKS`` ranks on cuda:0 over gloo (NCCL refuses two
+# ranks on one device); a rank that fails or outlives TP_TIMEOUT_S fails the
+# run, and every rank is killed.
+TP_RANKS = 2
+TP_TIMEOUT_S = 600
+TP_NEW_TOKENS = 64
+TP_SERVE_TOKENS = 32
+# The first-step logits of the batch at tp = 2 against the single-device
+# model, both bf16 on the card, 48 layers: each row-parallel projection
+# rounds its two halves to bf16 before their sum (as JAX's psum of the
+# kernel's bf16 output does), one more bf16 rounding of the sublayer's
+# output than the single-device product, twice a layer; the difference then
+# travels through the rest of the stack.  The 2-layer card-against-CPU
+# check (7e) allows 1.5% of the largest logit for bf16 against f32; 48
+# layers of one extra rounding a sublayer are held to twice that.
+TP_LOGIT_RTOL_OF_MAX = 3e-2
+
+
+def tp_requests(cfg, seed: int):
+    """Phase 7t's four serving requests: prompts of 200 to 500 words with one
+    or two series, greedy, ``TP_SERVE_TOKENS`` new tokens."""
+    import numpy as np
+
+    from chatts_tpu_torch.serve.scheduler import Request, SamplingParams
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for n_words, lengths in [(200, [256]), (350, [512, 256]), (500, [300]), (260, [800])]:
+        holes = " ".join(f"series {j}: <ts><ts/>" for j in range(len(lengths)))
+        words = " ".join(f"w{int(x)}" for x in rng.integers(0, 10 ** 6, n_words))
+        reqs.append(Request(f"Please analyze {holes} and then answer. {words}",
+                            [rng.normal(0.0, 10.0, size=n).cumsum() for n in lengths],
+                            SamplingParams(max_tokens=TP_SERVE_TOKENS, temperature=0.0)))
+    return reqs
+
+
+def tp_serve_engine(model, cfg, dev):
+    """The serving engine of phase 7t, on one card or one rank: int8 KV,
+    8 slots, cap 2,048, decode chunk 16, no length classes (the four
+    requests admit as one wave on both)."""
+    import torch
+
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
+    from chatts_tpu_torch.serve.scheduler import ServeEngine
+
+    return ServeEngine(model, cfg, ChatTSProcessor(WordTokenizer(), cfg), device=dev,
+                       max_batch_size=8, max_model_len=2048, cache_dtype=torch.int8,
+                       decode_chunk=16, fuse=False, admission_binning=False)
+
+
+class FirstLogits:
+    """Wraps a model's ``compute_logits`` for its next call only: keeps a
+    host copy of that call's logits (an admission's first tokens), then
+    steps aside, so that a decode graph captured later sees the model's own
+    function."""
+
+    def __init__(self, llm):
+        self.llm, self.inner, self.logits = llm, llm.compute_logits, None
+        llm.compute_logits = self
+
+    def __call__(self, hidden):
+        self.remove()
+        logits = self.inner(hidden)
+        self.logits = logits[:, -1].float().cpu()
+        return logits
+
+    def remove(self):
+        self.llm.__dict__.pop("compute_logits", None)
+
+
+def tp_serve(engine, reqs):
+    """The requests as one admission through ``engine`` (the driver's loop
+    under tensor parallelism); returns the first tokens' logits."""
+    recorder = FirstLogits(engine.model.llm)
+    try:
+        engine.waiting.requeue(reqs)  # one monolithic admission of all four
+        with engine:
+            deadline = time.time() + 300
+            while any(r.finished_s is None and r.error is None for r in reqs):
+                if time.time() > deadline:
+                    raise TimeoutError("phase 7t requests did not finish")
+                time.sleep(0.01)
+    finally:
+        recorder.remove()
+    for r in reqs:
+        if r.error or len(r.output_tokens) != TP_SERVE_TOKENS:
+            raise AssertionError(f"phase 7t request: error {r.error}, "
+                                 f"{len(r.output_tokens)} tokens")
+    return recorder.logits
+
+
+class CollectiveClock:
+    """While on, each tensor collective of the model, the batch engine and
+    the serving engine is timed on the host between two device syncs (so
+    the card's queued work is not counted in it); ``seconds`` and ``calls``
+    add up."""
+
+    NAMES = {"models.qwen": ("all_reduce_tp", "all_gather_tp"),
+             "ops.int4_matmul": ("all_reduce_tp",),  # int4_matmul_tp's row sum
+             "runtime.engine": ("broadcast_from_driver",),
+             "serve.scheduler": ("broadcast_from_driver",)}
+
+    def __init__(self):
+        import importlib
+
+        self.seconds, self.calls, self.saved = 0.0, 0, []
+        for mod_name, names in self.NAMES.items():
+            mod = importlib.import_module("chatts_tpu_torch." + mod_name)
+            for name in names:
+                inner = getattr(mod, name)
+                self.saved.append((mod, name, inner))
+                setattr(mod, name, self._timed(inner))
+
+    def _timed(self, inner):
+        import torch
+
+        def timed(mesh, x, *args, **kw):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = inner(mesh, x, *args, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - start
+            self.calls += 1
+            return out
+
+        return timed
+
+    def remove(self) -> None:
+        for mod, name, inner in self.saved:
+            setattr(mod, name, inner)
+
+
+class KernelInputs:
+    """While on, keeps the inputs of the model's first call at each shape to
+    B1 (``attention``), B3 (``int4_matmul_tp``, ``int4_matmul``), B2 and B4
+    (the ``_tp`` wrappers) on the card, by patching those names in
+    ``models/qwen.py``; the wrappers themselves, and so their launch counts,
+    are untouched.  The int4 weights are kept by reference (the model's own),
+    the rest copied.  ``check()`` then holds each kernel against its plain
+    version on those inputs, with phase 2's tolerances."""
+
+    NAMES = (("attention", "flash_attention"), ("int4_matmul_tp", "int4_matmul"),
+             ("int4_matmul", "int4_matmul"),
+             ("ragged_decode_attention_tp", "ragged_decode_attention"),
+             ("ragged_decode_attention_int8_tp", "ragged_decode_attention_int8"))
+
+    def __init__(self):
+        from chatts_tpu_torch.models import qwen
+
+        self.qwen, self.calls, self.saved = qwen, {}, []
+        for name, kernel in self.NAMES:
+            inner = getattr(qwen, name)
+            self.saved.append((name, inner))
+            setattr(qwen, name, self._kept(kernel, inner))
+
+    def _kept(self, kernel: str, inner):
+        import torch
+
+        def copy(i, a):
+            weight = kernel == "int4_matmul" and i in (1, 2)
+            return a.detach().clone() if isinstance(a, torch.Tensor) and not weight else a
+
+        def kept(*args, **kw):
+            if (args[0].is_cuda and kw.get("impl", "auto") == "auto"
+                    and not torch.cuda.is_current_stream_capturing()):
+                key = (kernel,) + tuple(tuple(a.shape) for a in args)
+                if key not in self.calls:
+                    self.calls[key] = ([copy(i, a) for i, a in enumerate(args)],
+                                       {k: copy(-1, v) for k, v in kw.items()
+                                        if k not in ("impl", "mesh", "kind")})
+            return inner(*args, **kw)
+
+        return kept
+
+    def remove(self) -> None:
+        for name, inner in self.saved:
+            setattr(self.qwen, name, inner)
+
+    def check(self) -> list:
+        """(kernel, shapes, max_abs_err) of each kept call; raises where a
+        kernel disagrees with its plain version."""
+        from chatts_tpu_torch.ops import flash_attention as fa
+        from chatts_tpu_torch.ops import int4_matmul as i4
+        from chatts_tpu_torch.ops import ragged_decode_attention as rda
+
+        plain = {"flash_attention": (fa.flash_attention, fa.flash_attention_reference, 0.0),
+                 "int4_matmul": (i4.int4_matmul, i4.int4_matmul_reference, 0.0),
+                 "ragged_decode_attention": (rda.ragged_decode_attention,
+                                             rda.ragged_decode_attention_reference, 0.0),
+                 "ragged_decode_attention_int8": (rda.ragged_decode_attention_int8,
+                                                  rda.ragged_decode_attention_int8_reference,
+                                                  INT8_ROW_RTOL)}
+        out = []
+        for key, (args, kw) in self.calls.items():
+            kernel, shapes = key[0], key[1:]
+            wrapper, reference, row_rtol = plain[kernel]
+            what = f"{kernel} at the rank's shapes {shapes}"
+            got = wrapper(*args, **kw)
+            err = compare(got, reference(*args, **kw), what, row_rtol=row_rtol)
+            if kernel == "int4_matmul":
+                _int4_close(got, i4.int4_matmul_grouped_reference(*args), what)
+            out.append((kernel, shapes, err))
+        return out
+
+
+def tp_decode_step_share(torch, engine, batch, steps: int = 4) -> dict:
+    """The host time of ``steps`` batch decode steps (``engine._decode_step``
+    at the batch's prompt lengths on a cache of random values), and the
+    share of it in collectives, each timed between device syncs."""
+    from chatts_tpu_torch.core.config import GenerationConfig
+    from chatts_tpu_torch.runtime import kv_cache
+    from chatts_tpu_torch.runtime.engine import default_cache_len
+
+    dev = engine.device
+    b, t = batch.input_ids.shape
+    cache_len = default_cache_len(t, TP_NEW_TOKENS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    greedy = GenerationConfig(max_new_tokens=TP_NEW_TOKENS, greedy=True)
+    with torch.inference_mode():
+        caches = kv_cache.allocate(engine.cfg.llm, b, cache_len, engine.cache_dtype, dev,
+                                   kv_heads=engine.model.llm.kv_heads)
+        for layer in caches:
+            for part in layer:
+                part.copy_(torch.randn(part.shape, generator=gen, device=dev))
+        tokens = torch.randint(10, 400, (b,), generator=gen, device=dev, dtype=torch.int32)
+        cur_lens = torch.as_tensor(batch.seq_lens, device=dev).to(torch.int32)
+        engine._decode_step(caches, tokens, cur_lens, gen, greedy)
+        clock = CollectiveClock()
+        try:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(steps):
+                engine._decode_step(caches, tokens, cur_lens, gen, greedy)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - start
+        finally:
+            clock.remove()
+    return dict(step_ms=total / steps * 1e3, collective_ms=clock.seconds / steps * 1e3,
+                collectives_a_step=clock.calls / steps, collective_share=clock.seconds / total)
+
+
+def _tp_rank(rank: int, sym_dir: str, layers: int):
+    """One rank of phase 7t: its shard of the directory, the first-step
+    logits of phase 4's batch, then the batch engine (greedy) and the
+    serving engine (rank 0 drives, the other follows), each kernel's
+    launches on that path, and the times."""
+    import dataclasses
+
+    import torch
+
+    from chatts_tpu_torch.core.config import ChatTSConfig, GenerationConfig
+    from chatts_tpu_torch.models import weights
+    from chatts_tpu_torch.parallel.mesh import all_reduce_tp, create_mesh
+    from chatts_tpu_torch.runtime.engine import InferenceEngine
+
+    torch.set_num_threads(2)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = create_mesh(tp=TP_RANKS)
+    cfg = ChatTSConfig.from_pretrained(sym_dir)
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_hidden_layers=layers))
+    torch.cuda.synchronize(dev)
+    start = time.perf_counter()
+    cfg, model = weights.load_checkpoint(sym_dir, cfg, quantize_bits=4, device=dev, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    out = dict(rank=rank, load_s=time.perf_counter() - start, model_gb=_model_gb(model),
+               heads=model.llm.layers[0].self_attn.num_heads,
+               kv_heads=model.llm.kv_heads, vocab_rows=model.llm.embed_tokens.shape[0],
+               q_out=model.llm.layers[0].self_attn.q_proj.out_features,
+               down_in=model.llm.layers[0].mlp.down_proj.in_features)
+    engine = InferenceEngine(model, cfg, device=dev)
+    batch = slice_batch(cfg)
+    greedy = GenerationConfig(max_new_tokens=TP_NEW_TOKENS, greedy=True)
+    out["logits"] = tail_logits(model, batch, dev, 1)[:, 0].cpu()
+    reset_launches()
+    kept = KernelInputs()
+    try:
+        g1 = engine.generate(batch, greedy)
+        serve = tp_serve_engine(model, cfg, dev)
+        if mesh.is_driver:
+            reqs = tp_requests(cfg, SEED + 12)
+            out["serve_logits"] = tp_serve(serve, reqs).cpu()
+            out["serve_tokens"] = [r.output_tokens for r in reqs]
+            out["serve_stats"] = serve.stats()
+            out["serve_ttft_ms"] = [r.ttft_s * 1e3 for r in reqs]
+        else:
+            serve.follow()
+        torch.cuda.synchronize(dev)
+    finally:
+        kept.remove()
+    out["launches"] = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    # Each kernel against its plain version on this rank's shard tensors, at
+    # every shape the path gave it (these launches come after the count).
+    out["kernel_checks"] = kept.check()
+    del kept
+    torch.cuda.empty_cache()
+    out.update(tokens=g1.token_ids, ttft_s=g1.ttft_s, tpot_s=g1.tpot_s)
+    out["decode_step"] = tp_decode_step_share(torch, engine, batch)
+    # One row-parallel sum alone over gloo, bf16: a decode step's (4, 5,120)
+    # and the batch prefill's (4 x 1,280 rows, 5,120).
+    for name, rows, calls in (("all_reduce_4_rows_ms", 4, 50),
+                              ("all_reduce_prefill_ms", batch.input_ids.size, 5)):
+        x = torch.ones((rows, cfg.llm.hidden_size), dtype=torch.bfloat16, device=dev)
+        all_reduce_tp(mesh, x)
+        torch.cuda.synchronize(dev)
+        start = time.perf_counter()
+        for _ in range(calls):
+            all_reduce_tp(mesh, x)
+        torch.cuda.synchronize(dev)
+        out[name] = (time.perf_counter() - start) / calls * 1e3
+        del x
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def phase_tp(smi: str, sym_dir: str, layers: int, model, cfg, single_run) -> dict:
+    """Phase 7t: ``TP_RANKS`` ranks on cuda:0 (gloo) each load their shard of
+    the directory and run the batch engine and the serving engine; the
+    first-step logits are held to the single-device model of 7c, the tokens
+    reported against 7f's and a single-device serving engine's.  Returns the
+    ranks' summed kernel launches (path "tp")."""
+    import numpy as np
+    import torch
+
+    from chatts_tpu_torch.parallel.distributed import run_world
+
+    dev = torch.device("cuda", 0)
+    batch = slice_batch(cfg)
+    want = tail_logits(model, batch, dev, 1)[:, 0].cpu()
+    engine = tp_serve_engine(model, cfg, dev)
+    reqs = tp_requests(cfg, SEED + 12)
+    want_serve = tp_serve(engine, reqs).cpu()
+    single_round_ms = engine.stats().get("round_decode_mean_ms")
+    single_serve = [r.output_tokens for r in reqs]
+    del engine
+    torch.cuda.empty_cache()
+    log(f"  {TP_RANKS} ranks on one card ({torch.cuda.get_device_name(0)}) over gloo, which "
+        f"carries each collective through host memory: these times are not NCCL times; "
+        f"card: {smi}")
+    start = time.perf_counter()
+    ranks = run_world(_tp_rank, TP_RANKS, (sym_dir, layers), backend="gloo",
+                      timeout_s=TP_TIMEOUT_S)
+    log(f"  the world of {TP_RANKS} ranks ran in {time.perf_counter() - start:.1f} s")
+    stats = {}
+    for r in ranks:
+        log(f"  rank {r['rank']}: loaded in {r['load_s']:.1f} s, {r['model_gb']:.2f} GB "
+            f"({r['heads']} heads over {r['kv_heads']} kv heads, q OUT {r['q_out']}, down IN "
+            f"{r['down_in']}, {r['vocab_rows']} vocabulary rows); peak {r['peak_gb']:.2f} GB; "
+            f"launches {r['launches']}")
+        if r["heads"] * TP_RANKS != cfg.llm.num_attention_heads or (
+                r["vocab_rows"] * TP_RANKS != cfg.llm.vocab_size):
+            raise AssertionError(f"rank {r['rank']} holds no tp shard")
+    # (a) the batch engine
+    for r in ranks:
+        if r["tokens"] != ranks[0]["tokens"]:
+            raise AssertionError("the ranks' greedy tokens differ")
+        got = r["logits"]
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"rank {r['rank']}: first-step logits {tuple(got.shape)}")
+    got = ranks[0]["logits"]
+    err = float((got - want).abs().max())
+    tol = TP_LOGIT_RTOL_OF_MAX * float(want.abs().max())
+    tokens = ranks[0]["tokens"]
+    agree = np.mean([a == b for ra, rb in zip(tokens, single_run.token_ids)
+                     for a, b in zip(ra, rb)])
+    first_agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"  (a) batch, tp {TP_RANKS}: first-step logits max |diff| {err:.4g} against the "
+        f"single-device model (tolerance {tol:.4g} = {TP_LOGIT_RTOL_OF_MAX} x max |logit| "
+        f"{float(want.abs().max()):.4g}); first tokens agree at {first_agree:.0%}; all "
+        f"{TP_NEW_TOKENS} greedy tokens agree with 7f's at {agree:.1%}")
+    if err > tol:
+        raise AssertionError(f"tp logits differ by {err:.4g} > {tol:.4g}")
+    # (b) serving
+    sgot = ranks[0]["serve_logits"]
+    serr = float((sgot - want_serve).abs().max())
+    stol = TP_LOGIT_RTOL_OF_MAX * float(want_serve.abs().max())
+    sagree = np.mean([a == b for ra, rb in zip(ranks[0]["serve_tokens"], single_serve)
+                      for a, b in zip(ra, rb)])
+    sstats = ranks[0]["serve_stats"]
+    log(f"  (b) serving, tp {TP_RANKS}, int8 KV, rank 0 driving: first-token logits max |diff| "
+        f"{serr:.4g} (tolerance {stol:.4g}); tokens agree with the single-device engine at "
+        f"{sagree:.1%}; rounds mono {sstats.get('rounds_mono')}, decode "
+        f"{sstats.get('rounds_decode')}; decode graph {sstats['decode_graph']} "
+        f"({sstats['eager_decode_reason']})")
+    if serr > stol:
+        raise AssertionError(f"tp serving logits differ by {serr:.4g} > {stol:.4g}")
+    if (sstats["decode_graph"] or sstats["loop_error"] or sstats.get("rounds_mono") != 1
+            or any(k.startswith("rounds_block") for k in sstats)):
+        raise AssertionError(f"phase 7t serving ran another schedule: {sstats}")
+    # (c) the kernels at the ranks' shapes, then the launches, summed
+    for r in ranks:
+        checks = r["kernel_checks"]
+        for kernel, shapes, kerr in checks:
+            log(f"  rank {r['rank']}: {kernel} against its plain version at {shapes}: max_abs_err "
+                f"{kerr:.3g}")
+        missing = {"flash_attention", "ragged_decode_attention", "ragged_decode_attention_int8",
+                   "int4_matmul"} - {kernel for kernel, _, _ in checks}
+        if missing:
+            raise AssertionError(f"rank {r['rank']}: no call of {sorted(missing)} was checked")
+    launches = {name: sum(r["launches"][name] for r in ranks) for name in REPLACES}
+    read = [n for n in ("flash_attention", "ragged_decode_attention",
+                        "ragged_decode_attention_int8", "int4_matmul") if launches[n] < TP_RANKS]
+    if read or launches["int4_matmul_a8"]:
+        raise AssertionError(f"phase 7t launches: {launches}")
+    log(f"  (c) kernel launches on the tp path, both ranks: {launches}")
+    # (d) times
+    r0 = ranks[0]
+    step = r0["decode_step"]
+    stats = dict(card=smi, ranks=TP_RANKS, backend="gloo", layers=layers,
+                 load_s=[r["load_s"] for r in ranks], model_gb=[r["model_gb"] for r in ranks],
+                 ttft_s=r0["ttft_s"], tpot_s=r0["tpot_s"],
+                 single_ttft_s=single_run.ttft_s, single_tpot_s=single_run.tpot_s,
+                 serve_round_decode_ms=sstats.get("round_decode_mean_ms"),
+                 single_serve_round_decode_ms=single_round_ms,
+                 serve_ttft_ms=r0["serve_ttft_ms"], decode_step=step,
+                 all_reduce_4_rows_ms=r0["all_reduce_4_rows_ms"],
+                 all_reduce_prefill_ms=r0["all_reduce_prefill_ms"],
+                 kernel_shapes_checked=[len(r["kernel_checks"]) for r in ranks],
+                 logit_err=err, logit_tol=tol, token_agreement=float(agree),
+                 serve_logit_err=serr, serve_token_agreement=float(sagree),
+                 peak_gb=[r["peak_gb"] for r in ranks])
+    log(f"  (d) two ranks sharing one card over gloo: TTFT {r0['ttft_s'] * 1e3:.1f} ms, "
+        f"TPOT {r0['tpot_s'] * 1e3:.2f} ms (single device, second run {single_run.ttft_s * 1e3:.1f} "
+        f"ms, {single_run.tpot_s * 1e3:.2f} ms); a serving decode round of 16 steps "
+        f"{sstats.get('round_decode_mean_ms')} ms eager (single device, graph: {single_round_ms} "
+        f"ms); a decode step {step['step_ms']:.2f} ms with {step['collectives_a_step']:.0f} "
+        f"collectives taking {step['collective_ms']:.2f} ms ({step['collective_share']:.1%}), "
+        f"each timed between device syncs; one (4, {cfg.llm.hidden_size}) bf16 all_reduce "
+        f"{r0['all_reduce_4_rows_ms']:.3f} ms, one ({batch.input_ids.size}, "
+        f"{cfg.llm.hidden_size}) {r0['all_reduce_prefill_ms']:.2f} ms; card {smi}")
+    log("  tp stats: " + json.dumps(stats))
+    return launches
+
+
 def phase_disk(smi: str, fused_run, fused_launches: dict) -> dict:
     """Phase 7: the user's path from a directory on disk. A ChatTS-14B
     GPTQ-Int4 directory is synthesized in the published format, diagnosed,
@@ -2470,6 +2918,10 @@ def phase_disk(smi: str, fused_run, fused_launches: dict) -> dict:
                 f"{a8.ttft_s * 1e3:.1f} ms; one decode step {step['busy_ms']:.3f} ms of device "
                 f"time in {step['launches']} launches")
             del engine, engine_a8
+
+        with Phase("7t", f"tensor parallelism: {TP_RANKS} ranks on the card (gloo) load their "
+                         f"shards of the {layers}-layer directory, generate and serve"):
+            paths["tp"] = phase_tp(smi, sym_dir, layers, model, cfg, g2)
 
         with Phase("7g", "serve the loaded model through serve_openai.build"):
             args = serve_openai.parse_args([

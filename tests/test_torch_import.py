@@ -90,7 +90,9 @@ def test_torch_port_imports_without_jax():
                  "chatts_tpu_torch.datagen.sft.reason",
                  "chatts_tpu_torch.scripts.generate_align_datasets",
                  "chatts_tpu_torch.scripts.generate_sft_datasets",
-                 "chatts_tpu_torch.examples.demo_ts_generator"):
+                 "chatts_tpu_torch.examples.demo_ts_generator",
+                 "chatts_tpu_torch.parallel", "chatts_tpu_torch.parallel.mesh",
+                 "chatts_tpu_torch.parallel.distributed", "chatts_tpu_torch.parallel.sharding"):
         assert name in report["modules"]
 
 
