@@ -103,13 +103,14 @@ class ChatTSModel(nn.Module):
 
 
 def init_params(cfg: ChatTSConfig, generator: torch.Generator, device="cuda",
-                dtype=None) -> ChatTSModel:
+                dtype=None, *, mesh=None) -> ChatTSModel:
     """A random float ChatTS model, unfused: the port of
     ``chatts_tpu.models.chatts.init_params`` (the encoder in f32 from
     ``TSEncoder.reset_parameters``, then ``qwen.init_params``), drawn from
-    ``generator`` on its own device and placed on ``device``."""
+    ``generator`` on its own device and placed on ``device``.  With
+    ``mesh``, this rank's shard (``qwen.init_params``), the encoder whole."""
     encoder = TSEncoder(cfg.ts, device=generator.device).reset_parameters(generator)
-    llm = qwen.init_params(cfg.llm, generator, device, dtype)
+    llm = qwen.init_params(cfg.llm, generator, device, dtype, mesh=mesh)
     return ChatTSModel(cfg, encoder.to(device), llm)
 
 

@@ -55,7 +55,13 @@ the rank's heads, through ``ragged_decode_attention_tp`` and
 ``..._int8_tp`` in decode; the embedding is vocab-parallel (a masked lookup,
 then a sum) and the head column-parallel, its logits gathered over the
 vocab.  A part that tp does not divide is replicated whole and runs with no
-collective.
+collective.  Where autograd records (training on a mesh), the sums and the
+gather go through ``parallel/mesh.py``'s autograd pairs (``reduce_from_tp``,
+``gather_from_tp``), and a column-parallel block's input through
+``copy_to_tp``, whose backward sums the input's gradient over tp; under
+``torch.no_grad`` the in-place collectives run, as in inference.  A LoRA
+adapter on a shard is whole (``train/lora.py``): a column layer folds in
+its columns of ``b``, a row layer its rows of ``a``.
 
 Recent-KV decode is TPU-only machinery and is not ported.
 """
@@ -81,7 +87,14 @@ from chatts_tpu_torch.ops.ragged_decode_attention import (
     ragged_decode_attention_int8_tp,
     ragged_decode_attention_tp,
 )
-from chatts_tpu_torch.parallel.mesh import all_gather_tp, all_reduce_tp, max_tp
+from chatts_tpu_torch.parallel.mesh import (
+    all_gather_tp,
+    all_reduce_tp,
+    copy_to_tp,
+    gather_from_tp,
+    max_tp,
+    reduce_from_tp,
+)
 
 LayerCache = Tuple[torch.Tensor, ...]
 
@@ -205,6 +218,31 @@ def embed_tokens(table: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(input_ids.long(), table)
 
 
+def _recorded(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _sum_tp(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum over tp of partial results: ``reduce_from_tp`` where autograd
+    records ``x``, else in place."""
+    return reduce_from_tp(mesh, x) if _recorded(x) else all_reduce_tp(mesh, x)
+
+
+def _gather_tp(mesh, x: torch.Tensor) -> torch.Tensor:
+    """``x``'s last dim gathered over tp: ``gather_from_tp`` where autograd
+    records ``x``."""
+    return gather_from_tp(mesh, x) if _recorded(x) else all_gather_tp(mesh, x)
+
+
+def _block_input(dense: "Dense", x: torch.Tensor) -> torch.Tensor:
+    """The input of the column-parallel block ``dense`` opens: where
+    autograd records it, ``copy_to_tp``, so that its gradient, partial on
+    each rank, is summed over tp."""
+    if dense.tp_kind == "col" and _recorded(x):
+        return copy_to_tp(dense.mesh, x)
+    return x
+
+
 def _frozen(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
     return None if t is None else nn.Parameter(t, requires_grad=False)
 
@@ -226,7 +264,8 @@ class Dense(nn.Module):
 
     ``lora``, None or (a, b, scale) set by ``train/lora.py::applied_lora``
     on a float ``Dense``, folds the adapter into the kernel on every call
-    (``lora_kernel``).
+    (``lora_kernel``); the adapter is whole, (in, r) and (r, out) of the
+    whole layer, and a shard folds in its part (``shard_adapter``).
 
     ``mesh`` is the mesh of a model placed on one, and ``tp_kind`` the
     layer's tensor-parallel kind there (``parallel/sharding.py``): "" is
@@ -287,6 +326,28 @@ class Dense(nn.Module):
         return self._weight.shape[1]
 
     @property
+    def whole_shape(self) -> Tuple[int, int]:
+        """(in, out) of the whole layer this one is a shard of (or is)."""
+        tp = self.mesh.tp if self.tp_kind else 1
+        if self.tp_kind == "row":
+            return self.in_features * tp, self.out_features
+        return self.in_features, self.out_features * tp
+
+    def shard_adapter(self, a: torch.Tensor, b: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The part of a whole adapter (a (in, r), b (r, out)) this shard
+        folds in: a column layer's columns of ``b`` and a row layer's rows of
+        ``a``, the shard's own range (``sharding.column_index`` of one
+        part); a whole layer's all of it."""
+        if self.tp_kind == "col":
+            n = self.out_features
+            b = b.narrow(1, self.mesh.tp_index * n, n)
+        elif self.tp_kind == "row":
+            n = self.in_features
+            a = a.narrow(0, self.mesh.tp_index * n, n)
+        return a, b
+
+    @property
     def _weight(self) -> torch.Tensor:
         return next(w for w in (self.kernel, self.kernel_q4, self.kernel_q) if w is not None)
 
@@ -326,11 +387,12 @@ class Dense(nn.Module):
                 out = all_reduce_tp(mesh, matmul_f32(x, self.kernel_q.to(x.dtype))) * self.scales
             reduced = True
         elif self.lora is not None:
-            out = matmul_f32(x, lora_kernel(self.kernel, *self.lora))
+            a, b, scale = self.lora
+            out = matmul_f32(x, lora_kernel(self.kernel, *self.shard_adapter(a, b), scale))
         else:
             out = matmul_f32(x, self.kernel)
         if not reduced:
-            out = all_reduce_tp(mesh, out)
+            out = _sum_tp(mesh, out)
         if self.bias is not None:
             out = out + self.bias.float()
         return out.to(x.dtype)
@@ -376,6 +438,7 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, t, _ = x.shape
         h, kvh, d = self.num_heads, self.num_kv_heads, cfg.head_dim
+        x = _block_input(self.qkv_proj or self.q_proj, x)
         if self.qkv_proj is not None:
             q, k, v = self.qkv_proj(x, act_int8).split([h * d, kvh * d, kvh * d], dim=-1)
         else:
@@ -557,6 +620,7 @@ class MLP(nn.Module):
         self.down_proj = down_proj
 
     def forward(self, x: torch.Tensor, act_int8: bool = False) -> torch.Tensor:
+        x = _block_input(self.gate_up_proj or self.gate_proj, x)
         if self.gate_up_proj is not None:
             gate, up = self.gate_up_proj(x, act_int8).chunk(2, dim=-1)
         else:
@@ -664,7 +728,7 @@ class QwenModel(nn.Module):
         out = F.embedding(local.clamp(0, rows - 1), self.embed_tokens)
         out = torch.where(inside[..., None], out, torch.zeros((), dtype=out.dtype,
                                                                device=out.device))
-        return all_reduce_tp(self.mesh, out)
+        return _sum_tp(self.mesh, out)
 
     def forward(
         self,
@@ -773,17 +837,25 @@ class QwenModel(nn.Module):
             x = layer.forward_mixed(x, rope, cache, step)
         return rms_norm(x, self.norm, self.cfg.rms_norm_eps)
 
-    def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+    def compute_logits(self, hidden: torch.Tensor, gather: bool = True) -> torch.Tensor:
         """hidden (B, T, hidden) -> logits (B, T, vocab), f32.  A quantized
         head returns hidden's type cast to f32, a float head the f32 product,
         as the reference does.  A vocab-parallel head's columns are gathered
-        over tp."""
+        over tp, or, with ``gather=False``, this rank's columns
+        [vocab_start, vocab_start + its rows) are returned (the
+        vocab-parallel loss, ``train/loss.py``)."""
         mesh = self.mesh if self.vocab_start is not None else None
+        if mesh is not None and _recorded(hidden):
+            hidden = copy_to_tp(mesh, hidden)
         if self.lm_head_q is not None:
-            return all_gather_tp(mesh, self.lm_head_q(hidden)).float()
-        if self.cfg.tie_word_embeddings or self.lm_head is None:
-            return all_gather_tp(mesh, matmul_f32(hidden, self.embed_tokens.t()))
-        return all_gather_tp(mesh, matmul_f32(hidden, self.lm_head))
+            local = self.lm_head_q(hidden)
+        elif self.cfg.tie_word_embeddings or self.lm_head is None:
+            local = matmul_f32(hidden, self.embed_tokens.t())
+        else:
+            local = matmul_f32(hidden, self.lm_head)
+        if gather:
+            local = _gather_tp(mesh, local)
+        return local.float()
 
 
 def fuse_projections(model: QwenModel) -> QwenModel:
@@ -813,13 +885,19 @@ def fuse_projections(model: QwenModel) -> QwenModel:
 
 @torch.no_grad()
 def init_params(cfg: QwenConfig, generator: torch.Generator, device="cuda",
-                dtype=None) -> QwenModel:
+                dtype=None, *, mesh=None, keep_layers: Optional[Sequence[int]] = None
+                ) -> QwenModel:
     """A random float decoder, unfused: the port of
     ``chatts_tpu.models.qwen.init_params``, with its distributions and its
     order of draws (kernels normal / sqrt(fan_in), biases 0, norms 1,
     embeddings normal * 0.02, a separate head normal / sqrt(hidden)), drawn
     in f32 from ``generator`` on the generator's device, then cast to
-    ``dtype`` (the config's by default) on ``device``."""
+    ``dtype`` (the config's by default) on ``device``.
+
+    With ``mesh`` the result is this rank's shard, ``place_params``' cut of
+    the same whole model, each layer cut as soon as it is drawn, so that no
+    rank holds the whole model.  With ``keep_layers`` every layer is drawn
+    but only those kept (a pipeline stage's, ``parallel/pipeline.py``)."""
     if dtype is None:
         dtype = getattr(torch, cfg.dtype)
     h, kvh, d, hid = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, cfg.hidden_size
@@ -836,7 +914,7 @@ def init_params(cfg: QwenConfig, generator: torch.Generator, device="cuda",
                      bias=fill(fan_out, 0.0) if bias else None)
 
     layers = []
-    for _ in range(cfg.num_hidden_layers):
+    for i in range(cfg.num_hidden_layers):
         q = dense(hid, h * d, cfg.attention_bias)
         k = dense(hid, kvh * d, cfg.attention_bias)
         v = dense(hid, kvh * d, cfg.attention_bias)
@@ -845,13 +923,26 @@ def init_params(cfg: QwenConfig, generator: torch.Generator, device="cuda",
         up = dense(hid, cfg.intermediate_size, False)
         down = dense(cfg.intermediate_size, hid, False)
         norms = {"q_norm": fill(d, 1.0), "k_norm": fill(d, 1.0)} if cfg.qk_norm else {}
-        layers.append(DecoderLayer(
+        layer = DecoderLayer(
             cfg, Attention(cfg, o, q_proj=q, k_proj=k, v_proj=v, **norms),
-            MLP(down, gate_proj=gate, up_proj=up), fill(hid, 1.0), fill(hid, 1.0)))
+            MLP(down, gate_proj=gate, up_proj=up), fill(hid, 1.0), fill(hid, 1.0))
+        if keep_layers is not None and i not in keep_layers:
+            continue
+        if mesh is not None:
+            from chatts_tpu_torch.parallel import sharding
+
+            layer = sharding.shard_layer(layer, cfg, mesh, device)
+        layers.append(layer)
+        del q, k, v, o, gate, up, down, layer
     embed = normal((cfg.vocab_size, hid), 0.02)
     lm_head = None if cfg.tie_word_embeddings else normal((hid, cfg.vocab_size),
                                                           1 / math.sqrt(hid))
-    return QwenModel(cfg, embed, layers, fill(hid, 1.0), lm_head=lm_head)
+    model = QwenModel(cfg, embed, layers, fill(hid, 1.0), lm_head=lm_head)
+    if mesh is None:
+        return model
+    from chatts_tpu_torch.parallel import sharding
+
+    return sharding.place_vocab(mesh, cfg, model, layers, device)
 
 
 # ---------------------------------------------------------------------------

@@ -396,7 +396,11 @@ def save_checkpoint(model_path: str, cfg: ChatTSConfig, model: ChatTSModel) -> N
     """Export a model with unfused float projections back to HF layout (one
     ``model.safetensors``, f32, and ``config.json``), the tensor names and
     config the JAX package's ``save_checkpoint`` writes, so checkpoints
-    round-trip between the packages."""
+    round-trip between the packages.  A tensor-parallel shard raises:
+    gather it first (``parallel/sharding.py::gather_model``)."""
+    if model.mesh is not None and model.mesh.tp > 1:
+        raise ValueError("save_checkpoint writes a whole model, not a tp shard: "
+                         "sharding.gather_model gives the whole one")
     os.makedirs(model_path, exist_ok=True)
     tensors: Dict[str, torch.Tensor] = {}
     llm = model.llm

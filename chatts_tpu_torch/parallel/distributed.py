@@ -66,6 +66,19 @@ def process_info() -> tuple:
     return dist.get_rank(), dist.get_world_size()
 
 
+def is_writer() -> bool:
+    """Whether this process writes what every rank holds alike (adapters,
+    the optimizer's state, an export): world rank 0, or a lone process."""
+    return process_info()[0] == 0
+
+
+def barrier() -> None:
+    """Wait for every rank of the world (nothing without one): after a
+    writer's files, before any rank reads them."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def shard_indices(n: int, rank: Optional[int] = None,
                   world: Optional[int] = None) -> Sequence[int]:
     """The reference's sample sharding: indices with i % world == rank
@@ -83,7 +96,9 @@ def _rank_main(fn, rank: int, world: int, init_method: str, backend: str,
         dist.init_process_group(backend, init_method=init_method, rank=rank,
                                 world_size=world,
                                 timeout=datetime.timedelta(seconds=timeout_s))
-        out = fn(rank, *args)
+        # Pickled here: the queue would hand tensors over as shared-memory
+        # handles, which die with the rank.
+        out = pickle.dumps(fn(rank, *args))
         results.put((rank, True, out))
     except Exception:  # reported to the parent, which fails the world
         results.put((rank, False, traceback.format_exc()))
@@ -139,7 +154,7 @@ def run_world(fn: Callable[..., Any], world: int, args: Sequence[Any] = (), *,
             if not ok:
                 failure = f"rank {rank} failed:\n{value}"
                 break
-            out[rank] = value
+            out[rank] = pickle.loads(value)
         for p in procs:
             p.join(timeout=max(0.0, min(10.0, deadline - time.monotonic())))
     finally:

@@ -13,6 +13,23 @@ the logits, an activation-order projection's input), ``max_tp`` (an int8
 row-parallel projection's column or row maxima) and ``broadcast_from_driver``
 (tp rank 0's sampled ids and, for the serving engine, its plans).  Each is
 the identity without a mesh or at tp = 1.
+
+Those work in place or into fresh buffers, which autograd cannot follow.
+Where it records (training), the model takes Megatron's conjugate pairs
+instead, each a ``torch.autograd.Function``:
+
+- ``copy_to_tp``: the identity forward, the sum of the gradient over tp
+  backward (the input of a column-parallel block, whose ranks each see
+  part of the output);
+- ``reduce_from_tp``: the sum over tp forward, the identity backward (a
+  row-parallel projection's and the vocab-parallel embedding's output);
+- ``gather_from_tp``: the concatenation over tp forward, this rank's slice
+  of the gradient backward (the vocab of the logits).
+
+``torch.distributed.nn.functional``'s ``all_reduce`` and ``all_gather``
+sum the gradient over the group in their backward.  Downstream of a tp
+layer every rank computes the same loss, so a rank's gradient there is
+already the whole one, and that sum would make it tp times too large.
 """
 from __future__ import annotations
 
@@ -121,6 +138,68 @@ def all_gather_tp(mesh: Optional[Mesh], x: torch.Tensor, dim: int = -1) -> torch
     return torch.cat(parts, dim=dim)
 
 
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.mesh.tp_group)
+        return g, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=mesh.tp_group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.size = mesh, dim, x.shape[dim]
+        return all_gather_tp(mesh, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        return g.narrow(ctx.dim, mesh.tp_index * ctx.size, ctx.size).contiguous(), None, None
+
+
+def copy_to_tp(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
+    """``x`` forward; backward, the gradient summed over the tp group."""
+    return _CopyToTP.apply(x, mesh) if _tp_active(mesh) else x
+
+
+def reduce_from_tp(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the tp group, a new tensor; backward, the
+    identity."""
+    return _ReduceFromTP.apply(x, mesh) if _tp_active(mesh) else x
+
+
+def gather_from_tp(mesh: Optional[Mesh], x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``all_gather_tp``; backward, this rank's slice of the gradient."""
+    if not _tp_active(mesh):
+        return x
+    return _GatherFromTP.apply(x, mesh, dim % x.dim())
+
+
+def all_reduce_dp(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the dp group, in place."""
+    if mesh is not None and mesh.dp > 1:
+        dist.all_reduce(x, group=mesh.dp_group)
+    return x
+
+
 def all_gather_dp(mesh: Optional[Mesh], obj: Any) -> list:
     """Every dp group's picklable ``obj``, in dp order."""
     if mesh is None or mesh.dp == 1:
@@ -130,15 +209,21 @@ def all_gather_dp(mesh: Optional[Mesh], obj: Any) -> list:
     return out
 
 
-def broadcast_from_driver(mesh: Optional[Mesh], value: Any) -> Any:
+def broadcast_from_driver(mesh: Optional[Mesh], value: Any, *, world: bool = False) -> Any:
     """tp rank 0's ``value`` on every rank of its tp group: a tensor in
     place (every rank passes one of the same shape and type), anything else
-    pickled (what the other ranks pass is ignored)."""
-    if not _tp_active(mesh):
+    pickled (what the other ranks pass is ignored).  With ``world`` (the
+    serving engine, whose one driver is world rank 0), world rank 0's on
+    every rank of the world, also when dp > 1."""
+    if world and mesh is not None and mesh.dp > 1:
+        src, group = 0, None
+    elif _tp_active(mesh):
+        src, group = mesh.driver_rank, mesh.tp_group
+    else:
         return value
     if isinstance(value, torch.Tensor):
-        dist.broadcast(value, src=mesh.driver_rank, group=mesh.tp_group)
+        dist.broadcast(value, src=src, group=group)
         return value
     box = [value]
-    dist.broadcast_object_list(box, src=mesh.driver_rank, group=mesh.tp_group)
+    dist.broadcast_object_list(box, src=src, group=group)
     return box[0]

@@ -35,7 +35,17 @@ differs from JAX's, it is because a rank must compute whole units:
 ``shard_dim`` reads the tables for both cuts: ``place_params`` cuts a
 loaded model's fields by it, and the sharded load
 (``models/weights.py::load_checkpoint(mesh=)``) the checkpoint's tensors;
-the two give the same tensors, to the bit.
+the two give the same tensors, to the bit.  ``init_params(mesh=)``
+(``models/qwen.py``) draws a random model's tensors in the single-device
+order and cuts each layer as it is drawn (``shard_layer``), so no rank
+holds the whole model.
+
+Training on a mesh (``train/``) reads ``grad_kinds``: a sharded tensor's
+gradient is this rank's own, a replicated one's is whole on every rank,
+except the Qwen3 q/k norms of a sharded attention block, applied to this
+rank's heads only, whose gradients are partial and summed over tp.
+``local_train_batch`` gives a dp group its rows of a training batch;
+``gather_model`` puts a float shard back together for export.
 """
 from __future__ import annotations
 
@@ -285,7 +295,9 @@ def check_kernel_shapes(model, device) -> None:
                                  f"over tp {tp} does not tile for int4_matmul")
 
 
-def _shard_layer(layer, lcfg, mesh: Mesh, device):
+def shard_layer(layer, lcfg, mesh: Mesh, device):
+    """This rank's ``DecoderLayer`` of a whole one: the attention block and
+    the MLP each sharded where tp divides them, else copied whole."""
     from chatts_tpu_torch.models.qwen import MLP, Attention, DecoderLayer
 
     attn, mlp = layer.self_attn, layer.mlp
@@ -332,7 +344,6 @@ def place_params(mesh: Optional[Mesh], cfg, model_or_jax_params: Union[Any, Mapp
     on ``device``."""
     from chatts_tpu_torch.models.chatts import ChatTSModel
     from chatts_tpu_torch.models.convert import from_jax_params
-    from chatts_tpu_torch.models.qwen import QwenModel
     from chatts_tpu_torch.models.ts_encoder import TSEncoder
 
     if isinstance(model_or_jax_params, ChatTSModel):
@@ -345,25 +356,162 @@ def place_params(mesh: Optional[Mesh], cfg, model_or_jax_params: Union[Any, Mapp
         return model.to(device)
     if mesh.tp > 1 and model.mesh is not None:
         raise ValueError("place_params takes a whole model, not a shard")
-    lcfg, llm = cfg.llm, model.llm
     with torch.no_grad():
-        layers = [_shard_layer(layer, lcfg, mesh, device) for layer in llm.layers]
-        vocab_start = None
-        embed, lm_head = _copy(llm.embed_tokens, device), _copy(llm.lm_head, device)
-        lm_head_q = None if llm.lm_head_q is None else copy_dense(llm.lm_head_q, device, mesh)
-        if vocab_sharded(lcfg, mesh):
-            vocab_start = shard_range(lcfg.vocab_size, mesh)[0]
-            embed = _cut(llm.embed_tokens, 0, mesh, [], device)
-            lm_head = _cut(llm.lm_head, 1, mesh, [], device)
-            if llm.lm_head_q is not None:
-                lm_head_q = shard_dense(llm.lm_head_q, mesh, "col", device=device)
-        new_llm = QwenModel(lcfg, embed, layers, _copy(llm.norm, device), lm_head=lm_head,
-                            lm_head_q=lm_head_q, mesh=mesh, vocab_start=vocab_start)
+        layers = [shard_layer(layer, cfg.llm, mesh, device) for layer in model.llm.layers]
+        new_llm = place_vocab(mesh, cfg.llm, model.llm, layers, device)
         encoder = TSEncoder(cfg.ts, device=device)
         encoder.load_state_dict(model.ts_encoder.state_dict())
     out = ChatTSModel(cfg, encoder, new_llm)
     check_kernel_shapes(out, device)
     return out
+
+
+@torch.no_grad()
+def place_vocab(mesh: Mesh, lcfg, llm, layers: Sequence, device):
+    """The ``QwenModel`` on ``mesh`` of the rank's ``layers`` (already
+    placed) and of the whole ``llm``'s embedding, final norm and head, the
+    vocabulary cut where tp divides it."""
+    from chatts_tpu_torch.models.qwen import QwenModel
+
+    vocab_start = None
+    embed, lm_head = _copy(llm.embed_tokens, device), _copy(llm.lm_head, device)
+    lm_head_q = None if llm.lm_head_q is None else copy_dense(llm.lm_head_q, device, mesh)
+    if vocab_sharded(lcfg, mesh):
+        vocab_start = shard_range(lcfg.vocab_size, mesh)[0]
+        embed = _cut(llm.embed_tokens, 0, mesh, [], device)
+        lm_head = _cut(llm.lm_head, 1, mesh, [], device)
+        if llm.lm_head_q is not None:
+            lm_head_q = shard_dense(llm.lm_head_q, mesh, "col", device=device)
+    return QwenModel(lcfg, embed, layers, _copy(llm.norm, device), lm_head=lm_head,
+                     lm_head_q=lm_head_q, mesh=mesh, vocab_start=vocab_start)
+
+
+def grad_kinds(model) -> Dict[int, str]:
+    """How the gradient of each of the model's parameters lies on its mesh,
+    by ``id``: "sharded" (this rank's part of a tensor cut over tp; its
+    gradient is the rank's own), "partial" (a whole tensor whose gradient
+    each rank computes only a part of, summed over tp: the Qwen3 q/k norms
+    of a sharded attention block) or "whole" (every other: replicated, its
+    gradient whole on every rank).  A tensor missing from the map is whole."""
+    from chatts_tpu_torch.models.qwen import Attention, Dense, QwenModel
+
+    kinds: Dict[int, str] = {}
+    for module in model.modules():
+        if isinstance(module, Dense) and module.tp_kind:
+            for name in ("kernel", "bias"):
+                t = getattr(module, name)
+                if t is not None:
+                    kinds[id(t)] = ("sharded" if shard_dim(module.tp_kind, name) is not None
+                                    else "whole")
+        elif isinstance(module, Attention) and module.mesh is not None:
+            for t in (module.q_norm, module.k_norm):
+                if t is not None:
+                    kinds[id(t)] = "partial"
+        elif isinstance(module, QwenModel) and module.vocab_start is not None:
+            for t in (module.embed_tokens, module.lm_head):
+                if t is not None:
+                    kinds[id(t)] = "sharded"
+    return kinds
+
+
+def local_train_batch(batch: Mapping[str, Any], mesh: Optional[Mesh]) -> Dict[str, Any]:
+    """A training batch's rows for this rank's dp group (``dp_rows``): the
+    row tensors cut, the series whole, the scatter table pointed at the
+    local rows (patches of other rows out of bounds, which the merge
+    drops), as ``local_batch`` does for a ``ProcessedBatch``."""
+    b = batch["input_ids"].shape[0]
+    r0, r1 = dp_rows(mesh, b)
+    if (r0, r1) == (0, b):
+        return dict(batch)
+    out = {k: (v[r0:r1] if k in TRAIN_ROW_KEYS else v) for k, v in batch.items()}
+    seq = batch.get("scatter_seq")
+    if seq is not None:
+        seq = seq.long()
+        seq = torch.where(seq < 0, seq + b, seq) - r0
+        out["scatter_seq"] = torch.where((seq >= 0) & (seq < r1 - r0), seq,
+                                         r1 - r0).to(batch["scatter_seq"].dtype)
+    return out
+
+
+TRAIN_ROW_KEYS = ("input_ids", "positions", "attention_mask", "targets", "loss_mask")
+
+
+def _whole_dense(dense, parts: Sequence[int], device):
+    """The whole float ``Dense`` of a shard (every rank of the tp group
+    calls it): each cut field gathered over tp, its columns put back in
+    the whole layer's order (``column_index`` of each rank)."""
+    from chatts_tpu_torch.models.qwen import Dense
+    from chatts_tpu_torch.parallel.mesh import all_gather_tp
+
+    if dense.kernel is None:
+        raise ValueError("gather_model takes float projections")
+    mesh, kind = dense.mesh, dense.tp_kind
+    fields = {}
+    for name in ("kernel", "bias"):
+        t = getattr(dense, name)
+        dim = shard_dim(kind, name) if kind else None
+        if t is None or dim is None:
+            fields[name] = _copy(t, device)
+            continue
+        gathered = all_gather_tp(mesh, t.detach(), dim=dim).to(device)
+        n = gathered.shape[dim] // mesh.tp
+        whole = torch.empty_like(gathered)
+        cols = list(parts) if kind == "col" and parts else [gathered.shape[dim]]
+        for r in range(mesh.tp):
+            rank = dataclasses.replace(mesh, tp_index=r)
+            index = torch.as_tensor(column_index(cols, rank), device=device)
+            whole.index_copy_(dim, index, gathered.narrow(dim, r * n, n))
+        fields[name] = whole
+    return Dense(fields["kernel"], bias=fields["bias"])
+
+
+@torch.no_grad()
+def gather_model(model, device="cpu"):
+    """The whole float ``ChatTSModel`` of a shard, on ``device``: a
+    collective over the tp group, which every rank of it calls; a model
+    with no mesh is returned as it is.  Quantized projections raise."""
+    from chatts_tpu_torch.models.chatts import ChatTSModel
+    from chatts_tpu_torch.models.qwen import MLP, Attention, DecoderLayer, QwenModel
+    from chatts_tpu_torch.models.ts_encoder import TSEncoder
+    from chatts_tpu_torch.parallel.mesh import all_gather_tp
+
+    mesh, llm, cfg = model.mesh, model.llm, model.cfg
+    if mesh is None:
+        return model
+    lcfg = cfg.llm
+    h, kvh, d, inter = (lcfg.num_attention_heads, lcfg.num_key_value_heads, lcfg.head_dim,
+                        lcfg.intermediate_size)
+    layers = []
+    for layer in llm.layers:
+        attn, mlp = layer.self_attn, layer.mlp
+        norms = {n: _copy(getattr(attn, n), device) for n in ("q_norm", "k_norm")}
+        if attn.qkv_proj is not None:
+            projs = {"qkv_proj": _whole_dense(attn.qkv_proj, [h * d, kvh * d, kvh * d], device)}
+        else:
+            projs = {n: _whole_dense(getattr(attn, n), [], device)
+                     for n in ("q_proj", "k_proj", "v_proj")}
+        if mlp.gate_up_proj is not None:
+            ups = {"gate_up_proj": _whole_dense(mlp.gate_up_proj, [inter, inter], device)}
+        else:
+            ups = {n: _whole_dense(getattr(mlp, n), [], device) for n in ("gate_proj", "up_proj")}
+        layers.append(DecoderLayer(
+            lcfg, Attention(lcfg, _whole_dense(attn.o_proj, [], device), **projs, **norms),
+            MLP(_whole_dense(mlp.down_proj, [], device), **ups),
+            _copy(layer.input_layernorm, device), _copy(layer.post_attention_layernorm, device)))
+    vocab = llm.vocab_start is not None
+    if llm.lm_head_q is not None:
+        raise ValueError("gather_model takes a float head")
+
+    def whole_vocab(t, dim):
+        if t is None:
+            return None
+        return all_gather_tp(mesh, t.detach(), dim=dim).to(device) if vocab else _copy(t, device)
+
+    new_llm = QwenModel(lcfg, whole_vocab(llm.embed_tokens, 0), layers, _copy(llm.norm, device),
+                        lm_head=whole_vocab(llm.lm_head, 1))
+    encoder = TSEncoder(cfg.ts, device=device)
+    encoder.load_state_dict(model.ts_encoder.state_dict())
+    return ChatTSModel(cfg, encoder, new_llm)
 
 
 def infer_mesh(model) -> Optional[Mesh]:

@@ -57,21 +57,25 @@ What differs from the reference, and why:
 - Shape keys that mark a round's first XLA compile (``fresh``) have no
   counterpart: nothing compiles per shape.
 
-Tensor parallelism (a model from ``parallel/sharding.py``, dp = 1): JAX runs
-every device from the one engine loop; here every rank builds a
-``ServeEngine`` on its shard, and the driver, tp rank 0, owns the queue, the
-loop thread and every decision, since admission depends on arrival times
-and on the loop's timing.  Before each piece of device work (a monolithic
+Tensor and data parallelism (a model from ``parallel/sharding.py``): JAX
+runs every device from the one engine loop; here every rank builds a
+``ServeEngine`` on its shard, and the driver, world rank 0 (tp rank 0 of dp
+group 0), owns the queue, the loop thread and every decision, since
+admission depends on arrival times and on the loop's timing.  Before each piece of device work (a monolithic
 admission, the staging of a block or scan-sliced one, a round, the first
 tokens of a scan-sliced admission, the rows going live) it broadcasts the
 plan, the op's name and its host arguments (the processed batch, slots,
 sampling parameters, budgets, the live slots); the other ranks run
 ``follow()``, which runs each plan's op on their shard until the driver
-stops.  Sampled ids are tp rank 0's, broadcast.  The decode step's CUDA
-graph is captured only under NCCL (unverified); gloo collectives cannot be
+stops.  Sampled ids are world rank 0's, broadcast.  At dp > 1 the plans
+and the ids reach the whole world, so every dp replica runs the driver's
+schedule on the same requests, as JAX's engine, which never places its
+cache or batch over dp (``kv_cache_specs`` and ``batch_specs`` have no
+caller there), repeats the work on every replica; splitting requests over
+dp would be a feature JAX's engine lacks.  The decode step's CUDA graph is
+captured only under NCCL (unverified); gloo collectives cannot be
 captured, so under gloo every decode round runs eagerly, by the
-constructor's choice, which ``stats()`` reports with its reason.  dp > 1
-raises: every rank would run its own loop.
+constructor's choice, which ``stats()`` reports with its reason.
 """
 from __future__ import annotations
 
@@ -259,9 +263,9 @@ def _block_prefill_merge(
 
 
 def _sample(mesh, logits, generator, temperature, top_p) -> torch.Tensor:
-    """``sample_per_slot``'s ids; under a mesh tp rank 0's, broadcast."""
+    """``sample_per_slot``'s ids; under a mesh world rank 0's, broadcast."""
     return broadcast_from_driver(
-        mesh, sampling.sample_per_slot(logits, generator, temperature, top_p))
+        mesh, sampling.sample_per_slot(logits, generator, temperature, top_p), world=True)
 
 
 def _decode_step(llm, caches, tokens, cur_lens, active, live, budget, temperature, top_p,
@@ -453,9 +457,9 @@ def _mixed_round(model: ChatTSModel, chunk_size: int, npt: int, kv_limit: int, c
 
 class ServeEngine:
     """Slot-based continuous-batching engine with a background step loop, on
-    ``device`` (the card unless the caller asks for the CPU).  On a
-    tensor-parallel shard every rank makes one: tp rank 0 serves (``start``,
-    ``submit``) and the others call ``follow()``."""
+    ``device`` (the card unless the caller asks for the CPU).  On a mesh
+    every rank makes one: world rank 0 serves (``start``, ``submit``) and
+    the others, of every dp group, call ``follow()``."""
 
     def __init__(
         self,
@@ -489,10 +493,7 @@ class ServeEngine:
             model = maybe_fuse(model)
         self.model = model.eval()
         self.mesh = infer_mesh(model)
-        if self.mesh is not None and self.mesh.dp > 1:
-            raise ValueError(f"ServeEngine serves tensor parallelism only (dp = 1); this "
-                             f"model's mesh has dp {self.mesh.dp}")
-        self.is_driver = self.mesh is None or self.mesh.is_driver
+        self.is_driver = self.mesh is None or (self.mesh.is_driver and self.mesh.dp_index == 0)
         self.cfg = cfg
         self.processor = processor
         # Pin the series-count bucket, as the reference does, so admission
@@ -733,7 +734,8 @@ class ServeEngine:
 
     def submit(self, request: Request) -> Request:
         if not self.is_driver:
-            raise RuntimeError("a follower rank takes no requests: submit to tp rank 0")
+            raise RuntimeError("a follower rank takes no requests: submit to world rank 0 "
+                               "(tp rank 0 of dp group 0)")
         self.total_requests += 1
         if self.loop_error is not None:
             self._fail(request, f"the engine loop ended: {self.loop_error}")
@@ -777,27 +779,27 @@ class ServeEngine:
     # -- tensor parallelism -------------------------------------------------
 
     def _run(self, op: str, *args):
-        """Run the device op ``_op_<op>(*args)``; under tensor parallelism
-        the driver broadcasts it as a plan first, so every rank runs it."""
+        """Run the device op ``_op_<op>(*args)``; under a mesh the driver
+        broadcasts it as a plan first, so every rank runs it."""
         if self.mesh is not None:
-            broadcast_from_driver(self.mesh, (op, args))
+            broadcast_from_driver(self.mesh, (op, args), world=True)
             self._last_plan_s = time.perf_counter()
         return getattr(self, "_op_" + op)(*args)
 
     def _stop_followers(self) -> None:
         if not self._followers_stopped:
             self._followers_stopped = True
-            broadcast_from_driver(self.mesh, ("stop", ()))
+            broadcast_from_driver(self.mesh, ("stop", ()), world=True)
 
     def follow(self) -> None:
         """A follower rank's loop: run the driver's plans until it stops."""
         if self.is_driver:
-            raise RuntimeError("follow() is for the ranks other than tp rank 0")
+            raise RuntimeError("follow() is for the ranks other than world rank 0")
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         with torch.inference_mode():
             while True:
-                op, args = broadcast_from_driver(self.mesh, None)
+                op, args = broadcast_from_driver(self.mesh, None, world=True)
                 if op == "stop":
                     return
                 getattr(self, "_op_" + op)(*args)

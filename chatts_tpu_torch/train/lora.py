@@ -15,6 +15,14 @@ A fused ``qkv_proj`` / ``gate_up_proj`` or a quantized projection takes no
 adapter (``ValueError``): JAX's ``apply_lora`` reads
 ``layer[group][module]["kernel"]`` and has no answer for either.
 
+On a model placed on a mesh the adapters are whole and replicated, as
+JAX's are under GSPMD: ``init_lora`` draws the whole shapes, (in, r) and
+(r, out) of the whole layer, from the same generator as on one device; a
+shard folds in its part (``Dense.shard_adapter``), and each rank's
+gradient of an adapter on a shard is a part, summed over tp
+(``lora_kinds``, ``sft_driver.lora_loss_fn``).  ``merge_lora`` merges
+each shard's part into the shard.
+
 ``merge_lora`` gives a model with the adapters merged into plain float
 kernels, a new model sharing every other tensor with the base, which it
 leaves unchanged, or, with ``in_place=True``, the base itself.
@@ -71,13 +79,15 @@ def init_lora(model: ChatTSModel, cfg: LoRAConfig, generator: torch.Generator,
               dtype=torch.float32) -> Lora:
     """Adapters for every decoder layer and target module, on the kernels'
     device: a (in, r) normal * 0.02 drawn from ``generator`` on its own
-    device, b (r, out) zeros.  Every tensor needs gradients."""
+    device, b (r, out) zeros, of the whole layer's (in, out) also on a
+    shard.  Every tensor needs gradients."""
     layers = []
     for layer in model.llm.layers:
         entry = {}
         for module in cfg.target_modules:
-            kernel = _target_dense(layer, module).kernel
-            fan_in, fan_out = kernel.shape
+            dense = _target_dense(layer, module)
+            kernel = dense.kernel
+            fan_in, fan_out = dense.whole_shape
             a = torch.randn((fan_in, cfg.rank), generator=generator, device=generator.device) * 0.02
             entry[module] = {
                 "a": a.to(device=kernel.device, dtype=dtype).requires_grad_(),
@@ -86,6 +96,14 @@ def init_lora(model: ChatTSModel, cfg: LoRAConfig, generator: torch.Generator,
             }
         layers.append(entry)
     return {"layers": layers}
+
+
+def lora_kinds(model: ChatTSModel, lora: Lora) -> List[str]:
+    """``sharding.grad_kinds`` of ``lora_parameters(lora)``: "partial" for
+    an adapter on a shard (each rank's gradient is a part, summed over tp),
+    "whole" for one on a whole layer."""
+    return [("partial" if dense.tp_kind else "whole")
+            for dense, _ in _targets(model, lora) for _ in ("a", "b")]
 
 
 def _targets(model: ChatTSModel, lora: Lora) -> Iterator:
@@ -128,16 +146,18 @@ def merge_lora(model: ChatTSModel, lora: Lora, cfg: LoRAConfig, *,
                in_place: bool = False) -> ChatTSModel:
     """Merge the adapters into plain float kernels (the PEFT merge analog):
     each target becomes a ``Dense`` of ``lora_kernel``'s kernel with the old
-    bias.  By default the result is a new model that shares every other
-    tensor with ``model`` and leaves ``model`` unchanged; with
-    ``in_place=True`` the projections of ``model`` itself are replaced."""
+    bias (on a shard, the shard's part merged into the shard).  By default
+    the result is a new model that shares every other tensor with ``model``
+    and leaves ``model`` unchanged; with ``in_place=True`` the projections
+    of ``model`` itself are replaced."""
     merged = model if in_place else _shallow_copy(model)
     for layer, adapters in zip(merged.llm.layers, lora["layers"]):
         for module, ab in adapters.items():
             dense = _target_dense(layer, module)
-            kernel = lora_kernel(dense.kernel, ab["a"], ab["b"], cfg.scale)
+            kernel = lora_kernel(dense.kernel, *dense.shard_adapter(ab["a"], ab["b"]),
+                                 cfg.scale)
             setattr(getattr(layer, module_group(module)), module,
-                    Dense(kernel, bias=dense.bias))
+                    Dense(kernel, bias=dense.bias, mesh=dense.mesh, tp_kind=dense.tp_kind))
     return merged
 
 

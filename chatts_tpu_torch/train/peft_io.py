@@ -19,6 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from chatts_tpu_torch.parallel import distributed
 from chatts_tpu_torch.train.lora import Lora, LoRAConfig, module_group
 from chatts_tpu_torch.utils import safetensors_io
 
@@ -70,7 +71,12 @@ def load_peft_adapter(path: str, device="cuda") -> Tuple[LoRAConfig, Lora]:
 
 
 def save_peft_adapter(path: str, lora_cfg: LoRAConfig, lora: Lora) -> None:
-    """Write the adapters in PEFT layout, f32."""
+    """Write the adapters in PEFT layout, f32.  In a world, every rank calls
+    it (the adapters are whole and alike on a mesh), world rank 0 writes
+    and every rank waits for the files."""
+    if not distributed.is_writer():
+        distributed.barrier()
+        return
     os.makedirs(path, exist_ok=True)
     tensors: Dict[str, torch.Tensor] = {}
     for i, layer in enumerate(lora["layers"]):
@@ -87,3 +93,4 @@ def save_peft_adapter(path: str, lora_cfg: LoRAConfig, lora: Lora) -> None:
             "target_modules": list(lora_cfg.target_modules),
             "task_type": "CAUSAL_LM",
         }, f, indent=2)
+    distributed.barrier()

@@ -74,7 +74,11 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      0 driving and rank 1 in ``follow()`` (first-token logits held the same
      way against a single-device ``ServeEngine``), each rank's launches of
      B1 to B4 summed as the path "tp", and the times, with the share of a
-     decode step in collectives, (g) the model served through
+     decode step in collectives; then, in the same world, each rank loads
+     the whole model on a dp = 2, tp = 1 mesh and the two replicas serve the
+     same 4 requests, world rank 0 driving and the other rank following:
+     the tokens must equal the single-device engine's (path "dp_serve"),
+     (g) the model served through
      ``examples/serve_openai.py``'s ``build`` at phase 5's configuration, one
      wave of 8 chat requests twice, token-identical, (h) the activation-order
      and asymmetric exports at 2 layers, ``perm4`` and ``zeros4`` on the
@@ -103,6 +107,23 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      tokens/s, peak memory, and one step under ``torch.profiler`` by part
      (projections, plain attention, LoRA merge, recompute, loss, each with
      its backward).  No kernel launches on the training path.
+ 9t. (after phase 9, every model freed) training on a tensor-parallel mesh:
+     two ranks on cuda:0 over gloo, each drawing 9a's and 9b's weights from
+     their seed and cutting each layer as it is drawn (no rank holds the
+     whole model): (a) 9a's 2-layer LoRA loss and every adapter gradient,
+     whole-shaped after the sum over tp, against 9a's on one card; (b)
+     9b's ``train_lora_sft`` on the rank's shard of the 48 layers, 3 steps:
+     the losses equal on both ranks, step 1's against 9b's, every b with a
+     gradient at step 1 and every a at step 2; step seconds, the share of a
+     step in collectives (each timed between device syncs), peak memory a
+     rank.
+ 12. (in 9t's world) GPipe at pp = 2: (a) ``pipeline_forward`` of 9b's 48
+     bf16 layers, 24 a stage, 2 microbatches of 1 x 1,024 tokens, the last
+     positions' logits against the single-stage forward of 9b's model; (b)
+     ``make_pp_train_step`` at the 14B widths in f32 with 4 layers, 2 a
+     stage, 3 steps on one batch: step 1's loss against the single-stage
+     loss, the loss falling; step seconds, P2P bytes and seconds a step.
+     Neither launches a kernel (``attn_impl="xla"``, float weights).
  10. (after phase 8, on phase 4's weights) ChatTS's batch evaluation, the
      path of ``scripts/run_eval.sh``: 48 samples of
      ``eval/make_eval_dataset.py::build_dataset`` (one series of 64 to 1,024
@@ -2033,11 +2054,11 @@ def wave1_rate(reqs) -> dict:
     return dict(wave1_tok_s=n / span, wave1_tpot_ms=1e3 * sum(tpot) / len(tpot))
 
 
-def profile_mixed_round(torch, engine, steps: int = 8, live: int = 8, a: int = 4,
+def profile_mixed_round(torch, engine, steps: int = 4, live: int = 8, a: int = 4,
                         npt: int = 64, kv_limit: int = 4096) -> dict:
     """The steps of a scan-sliced mixed round under ``torch.profiler``, as
     phase 8b's second round runs them: the engine's round function with
-    ``steps`` steps (a quarter of the 32-step round: its steps have the same
+    ``steps`` steps (an eighth of the 32-step round: its steps have the same
     shapes, and a whole round's 180,000 launches cost the profiler minutes),
     run eagerly from this thread after the engine stopped, on copies of its
     decode state with ``live`` slots live and ``a`` admission rows of
@@ -2355,7 +2376,7 @@ def _logits_against_cpu(torch, ckpt: str, cfg, dev, what: str, extra=None) -> di
 # run, and every rank is killed.
 TP_RANKS = 2
 TP_TIMEOUT_S = 600
-TP_NEW_TOKENS = 64
+TP_NEW_TOKENS = 32
 TP_SERVE_TOKENS = 32
 # The first-step logits of the batch at tp = 2 against the single-device
 # model, both bf16 on the card, 48 layers: each row-parallel projection
@@ -2441,45 +2462,45 @@ def tp_serve(engine, reqs):
     return recorder.logits
 
 
-class CollectiveClock:
-    """While on, each tensor collective of the model, the batch engine and
-    the serving engine is timed on the host between two device syncs (so
-    the card's queued work is not counted in it); ``seconds`` and ``calls``
-    add up."""
+class DistClock:
+    """While on, each ``torch.distributed`` call of the process (the port's
+    collectives and point-to-point sends look them up there when they run)
+    is timed on the host between two device syncs; ``seconds`` and
+    ``calls`` add up, ``bytes`` the tensors' sizes (an ``all_gather``'s
+    output list whole; a ``broadcast_object_list``'s pickled objects are
+    not counted)."""
 
-    NAMES = {"models.qwen": ("all_reduce_tp", "all_gather_tp"),
-             "ops.int4_matmul": ("all_reduce_tp",),  # int4_matmul_tp's row sum
-             "runtime.engine": ("broadcast_from_driver",),
-             "serve.scheduler": ("broadcast_from_driver",)}
+    NAMES = ("all_reduce", "all_gather", "broadcast", "broadcast_object_list", "send", "recv")
 
     def __init__(self):
-        import importlib
+        import torch.distributed as dist
 
-        self.seconds, self.calls, self.saved = 0.0, 0, []
-        for mod_name, names in self.NAMES.items():
-            mod = importlib.import_module("chatts_tpu_torch." + mod_name)
-            for name in names:
-                inner = getattr(mod, name)
-                self.saved.append((mod, name, inner))
-                setattr(mod, name, self._timed(inner))
+        self.dist, self.seconds, self.calls, self.bytes, self.saved = dist, 0.0, 0, 0, []
+        for name in self.NAMES:
+            inner = getattr(dist, name)
+            self.saved.append((name, inner))
+            setattr(dist, name, self._timed(inner))
 
     def _timed(self, inner):
         import torch
 
-        def timed(mesh, x, *args, **kw):
+        def timed(tensor, *args, **kw):
             torch.cuda.synchronize()
             start = time.perf_counter()
-            out = inner(mesh, x, *args, **kw)
+            out = inner(tensor, *args, **kw)
             torch.cuda.synchronize()
             self.seconds += time.perf_counter() - start
             self.calls += 1
+            for t in tensor if isinstance(tensor, list) else [tensor]:
+                if isinstance(t, torch.Tensor):
+                    self.bytes += t.numel() * t.element_size()
             return out
 
         return timed
 
     def remove(self) -> None:
-        for mod, name, inner in self.saved:
-            setattr(mod, name, inner)
+        for name, inner in self.saved:
+            setattr(self.dist, name, inner)
 
 
 class KernelInputs:
@@ -2577,7 +2598,7 @@ def tp_decode_step_share(torch, engine, batch, steps: int = 4) -> dict:
         tokens = torch.randint(10, 400, (b,), generator=gen, device=dev, dtype=torch.int32)
         cur_lens = torch.as_tensor(batch.seq_lens, device=dev).to(torch.int32)
         engine._decode_step(caches, tokens, cur_lens, gen, greedy)
-        clock = CollectiveClock()
+        clock = DistClock()
         try:
             torch.cuda.synchronize()
             start = time.perf_counter()
@@ -2664,15 +2685,54 @@ def _tp_rank(rank: int, sym_dir: str, layers: int):
         out[name] = (time.perf_counter() - start) / calls * 1e3
         del x
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del engine, serve, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(_dp_serve_rank(sym_dir, cfg, dev))
     return out
 
 
-def phase_tp(smi: str, sym_dir: str, layers: int, model, cfg, single_run) -> dict:
+def _dp_serve_rank(sym_dir: str, cfg, dev) -> dict:
+    """7t's data-parallel part on one rank: the whole model on a dp =
+    ``TP_RANKS`` mesh, the 4 requests served with world rank 0 driving and
+    the other rank (its dp group's) following; the launches on both."""
+    import torch
+
+    from chatts_tpu_torch.models import weights
+    from chatts_tpu_torch.parallel.mesh import create_mesh
+
+    dp_mesh = create_mesh(dp=TP_RANKS, tp=1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, model = weights.load_checkpoint(sym_dir, cfg, quantize_bits=4, device=dev, mesh=dp_mesh)
+    out = dict(dp_model_gb=_model_gb(model), dp_heads=model.llm.layers[0].self_attn.num_heads)
+    reset_launches()
+    serve = tp_serve_engine(model, cfg, dev)
+    out["dp_driver"] = serve.is_driver
+    if serve.is_driver:
+        reqs = tp_requests(cfg, SEED + 12)
+        start = time.perf_counter()
+        out["dp_serve_logits"] = tp_serve(serve, reqs).cpu()
+        out.update(dp_serve_s=time.perf_counter() - start,
+                   dp_serve_tokens=[r.output_tokens for r in reqs], dp_serve_stats=serve.stats(),
+                   dp_serve_ttft_ms=[r.ttft_s * 1e3 for r in reqs])
+    else:
+        serve.follow()
+    torch.cuda.synchronize(dev)
+    out["dp_launches"] = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    out["dp_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del serve, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp(smi: str, sym_dir: str, layers: int, model, cfg, single_run) -> tuple:
     """Phase 7t: ``TP_RANKS`` ranks on cuda:0 (gloo) each load their shard of
     the directory and run the batch engine and the serving engine; the
     first-step logits are held to the single-device model of 7c, the tokens
-    reported against 7f's and a single-device serving engine's.  Returns the
-    ranks' summed kernel launches (path "tp")."""
+    reported against 7f's and a single-device serving engine's; then the
+    same ranks serve at dp = 2 (``phase_dp_serve``).  Returns the ranks'
+    summed kernel launches of both paths ("tp", "dp_serve")."""
     import numpy as np
     import torch
 
@@ -2783,6 +2843,42 @@ def phase_tp(smi: str, sym_dir: str, layers: int, model, cfg, single_run) -> dic
         f"{r0['all_reduce_4_rows_ms']:.3f} ms, one ({batch.input_ids.size}, "
         f"{cfg.llm.hidden_size}) {r0['all_reduce_prefill_ms']:.2f} ms; card {smi}")
     log("  tp stats: " + json.dumps(stats))
+    return launches, phase_dp_serve(smi, ranks, want_serve, single_serve)
+
+
+def phase_dp_serve(smi: str, ranks, want_serve, single_serve) -> dict:
+    """7t's data-parallel part: ``ServeEngine`` at dp = ``TP_RANKS``, tp = 1,
+    world rank 0 driving both replicas; the tokens must equal the
+    single-device engine's.  Returns the ranks' summed launches."""
+    drivers = [r["dp_driver"] for r in ranks]
+    if drivers != [True] + [False] * (TP_RANKS - 1):
+        raise AssertionError(f"dp serving: drivers {drivers}, expected world rank 0 alone")
+    r0 = ranks[0]
+    sstats = r0["dp_serve_stats"]
+    got = r0["dp_serve_logits"]
+    err = float((got - want_serve).abs().max())
+    same = r0["dp_serve_tokens"] == single_serve
+    launches = {name: sum(r["dp_launches"][name] for r in ranks) for name in REPLACES}
+    log(f"  (e) serving at dp {TP_RANKS}, tp 1 ({r0['dp_model_gb']:.2f} GB a rank, "
+        f"{r0['dp_heads']} heads), world rank 0 driving: 4 requests x {TP_SERVE_TOKENS} tokens "
+        f"{'equal to' if same else 'DIFFER from'} the single-device engine's; first-token "
+        f"logits max |diff| {err:.4g}; {r0['dp_serve_s']:.2f} s, TTFT "
+        f"{[round(x, 1) for x in r0['dp_serve_ttft_ms']]} ms, decode round "
+        f"{sstats.get('round_decode_mean_ms')} ms eager ({sstats['eager_decode_reason']}); "
+        f"peak {[round(r['dp_peak_gb'], 2) for r in ranks]} GB; launches, both ranks "
+        f"{launches}; card {smi}")
+    if not same:
+        raise AssertionError("dp serving tokens differ from the single-device engine's")
+    if sstats["loop_error"] or sstats.get("rounds_mono") != 1:
+        raise AssertionError(f"dp serving ran another schedule: {sstats}")
+    each = [r["dp_launches"] for r in ranks]
+    for name in ("flash_attention", "ragged_decode_attention_int8", "int4_matmul"):
+        if any(c[name] == 0 for c in each):
+            raise AssertionError(f"dp serving: a replica did not launch {name}: {each}")
+    log("  dp stats: " + json.dumps(dict(
+        card=smi, ranks=TP_RANKS, model_gb=r0["dp_model_gb"], serve_s=r0["dp_serve_s"],
+        ttft_ms=r0["dp_serve_ttft_ms"], round_decode_ms=sstats.get("round_decode_mean_ms"),
+        logit_err=err, peak_gb=[r["dp_peak_gb"] for r in ranks])))
     return launches
 
 
@@ -2921,7 +3017,7 @@ def phase_disk(smi: str, fused_run, fused_launches: dict) -> dict:
 
         with Phase("7t", f"tensor parallelism: {TP_RANKS} ranks on the card (gloo) load their "
                          f"shards of the {layers}-layer directory, generate and serve"):
-            paths["tp"] = phase_tp(smi, sym_dir, layers, model, cfg, g2)
+            paths["tp"], paths["dp_serve"] = phase_tp(smi, sym_dir, layers, model, cfg, g2)
 
         with Phase("7g", "serve the loaded model through serve_openai.build"):
             args = serve_openai.parse_args([
@@ -3535,6 +3631,8 @@ def phase_train_2_layers(smi: str) -> dict:
     loss, _ = sft_driver.lora_loss_fn(adapters, model, lcfg, data.to_device(batch_np, dev),
                                       remat=True)
     torch.cuda.synchronize()
+    card = dict(loss=float(loss),
+                grads=[t.grad.float().cpu() for t in lora.lora_parameters(adapters)])
 
     # The CPU's f32 plain path on the same weights: the same draws on the
     # card's generator, cast to bf16 and placed on the CPU, then f32.
@@ -3604,7 +3702,7 @@ def phase_train_2_layers(smi: str) -> dict:
                              "loss is not finite")
     out.update(full_step_loss=float(metrics["loss"]), tensors_changed=sum(moved))
     del model, before, step, adapters
-    return out
+    return out, card
 
 
 class TrainSpy:
@@ -3846,8 +3944,34 @@ def phase_train_full_depth(smi: str) -> dict:
     log(f"  9b: {step_ms:.1f} ms a step (steps 2 to {TRAIN_STEPS} of both runs), "
         f"{out['tokens_per_s']:.0f} real tokens/s ({out['padded_tokens_per_s']:.0f} with padding), "
         f"peak memory {peak_gb:.2f} GB; {smi}")
-    del model, adapters, step, batch
-    return out
+    del adapters, step, batch
+    pp_ref = pipeline_reference(torch, model, cfg)
+    del model
+    return out, pp_ref
+
+
+def pp_ids(cfg):
+    """Phase 12's tokens: (2, 1,024) ids drawn from a seed."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    return torch.randint(10, cfg.llm.vocab_size - 10, (2, PP_TOKENS), generator=gen)
+
+
+def pipeline_reference(torch, model, cfg) -> dict:
+    """12(a)'s reference: the single-stage forward of phase 12's tokens
+    (``attn_impl="xla"``, the pipeline's attention) on 9b's 48-layer model,
+    its hidden state after the final norm and the logits of each row's last
+    ``PP_TAIL`` positions, on the CPU."""
+    dev = model.llm.norm.device
+    ids = pp_ids(cfg).to(dev)
+    positions = torch.arange(PP_TOKENS, device=dev)[None].repeat(ids.shape[0], 1)
+    with torch.no_grad():
+        hidden, _ = model.llm(model.llm.embed(ids), positions,
+                              kv_valid=torch.ones_like(ids, dtype=torch.bool),
+                              kv_positions=positions, attn_impl="xla")
+        logits = model.llm.compute_logits(hidden[:, -PP_TAIL:])
+    return dict(hidden=hidden[:, -PP_TAIL:].float().cpu(), logits=logits.cpu())
 
 
 def phase_train(smi: str) -> dict:
@@ -3864,18 +3988,364 @@ def phase_train(smi: str) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        result = {"9a": phase_train_2_layers(smi)}
+        result, refs = {}, {}
+        result["9a"], refs["9a"] = phase_train_2_layers(smi)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        result["9b"] = phase_train_full_depth(smi)
+        result["9b"], refs["pp"] = phase_train_full_depth(smi)
+        refs["9b_loss"] = result["9b"]["losses"][0]
         launches = read_launches("training", ())
         if any(launches.values()):
             raise AssertionError(f"the training path launched a kernel: {launches}")
         log("  train: " + json.dumps(result))
         gc.collect()
         torch.cuda.empty_cache()
-    return launches
+    return launches, refs
+
+
+# ---------------------------------------------------------------------------
+# Phases 9t and 12: training on a tensor-parallel mesh, and GPipe
+# ---------------------------------------------------------------------------
+
+# Two ranks on cuda:0 over gloo, as phase 7t runs them (NCCL refuses two
+# ranks on one device); every time below is gloo's, through host memory.
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 900
+MESH_TRAIN_LAYERS = 48  # 9b's depth, for 9t(b) and 12(a)
+TP_TRAIN_STEPS = 3
+# 12(a): the 48-layer bf16 stack, 24 layers a stage, M = 2 microbatches of
+# 1 x 1,024 tokens; the logits of each row's last PP_TAIL positions are held
+# to the single-stage forward's with 7t's rule (3% of the largest).
+PP_TOKENS = 1024
+PP_MICRO = 2
+PP_TAIL = 8
+# 12(b): make_pp_train_step at the 14B widths, f32, full-parameter AdamW (16
+# bytes a parameter with its gradient and two moments).  48 layers would be
+# 14.8 B parameters, 236 GB; the embedding and the head alone are 1.56 B.
+# 4 layers, 2 a stage: 1.10 B in the layers + 1.56 B = 2.66 B, 42.6 GB for
+# the two stages together, beside the activations of 2 x 1,024 f32 tokens.
+PP_TRAIN_LAYERS = 4
+PP_TRAIN_STEPS = 3
+PP_TRAIN_LR = 1e-4
+# 12(b)'s first loss against the single-stage loss, both f32 on the card
+# with the same products (TF32 off), the pipeline's on microbatches of one
+# row: the sums run in another order only (tests/test_pipeline.py's 1e-4).
+PP_LOSS_RTOL = 1e-4
+
+
+def _tp_train_2_layers(torch, mesh, dev) -> dict:
+    """9t(a) on one rank: 9a's model, adapters and rows on the rank's shard."""
+    from chatts_tpu_torch.models import chatts
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
+    from chatts_tpu_torch.train import data, lora, sft_driver
+
+    start = time.perf_counter()
+    cfg = chatts_14b_config(num_layers=2)
+    model = chatts.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                               torch.bfloat16, mesh=mesh)
+    batch_np = data.build_sft_batch(ChatTSProcessor(WordTokenizer(), cfg),
+                                    sft_rows(2, 64, 1, 150, 60, SEED + 9))
+    lcfg = lora.LoRAConfig()
+    adapters = lora.init_lora(model, lcfg, torch.Generator().manual_seed(SEED))
+    _nonzero_b(torch, adapters, SEED + 1)
+    loss, _ = sft_driver.lora_loss_fn(adapters, model, lcfg, data.to_device(batch_np, dev),
+                                      remat=True)
+    out = dict(loss=float(loss), grads=[t.grad.float().cpu() for t in
+                                        lora.lora_parameters(adapters)],
+               heads=model.llm.layers[0].self_attn.num_heads,
+               vocab_rows=model.llm.embed_tokens.shape[0], seconds=time.perf_counter() - start)
+    del model, adapters
+    return out
+
+
+def _tp_train_full_depth(torch, mesh, dev, layers: int) -> dict:
+    """9t(b) on one rank: 9b's run on the rank's shard of its ``layers``
+    (48), ``TP_TRAIN_STEPS`` steps, the collectives timed."""
+    from chatts_tpu_torch.models import chatts
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
+    from chatts_tpu_torch.train import lora, sft_driver, train_step
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = time.perf_counter()
+    cfg = chatts_14b_config(num_layers=layers)
+    model = chatts.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                               torch.bfloat16, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    out = dict(init_s=time.perf_counter() - start, model_gb=_model_gb(model),
+               init_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    proc = ChatTSProcessor(WordTokenizer(), cfg)
+    rows = sft_rows(2, 256, 2, 820, 127, SEED + 11)
+    clock = DistClock()
+    try:
+        with TrainSpy() as spy:
+            t0 = time.perf_counter()
+            result = sft_driver.train_lora_sft(
+                model, cfg, proc, rows, lora_cfg=lora.LoRAConfig(rank=8),
+                train_cfg=train_step.TrainConfig(learning_rate=1e-4, remat=True), batch_size=2,
+                num_epochs=TP_TRAIN_STEPS, max_steps=TP_TRAIN_STEPS, seed=SEED,
+                log_every=10 ** 9, device=dev)
+    finally:
+        clock.remove()
+    times = [t0] + [s["t"] for s in spy.steps]
+    out.update(losses=result.losses, step_s=[b - a for a, b in zip(times, times[1:])],
+               nonzero=[s["nonzero"] for s in spy.steps[:2]],
+               collective_s=clock.seconds / TP_TRAIN_STEPS,
+               collectives_a_step=clock.calls / TP_TRAIN_STEPS,
+               collective_mb_a_step=clock.bytes / TP_TRAIN_STEPS / 1e6,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del model, result
+    return out
+
+
+def _pp_forward(torch, pp, dev, layers: int) -> dict:
+    """12(a) on one stage: its half of 9b's ``layers`` (48; drawn as 9b drew
+    them, the encoder's draws first), the pipeline forward of phase 12's
+    tokens."""
+    from chatts_tpu_torch.models.ts_encoder import TSEncoder
+    from chatts_tpu_torch.parallel import pipeline
+
+    cfg = chatts_14b_config(num_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    TSEncoder(cfg.ts, device=dev).reset_parameters(gen)  # chatts.init_params draws it first
+    start = time.perf_counter()
+    stage = pipeline.init_stage(cfg.llm, gen, pp, dev, torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - start
+    ids = pp_ids(cfg).to(dev)
+    b, t = ids.shape
+    mb = b // PP_MICRO
+    positions = torch.arange(t, device=dev)[None].repeat(b, 1)
+    embeds = stage.embed(ids).reshape(PP_MICRO, mb, t, -1) if pp.is_first else None
+    clock = DistClock()
+    try:
+        torch.cuda.synchronize(dev)
+        start = time.perf_counter()
+        hidden = pipeline.pipeline_forward(
+            stage, cfg.llm, embeds, positions.reshape(PP_MICRO, mb, t),
+            torch.ones((PP_MICRO, mb, t), dtype=torch.bool, device=dev), mesh=pp)
+        torch.cuda.synchronize(dev)
+        forward_s = time.perf_counter() - start
+    finally:
+        clock.remove()
+    hidden = hidden.reshape(b, t, -1)[:, -PP_TAIL:]
+    out = dict(init_s=init_s, forward_s=forward_s, p2p_s=clock.seconds, p2p_mb=clock.bytes / 1e6,
+               layers=(stage.layer_start, len(stage.layers)), stage_gb=_model_gb(stage),
+               hidden=hidden.float().cpu(),
+               logits=stage.compute_logits(hidden).cpu() if pp.is_last else None)
+    del stage, hidden, embeds
+    return out
+
+
+def pp_train_batch(torch, dev) -> dict:
+    """12(b)'s batch: phase 12's tokens, every position a target."""
+    ids = pp_ids(chatts_14b_config(num_layers=1)).to(dev)
+    positions = torch.arange(PP_TOKENS, device=dev)[None].repeat(ids.shape[0], 1)
+    return {"input_ids": ids, "positions": positions, "attention_mask": torch.ones_like(ids),
+            "targets": torch.roll(ids, -1, dims=1),
+            "loss_mask": torch.ones(ids.shape, dtype=torch.float32, device=dev)}
+
+
+def _pp_train(torch, pp, dev) -> dict:
+    """12(b) on one stage: ``make_pp_train_step`` at the 14B widths, f32,
+    ``PP_TRAIN_LAYERS`` layers, ``PP_TRAIN_STEPS`` steps on one batch."""
+    from chatts_tpu_torch.parallel import pipeline
+
+    cfg = chatts_14b_config(num_layers=PP_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stage = pipeline.init_stage(cfg.llm, torch.Generator(device=dev).manual_seed(SEED + 14),
+                                pp, dev, torch.float32)
+    step, optimizer = pipeline.make_pp_train_step(
+        cfg.llm, pp, pipeline.PipelineTrainConfig(learning_rate=PP_TRAIN_LR,
+                                                  microbatches=PP_MICRO))
+    state = optimizer.init(stage)
+    batch = pp_train_batch(torch, dev)
+    losses, step_s, sent = [], [], []
+    clock = DistClock()
+    try:
+        for _ in range(PP_TRAIN_STEPS):
+            torch.cuda.synchronize(dev)
+            start = time.perf_counter()
+            stage, state, metrics = step(stage, state, batch)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - start)
+            sent.append(metrics["sent_bytes"])
+    finally:
+        clock.remove()
+    out = dict(losses=losses, step_s=step_s, sent_mb=[x / 1e6 for x in sent],
+               p2p_s=clock.seconds / PP_TRAIN_STEPS, p2p_calls=clock.calls / PP_TRAIN_STEPS,
+               params=sum(p.numel() for p in pipeline.pipeline_parameters(stage)),
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del stage, state, step
+    return out
+
+
+def _mesh_train_rank(rank: int, layers: int):
+    """One rank of phases 9t and 12: tp = 2 LoRA SFT (9t), then the GPipe
+    forward and train step at pp = 2 (12), the models freed in between;
+    ``layers`` is 9b's depth."""
+    import torch
+
+    from chatts_tpu_torch.parallel import pipeline
+    from chatts_tpu_torch.parallel.mesh import create_mesh
+
+    torch.set_num_threads(2)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp = create_mesh(tp=MESH_RANKS)
+    pp = pipeline.create_pp_mesh(MESH_RANKS)
+    reset_launches()
+    out = {"rank": rank}
+    for key, part in (("9t_a", lambda: _tp_train_2_layers(torch, tp, dev)),
+                      ("9t_b", lambda: _tp_train_full_depth(torch, tp, dev, layers)),
+                      ("12a", lambda: _pp_forward(torch, pp, dev, layers)),
+                      ("12b", lambda: _pp_train(torch, pp, dev))):
+        start = time.perf_counter()
+        out[key] = part()
+        out[key]["part_s"] = time.perf_counter() - start
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    return out
+
+
+def pp_train_reference(torch, dev) -> float:
+    """12(b)'s single-stage loss: the same f32 4-layer model whole on the
+    card, the same batch, one forward."""
+    from chatts_tpu_torch.models import qwen
+    from chatts_tpu_torch.train.loss import cross_entropy
+
+    cfg = chatts_14b_config(num_layers=PP_TRAIN_LAYERS)
+    model = qwen.init_params(cfg.llm, torch.Generator(device=dev).manual_seed(SEED + 14), dev,
+                             torch.float32)
+    batch = pp_train_batch(torch, dev)
+    with torch.no_grad():
+        hidden, _ = model(model.embed(batch["input_ids"]), batch["positions"],
+                          kv_valid=batch["attention_mask"].bool(),
+                          kv_positions=batch["positions"], attn_impl="xla")
+        loss, _ = cross_entropy(model.compute_logits(hidden), batch["targets"],
+                                batch["loss_mask"])
+    loss = float(loss)
+    del model, hidden
+    return loss
+
+
+def phase_mesh_training(smi: str, refs: dict) -> dict:
+    """Phases 9t and 12 in one world of ``MESH_RANKS`` ranks on cuda:0 over
+    gloo (after phase 9, every model freed): 9t holds tp = 2 LoRA SFT to
+    9a's and 9b's single-device runs, 12 the GPipe forward to 9b's model's
+    single-stage forward and its train step to the single-stage loss.
+    Returns the launches of both paths (none: training runs no kernel)."""
+    import torch
+
+    from chatts_tpu_torch.parallel.distributed import run_world
+
+    layers = MESH_TRAIN_LAYERS
+    dev = torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pp_loss = pp_train_reference(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  {MESH_RANKS} ranks on one card ({torch.cuda.get_device_name(0)}) over gloo, which "
+        f"carries each collective and each send through host memory: these times are not "
+        f"NCCL times; card: {smi}")
+    with Phase("9t", "training at tp = 2: (a) 9a's LoRA loss and gradients, (b) 9b's LoRA SFT "
+                     "of the 48-layer ChatTS-14B shape, each rank its shard"):
+        start = time.perf_counter()
+        ranks = run_world(_mesh_train_rank, MESH_RANKS, (layers,), backend="gloo",
+                          timeout_s=MESH_TIMEOUT_S)
+        log(f"  the world of {MESH_RANKS} ranks ran in {time.perf_counter() - start:.1f} s "
+            f"(9t and 12)")
+        a = [r["9t_a"] for r in ranks]
+        want_loss, want_grads = refs["9a"]["loss"], refs["9a"]["grads"]
+        loss_err = max(abs(x["loss"] - want_loss) / abs(want_loss) for x in a)
+        errs = [float((g - w).norm() / w.norm()) for x in a for g, w in zip(x["grads"], want_grads)]
+        shapes = all(g.shape == w.shape for x in a for g, w in zip(x["grads"], want_grads))
+        log(f"  9t(a) 2 layers, tp {MESH_RANKS} ({a[0]['heads']} heads, {a[0]['vocab_rows']} "
+            f"vocabulary rows a rank): loss {a[0]['loss']:.6f} against 9a's {want_loss:.6f} on one "
+            f"card, relative error {loss_err:.3g} (tolerance {TRAIN_LOSS_RTOL}); {len(want_grads)} "
+            f"adapter gradients, whole-shaped {shapes}, relative L2 error largest {max(errs):.3g} "
+            f"(tolerance {TRAIN_GRAD_RL2}); {a[0]['part_s']:.1f} s")
+        if not shapes or loss_err > TRAIN_LOSS_RTOL or max(errs) > TRAIN_GRAD_RL2:
+            raise AssertionError("9t(a): the tp LoRA loss or gradients differ from one card's")
+        b = [r["9t_b"] for r in ranks]
+        if b[0]["losses"] != b[1]["losses"] or len(b[0]["losses"]) != TP_TRAIN_STEPS or not all(
+                math.isfinite(x) for x in b[0]["losses"]):
+            raise AssertionError(f"9t(b): losses {[x['losses'] for x in b]}")
+        first_err = abs(b[0]["losses"][0] - refs["9b_loss"]) / abs(refs["9b_loss"])
+        s1, s2 = b[0]["nonzero"]
+        steps = [round(x, 3) for x in b[0]["step_s"]]
+        share = b[0]["collective_s"] / (sum(b[0]["step_s"]) / TP_TRAIN_STEPS)
+        log(f"  9t(b) {layers} layers, tp {MESH_RANKS}: shard {b[0]['model_gb']:.2f} GB a rank, drawn "
+            f"and cut in {b[0]['init_s']:.1f} s (init peak {b[0]['init_peak_gb']:.2f} GB); losses "
+            f"{[round(x, 6) for x in b[0]['losses']]}, equal on both ranks; step 1 against 9b's "
+            f"{refs['9b_loss']:.6f}: relative error {first_err:.3g} (tolerance {TRAIN_LOSS_RTOL}); "
+            f"step 1: {sum(s1[1::2])}/{len(s1) // 2} b with a gradient, step 2: "
+            f"{sum(s2[0::2])}/{len(s2) // 2} a; step seconds {steps}; collectives "
+            f"{b[0]['collective_s']:.2f} s a step ({share:.1%}, {b[0]['collectives_a_step']:.0f} "
+            f"calls, {b[0]['collective_mb_a_step']:.0f} MB, each timed between device syncs); "
+            f"peak {[round(x['peak_gb'], 2) for x in b]} GB; card {smi}")
+        if first_err > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"9t(b): step 1's loss differs from 9b's by {first_err:.3g}")
+        if not all(s1[1::2]) or any(s1[0::2]) or not all(s2[0::2]):
+            raise AssertionError("9t(b): an adapter got no gradient")
+        log("  9t stats: " + json.dumps(dict(
+            card=smi, ranks=MESH_RANKS, backend="gloo", a_loss=a[0]["loss"], a_loss_rel=loss_err,
+            a_grad_rel_l2_max=max(errs), b_losses=b[0]["losses"], b_first_rel=first_err,
+            b_step_s=b[0]["step_s"], b_collective_s=b[0]["collective_s"],
+            b_collective_share=share, b_collectives_a_step=b[0]["collectives_a_step"],
+            b_collective_mb_a_step=b[0]["collective_mb_a_step"], b_init_s=b[0]["init_s"],
+            b_model_gb=[x["model_gb"] for x in b], b_peak_gb=[x["peak_gb"] for x in b])))
+    with Phase(12, f"GPipe at pp = {MESH_RANKS}: (a) pipeline_forward of the {layers}-layer stack "
+                   f"against one stage, (b) make_pp_train_step, f32, {PP_TRAIN_LAYERS} layers"):
+        fa = [r["12a"] for r in ranks]
+        want = refs["pp"]
+        if not torch.equal(fa[0]["hidden"], fa[1]["hidden"]):
+            raise AssertionError("12(a): the stages' hidden states differ")
+        got = fa[-1]["logits"]
+        err = float((got - want["logits"]).abs().max())
+        tol = TP_LOGIT_RTOL_OF_MAX * float(want["logits"].abs().max())
+        herr = float((fa[0]["hidden"] - want["hidden"]).abs().max())
+        log(f"  12(a) stages {[x['layers'] for x in fa]} (first layer, count), "
+            f"{[round(x['stage_gb'], 2) for x in fa]} GB, drawn in "
+            f"{[round(x['init_s'], 1) for x in fa]} s; the logits of each row's last {PP_TAIL} "
+            f"positions against the single-stage forward on 9b's weights: max |diff| {err:.4g} "
+            f"(tolerance {tol:.4g} = {TP_LOGIT_RTOL_OF_MAX} x max |logit| "
+            f"{float(want['logits'].abs().max()):.4g}); hidden max |diff| {herr:.4g}; forward "
+            f"{fa[0]['forward_s']:.3f} s, P2P {fa[0]['p2p_s']:.3f} s and {fa[0]['p2p_mb']:.1f} MB "
+            f"on stage 0; the part {fa[0]['part_s']:.1f} s")
+        if got is None or got.shape != want["logits"].shape or err > tol:
+            raise AssertionError(f"12(a): pipeline logits differ by {err:.4g} > {tol:.4g}")
+        fb = [r["12b"] for r in ranks]
+        losses = fb[0]["losses"]
+        rel = abs(losses[0] - pp_loss) / abs(pp_loss)
+        log(f"  12(b) {PP_TRAIN_LAYERS} layers f32, {[x['params'] for x in fb]} parameters a "
+            f"stage, AdamW (optax's defaults) lr {PP_TRAIN_LR}: losses "
+            f"{[round(x, 6) for x in losses]}; step 1 against the single-stage {pp_loss:.6f}: "
+            f"relative {rel:.3g} (tolerance {PP_LOSS_RTOL}); step seconds "
+            f"{[round(x, 3) for x in fb[0]['step_s']]}; P2P a step {fb[0]['p2p_s']:.3f} s, "
+            f"{fb[0]['sent_mb'][0]:.1f} MB sent by stage 0 and {fb[1]['sent_mb'][0]:.1f} MB by "
+            f"stage 1; peak {[round(x['peak_gb'], 2) for x in fb]} GB; the part "
+            f"{fb[0]['part_s']:.1f} s; card {smi}")
+        if [x["losses"] for x in fb] != [losses] * MESH_RANKS or rel > PP_LOSS_RTOL:
+            raise AssertionError(f"12(b): losses {[x['losses'] for x in fb]} against {pp_loss}")
+        if not all(b < a for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"12(b): the loss did not fall: {losses}")
+        log("  12 stats: " + json.dumps(dict(
+            card=smi, ranks=MESH_RANKS, backend="gloo", a_logit_err=err, a_logit_tol=tol,
+            a_hidden_err=herr, a_forward_s=fa[0]["forward_s"], a_p2p_s=[x["p2p_s"] for x in fa],
+            a_init_s=[x["init_s"] for x in fa], b_losses=losses, b_single_loss=pp_loss,
+            b_first_rel=rel, b_step_s=fb[0]["step_s"], b_p2p_s=[x["p2p_s"] for x in fb],
+            b_sent_mb=[x["sent_mb"][0] for x in fb], b_params=[x["params"] for x in fb],
+            b_peak_gb=[x["peak_gb"] for x in fb])))
+    launches = {name: sum(r["launches"][name] for r in ranks) for name in REPLACES}
+    if any(launches.values()):
+        raise AssertionError(f"the mesh training paths launched a kernel: {launches}")
+    log(f"  kernel launches on the tp training and pipeline paths, both ranks: {launches}")
+    return {"tp_training_and_pipeline": launches}
 
 
 REPLACES = {
@@ -3923,7 +4393,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(phase_disk(smi, bf16_run, paths["batch"]))
-    paths["training"] = phase_train(smi)
+    paths["training"], refs = phase_train(smi)
+    paths.update(phase_mesh_training(smi, refs))
     # Each path counted from 0: "launches" is a kernel's sum over the paths,
     # and "launches_by_path" says which path launched what.
     by_path = {name: {path: counts[name] for path, counts in paths.items()}

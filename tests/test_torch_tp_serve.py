@@ -17,7 +17,11 @@ each request alone), token for token:
   on one thread as ``tests/test_torch_mixed_admission.py`` drives it), the
   case of ``tests/test_multichip_inference.py:103-146``.
 
-It also holds what the engine refuses or chooses: dp > 1, ``submit`` and
+At dp = 2 (tp = 1), each rank holding the whole model, world rank 0
+drives and the rank of the other dp group follows: the plain request and
+the mixed admission give JAX's tokens on both replicas.
+
+It also holds what the engine refuses or chooses: ``submit`` and
 ``start`` on a follower, and eager decode rounds off the card, reported by
 ``stats()``.  The world's join is bounded (60 s)."""
 import json
@@ -142,14 +146,31 @@ def _rank_main(rank, tree):
         for eng in engines:
             eng.follow()
         out["followed"] = True
-    # dp > 1: the serving engine refuses the mesh.
+    # dp = 2: world rank 0 drives both replicas.
     dp_mesh = tmesh.create_mesh(dp=2, tp=1)
-    try:
-        ServeEngine(sharding.place_params(dp_mesh, cfg, whole, device="cpu"), cfg, proc,
-                    device="cpu")
-        out["dp2"] = None
-    except ValueError as err:
-        out["dp2"] = str(err)
+    replica = sharding.place_params(dp_mesh, cfg, whole, device="cpu")
+    engines = [_engine(replica, cfg, proc, kw) for kw in (ENGINES[0], ENGINES[2])]
+    out["dp2_driver"] = engines[0].is_driver
+    if engines[0].is_driver:
+        with engines[0] as eng:
+            out["dp2"] = eng.generate_sync(*PLAIN[:2], _greedy(PLAIN).params,
+                                           timeout=WORLD_TIMEOUT_S).output_tokens
+        runner, joins = _greedy(RUNNER), _greedy(JOINS)
+        eng = engines[1]
+        with torch.inference_mode():
+            eng.waiting.put(runner)
+            eng._admit()
+            eng._complete_round(eng._dispatch_round())
+            eng.waiting.put(joins)
+            eng._admit()
+            while any(r.finished_s is None and r.error is None for r in (runner, joins)):
+                eng._complete_round(eng._dispatch_round())
+        eng.stop()
+        out["dp2_mixed"] = (runner.output_tokens, joins.output_tokens)
+    else:
+        for eng in engines:
+            eng.follow()
+        out["dp2"] = "followed"
     return out
 
 
@@ -219,6 +240,14 @@ def test_torch_tp2_serve_matches_jax(world, case):
         assert "mixed" in driver["long_kinds"], driver["long_kinds"]
 
 
+def test_torch_dp2_serve_matches_jax(world):
+    driver = world["results"][0]
+    assert driver["dp2"] == world["want"]["plain"]
+    runner, joins = driver["dp2_mixed"]
+    assert runner == world["want"]["runner"]
+    assert joins == world["want"]["joins"]
+
+
 def test_torch_tp2_serve_mixed_admission_while_decoding(world):
     runner, joins, runner_err, joins_err = world["results"][0]["mixed"]
     assert runner_err is None and joins_err is None
@@ -231,8 +260,10 @@ def test_torch_tp2_serve_roles_and_refusals(world):
     driver, follower = world["results"]
     assert follower["followed"] is True
     assert "follow()" in follower["start"] and "tp rank 0" in follower["submit"]
-    for res in world["results"]:
-        assert "dp = 1" in res["dp2"] and "dp 2" in res["dp2"]
+    # dp = 2 is served, not refused: world rank 0 drives, the other dp
+    # group's rank follows.
+    assert [res["dp2_driver"] for res in world["results"]] == [True, False]
+    assert follower["dp2"] == "followed"
     stats = driver["stats"]
     assert stats["decode_graph"] is False and stats["loop_error"] is None
     assert stats["eager_decode_reason"] == "no CUDA graphs off the card"
