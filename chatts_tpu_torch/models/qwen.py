@@ -524,20 +524,19 @@ class Attention(nn.Module):
         q, k, v = (z[0] for z in self._qkv(x, rope))  # (Tp, H|KVH, D)
         scale = d ** -0.5
         values = _cache_values(kv_cache, k, v)  # (Tp, KVH, D) and scales (Tp, KVH)
-        if step.dec_rows.numel():
-            # One position per active decode row; inactive rows (the
-            # admission's slots among them) write nothing.
-            heads = torch.arange(self.num_kv_heads, device=x.device)[None, :]
-            _write_cache(kv_cache, (step.dec_rows[:, None], heads, step.dec_pos[:, None]),
-                         [None if z is None else z[:b][step.dec_rows] for z in values])
-        if step.n_real:
-            # One (KVH, npt) span per real admission row at the shared
-            # start; pad rows write nothing.
-            span = slice(step.span_start, step.span_start + npt)
-            _write_cache(kv_cache, (step.adm_slots[:step.n_real], slice(None), span),
-                         [None if z is None else
-                          z[b:].reshape(a, npt, *z.shape[1:])[:step.n_real].transpose(1, 2)
-                          for z in values])
+        heads = torch.arange(self.num_kv_heads, device=x.device)
+        # One position a decode row.  An inactive row (the admission's slots
+        # among them) writes back what its position holds: its stale
+        # position may lie inside a prompt span written before.
+        _write_cache(kv_cache, (step.rows[:, None], heads[None, :], step.dec_pos[:, None]),
+                     [None if z is None else z[:b] for z in values], where=step.dec_write)
+        # One (KVH, npt) span a row at the shared start.  A pad row writes
+        # row 0's span into row 0's slot, the same values again.
+        _write_cache(kv_cache, (step.adm_write_slots[:, None, None], heads[None, :, None],
+                                step.span_pos[None, None, :]),
+                     [None if z is None else
+                      z[b:].reshape(a, npt, *z.shape[1:])[step.adm_src].transpose(1, 2)
+                      for z in values])
         out_dec = _decode_attention(q[:b].contiguous(), kv_cache, step.dec_kv_lengths, scale,
                                     self.mesh)
         # Prompt tokens: their slots' cache prefix, masked by each row's
@@ -564,10 +563,17 @@ def _cache_values(kv_cache: LayerCache, k: torch.Tensor, v: torch.Tensor):
     raise ValueError(f"a layer cache is a 2-tuple or an int8 4-tuple, not {len(kv_cache)} tensors")
 
 
-def _write_cache(kv_cache: LayerCache, index, values) -> None:
+def _write_cache(kv_cache: LayerCache, index, values,
+                 where: Optional[torch.Tensor] = None) -> None:
     """``buf[index] = value`` for each buffer of the cache, in place; the
-    index selects (row, head, position), so it fits codes and scales alike."""
+    index selects (row, head, position), so it fits codes and scales alike.
+    With ``where`` (a bool per value's leading index), a False one writes
+    back the value its index holds: the shapes stay fixed and nothing
+    changes there."""
     for buf, value in zip(kv_cache, values):
+        if where is not None:
+            keep = where.view(-1, *[1] * (value.dim() - 1))
+            value = torch.where(keep, value, buf[index])
         buf[index] = value
 
 
@@ -667,17 +673,21 @@ def _recompute_contexts():
 @dataclasses.dataclass
 class MixedStep:
     """What the layers of one mixed step share (``QwenModel.forward_mixed``
-    builds it): B decode rows, then A admission rows of npt prompt tokens."""
+    builds it): B decode rows, then A admission rows of npt prompt tokens.
+    Every tensor's shape is fixed by (B, A, npt, kv_limit), so a CUDA graph
+    can hold the step."""
 
     b: int
     a: int
     npt: int
-    dec_rows: torch.Tensor  # (n,) int64: the active decode rows, the only ones written
-    dec_pos: torch.Tensor  # (n,) int64: their write positions
+    rows: torch.Tensor  # (B,) int64: 0 .. B - 1
+    dec_write: torch.Tensor  # (B,) bool: the decode rows whose K/V is written
+    dec_pos: torch.Tensor  # (B,) int64: their write positions
     dec_kv_lengths: torch.Tensor  # (B,) int32
     adm_slots: torch.Tensor  # (A,) int64: each admission row's cache row (pads read any)
-    n_real: int  # admission rows [0, n_real) write; the rest are pads
-    span_start: int  # the prompt tokens' first position, shared by the rows
+    adm_src: torch.Tensor  # (A,) int64: the row whose span each row writes (pads: row 0)
+    adm_write_slots: torch.Tensor  # (A,) int64: adm_slots[adm_src]
+    span_pos: torch.Tensor  # (npt,) int64: the prompt tokens' positions, shared by the rows
     kv_limit: int
     adm_q_positions: torch.Tensor  # (A, npt) int32
     adm_kv_positions: torch.Tensor  # (A, kv_limit) int32
@@ -803,31 +813,44 @@ class QwenModel(nn.Module):
         a: int,
         npt: int,
         kv_caches: List[LayerCache],
-        dec_rows: torch.Tensor,  # (n,) int: the active decode rows
+        dec_rows: torch.Tensor,  # (B,) bool, or the (n,) int indices of its True rows
         dec_kv_lengths: torch.Tensor,  # (B,)
         adm_slots: torch.Tensor,  # (A,) int: each admission row's cache row
-        n_real: int,  # admission rows [0, n_real) are real; the rest are pads
+        n_real,  # int or 0-dim tensor: rows [0, n_real) are real; the rest are pads
         adm_seq_lens: torch.Tensor,  # (A,): prompt lengths, 0 for pads
-        span_start: int,  # the prompt tokens' first position
+        span_start,  # int or 0-dim tensor: the prompt tokens' first position
         kv_limit: int,
     ) -> torch.Tensor:
         """The fused mixed prefill + decode step: the port of
         ``qwen.forward_mixed``.  One packed stream of B decode tokens and A
         rows of npt prompt tokens runs through every projection together; a
-        decode token writes its K/V at its position in its row (active rows
-        only) and attends as a decode step over dec_kv_lengths; each real
-        admission row writes its npt tokens at [span_start, span_start +
-        npt) of its slot, and the prompt tokens attend their slots' prefix
-        [:kv_limit], valid below adm_seq_lens.  Caches are updated in place.
-        Returns the hidden states (1, B + A*npt, hidden) after the final norm."""
+        decode token writes its K/V at its position in its row (the rows of
+        ``dec_rows`` only) and attends as a decode step over dec_kv_lengths;
+        each real admission row writes its npt tokens at [span_start,
+        span_start + npt) of its slot, and the prompt tokens attend their
+        slots' prefix [:kv_limit], valid below adm_seq_lens.  Caches are
+        updated in place.  The reference drops the writes of the other rows
+        out of bounds; here they write values their places already hold, so
+        that no shape or index depends on the host: ``n_real`` and
+        ``span_start`` may be device scalars.  Returns the hidden states
+        (1, B + A*npt, hidden) after the final norm."""
         dev = embeds.device
         positions = positions.to(torch.int32)
-        dec_rows = dec_rows.long()
+        rows = torch.arange(b, device=dev)
+        if dec_rows.dtype == torch.bool:
+            dec_write = dec_rows
+        else:
+            dec_write = torch.zeros((b,), dtype=torch.bool, device=dev)
+            dec_write[dec_rows.long()] = True
+        adm = torch.arange(a, device=dev)
+        adm_src = torch.where(adm < n_real, adm, 0)
+        adm_slots = adm_slots.long()
         kv_pos = torch.arange(kv_limit, dtype=torch.int32, device=dev)[None].repeat(a, 1)
         step = MixedStep(
-            b=b, a=a, npt=npt, dec_rows=dec_rows, dec_pos=positions[0, :b][dec_rows].long(),
-            dec_kv_lengths=dec_kv_lengths.to(torch.int32), adm_slots=adm_slots.long(),
-            n_real=n_real, span_start=span_start, kv_limit=kv_limit,
+            b=b, a=a, npt=npt, rows=rows, dec_write=dec_write,
+            dec_pos=positions[0, :b].long(), dec_kv_lengths=dec_kv_lengths.to(torch.int32),
+            adm_slots=adm_slots, adm_src=adm_src, adm_write_slots=adm_slots[adm_src],
+            span_pos=torch.arange(npt, device=dev) + span_start, kv_limit=kv_limit,
             adm_q_positions=positions[0, b:].reshape(a, npt).contiguous(),
             adm_kv_positions=kv_pos, adm_kv_valid=kv_pos < adm_seq_lens[:, None],
         )

@@ -17,10 +17,19 @@ per-step-scatter decode, ``decode_recent_kv=False``).  ``generate`` takes a
    absolute slots and attending the cache prefix ``[:kv_limit]``, where
    ``kv_limit`` steps by ``kv_step = max(2 * chunk, 2048)``; as in the
    reference, a chunked prefill takes no ``act_int8``;
-3. decodes ``decode_chunk`` steps at a time.  Finished rows emit ``pad_id``
-   and keep their length; EOS and the done mask are computed on the device,
-   and the host syncs once per chunk.  The steps run as a Python loop (a CUDA
-   graph of the step is later work).
+3. decodes ``decode_chunk`` steps at a time, the port of the reference's
+   ``_decode_chunk``.  Finished rows emit ``pad_id`` and keep their length;
+   EOS and the done mask are computed on the device, each step writes its
+   tokens into the next column of a (B, decode_chunk) buffer, and the host
+   syncs once per chunk.  On the card one decode step is a CUDA graph
+   (``runtime/graphs.py``) replayed once a step.  It is keyed by (B,
+   ``cache_len``, the cache's type, ``decode_chunk``, the sampling mode of
+   ``gen_cfg`` and its EOS ids) and holds the cache it was captured over, so
+   that calls with the same key reuse both and only a new key captures
+   again.  It draws from a generator of its own, set from the caller's
+   before a chunk and copied back after, so that the caller's generator
+   advances as the eager steps would advance it.  Off the card, or on a
+   gloo mesh (``eager_decode_reason``), the same step runs eagerly.
 
 On a model placed on a mesh (``parallel/sharding.py``) every rank runs
 ``generate`` on the same ``ProcessedBatch``: each dp group takes its rows
@@ -33,6 +42,7 @@ TTFT and TPOT are host-clock times around work that ends in a device sync.
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Any, List, Mapping, Optional, Union
 
@@ -46,7 +56,7 @@ from chatts_tpu_torch.models.chatts import ChatTSModel, maybe_fuse
 from chatts_tpu_torch.models.convert import from_jax_params
 from chatts_tpu_torch.parallel.mesh import all_gather_dp, broadcast_from_driver
 from chatts_tpu_torch.parallel.sharding import infer_mesh, local_batch
-from chatts_tpu_torch.runtime import kv_cache, sampling
+from chatts_tpu_torch.runtime import graphs, kv_cache, sampling
 
 CACHE_BUCKET = 256
 
@@ -87,6 +97,87 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _sampling_key(gen_cfg: GenerationConfig) -> tuple:
+    """What of ``gen_cfg`` a captured decode step holds: greedy, or the
+    temperature, top-k and top-p it samples with; then the EOS ids."""
+    if gen_cfg.greedy or gen_cfg.temperature <= 0.0:
+        mode: tuple = ("greedy",)
+    else:
+        mode = ("sample", gen_cfg.temperature, gen_cfg.top_k, gen_cfg.top_p)
+    return mode + (tuple(gen_cfg.eos_token_ids),)
+
+
+class _DecodeState:
+    """A ``generate`` call's decode state at addresses that never move: the
+    cache, the last tokens, the lengths, the done mask and the chunk's
+    (B, decode_chunk) token buffer, with the column the next step writes."""
+
+    def __init__(self, key: tuple, caches, b: int, chunk: int, gen_cfg: GenerationConfig,
+                 device: torch.device):
+        self.key, self.caches = key, caches
+        self.tokens = torch.zeros((b,), dtype=torch.int32, device=device)
+        self.cur_lens = torch.zeros((b,), dtype=torch.int32, device=device)
+        self.done = torch.zeros((b,), dtype=torch.bool, device=device)
+        self.eos_ids = torch.tensor(list(gen_cfg.eos_token_ids) or [-1], dtype=torch.int32,
+                                    device=device)
+        self.emitted = torch.zeros((b, chunk), dtype=torch.int32, device=device)
+        self.column = torch.zeros((b, 1), dtype=torch.int64, device=device)
+
+
+def _next_tokens(engine: "InferenceEngine", state: _DecodeState, generator, gen_cfg):
+    """One decode step of every row: (the next tokens, pad_id where a row
+    was done; the new done mask).  Writes each row's K/V at its length."""
+    next_tok = engine._decode_step(state.caches, state.tokens, state.cur_lens, generator,
+                                   gen_cfg)
+    next_tok = torch.where(state.done, engine.pad_id, next_tok).to(torch.int32)
+    new_done = state.done | (next_tok[:, None] == state.eos_ids[None, :]).any(dim=1)
+    return next_tok, new_done
+
+
+def _decode_step_in_place(engine: "InferenceEngine", state: _DecodeState, generator,
+                          gen_cfg) -> None:
+    """One decode step with the state updated in place and its tokens
+    written into the next column of ``state.emitted``."""
+    next_tok, new_done = _next_tokens(engine, state, generator, gen_cfg)
+    state.cur_lens += (~state.done).to(torch.int32)
+    state.done.copy_(new_done)
+    state.tokens.copy_(next_tok)
+    state.emitted.scatter_(1, state.column, next_tok[:, None])
+    state.column += 1
+
+
+def _decode_chunk(engine: "InferenceEngine", state: _DecodeState, steps: int, generator,
+                  gen_cfg) -> None:
+    """``steps`` decode steps run eagerly (off the card, on a gloo mesh)."""
+    state.column.zero_()
+    for _ in range(steps):
+        _decode_step_in_place(engine, state, generator, gen_cfg)
+
+
+class _BatchDecodeGraph:
+    """One decode step of ``state`` captured in a CUDA graph; ``chunk``
+    replays it once a step.  The graph draws from a generator of its own:
+    a chunk sets it from the caller's first and copies it back after, so
+    the caller's generator advances as the eager steps advance it."""
+
+    def __init__(self, engine: "InferenceEngine", state: _DecodeState, gen_cfg):
+        self.state = state
+        self.generator = torch.Generator(device=engine.device)
+        # The warm-up step updates no state and draws from a generator of
+        # its own; its K/V writes are the ones the first replay makes.
+        self.graph, self.pool_bytes = graphs.capture(
+            lambda: _next_tokens(engine, state, torch.Generator(device=engine.device), gen_cfg),
+            lambda: _decode_step_in_place(engine, state, self.generator, gen_cfg),
+            self.generator)
+
+    def chunk(self, steps: int, generator: torch.Generator) -> None:
+        self.generator.set_state(generator.get_state())
+        self.state.column.zero_()
+        for _ in range(steps):
+            self.graph.replay()
+        generator.set_state(self.generator.get_state())
+
+
 class InferenceEngine:
     """Owns the model on ``device`` (the card unless the caller asks for
     the CPU) and the generation loop."""
@@ -120,6 +211,22 @@ class InferenceEngine:
         self.prefill_act_int8 = prefill_act_int8
         # Prompts longer than this prefill in chunks of this many tokens.
         self.prefill_chunk = prefill_chunk
+        # The decode step's graph and the state and cache it was captured
+        # over (``_BatchDecodeGraph``), kept for the next call with its key.
+        self._decode_graph: Optional[_BatchDecodeGraph] = None
+        # Why decode chunks run eagerly, or None when they replay the graph.
+        self.eager_decode_reason: Optional[str] = None
+        if self.device.type != "cuda":
+            self.eager_decode_reason = "no CUDA graphs off the card"
+        elif self.mesh is not None and self.mesh.backend != "nccl":
+            self.eager_decode_reason = (f"{self.mesh.backend} collectives cannot be captured "
+                                        f"in a CUDA graph")
+            print(f"[InferenceEngine] decode chunks run eagerly: {self.eager_decode_reason}",
+                  file=sys.stderr)
+        # Decode chunks run by form ("graph", "eager"), and each capture's
+        # key, seconds and pool bytes.
+        self.decode_chunks = {"graph": 0, "eager": 0}
+        self.graph_captures: List[dict] = []
 
     def _tensor(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
@@ -205,8 +312,18 @@ class InferenceEngine:
 
         start = time.perf_counter()
         seq_lens = self._tensor(batch.seq_lens, torch.int32)
-        caches = kv_cache.allocate(self.cfg.llm, b, cache_len, self.cache_dtype, dev,
-                                   kv_heads=self.model.llm.kv_heads)
+        key = (b, cache_len, self.cache_dtype, self.decode_chunk, _sampling_key(gen_cfg))
+        graph = self._decode_graph if self.eager_decode_reason is None else None
+        if graph is not None and graph.state.key == key:
+            state = graph.state
+            kv_cache.reset(state.caches)
+        else:
+            self._decode_graph = graph = None  # its cache is freed before the new one
+            state = _DecodeState(
+                key, kv_cache.allocate(self.cfg.llm, b, cache_len, self.cache_dtype, dev,
+                                       kv_heads=self.model.llm.kv_heads),
+                b, self.decode_chunk, gen_cfg, dev)
+        caches = state.caches
         if chunked:
             hidden = self._chunked_prefill(batch, seq_lens, caches, cache_len)
         else:
@@ -231,10 +348,10 @@ class InferenceEngine:
         ttft = time.perf_counter() - start
 
         eos = set(gen_cfg.eos_token_ids)
-        eos_ids = torch.tensor(list(gen_cfg.eos_token_ids) or [-1], dtype=torch.int32, device=dev)
         done_host = np.array([int(tok) in eos for tok in first_tokens])
-        done = torch.as_tensor(done_host, device=dev)
-        cur_lens = seq_lens.clone()
+        state.tokens.copy_(tokens)
+        state.cur_lens.copy_(seq_lens)
+        state.done.copy_(torch.as_tensor(done_host, device=dev))
 
         chunk = max(1, min(self.decode_chunk, gen_cfg.max_new_tokens - 1))
         decode_start = time.perf_counter()
@@ -243,16 +360,24 @@ class InferenceEngine:
         collected: List[np.ndarray] = []
         while remaining > 0 and not done_host.all():
             step = min(chunk, remaining)
-            chunk_tokens = []
-            for _ in range(step):
-                next_tok = self._decode_step(caches, tokens, cur_lens, generator, gen_cfg)
-                next_tok = torch.where(done, self.pad_id, next_tok).to(torch.int32)
-                new_done = done | (next_tok[:, None] == eos_ids[None, :]).any(dim=1)
-                cur_lens = cur_lens + (~done).to(cur_lens.dtype)
-                done, tokens = new_done, next_tok
-                chunk_tokens.append(next_tok)
-            collected.append(torch.stack(chunk_tokens, dim=1).cpu().numpy())  # one sync
-            done_host = done.cpu().numpy()
+            if self.eager_decode_reason is not None:
+                _decode_chunk(self, state, step, generator, gen_cfg)
+                self.decode_chunks["eager"] += 1
+            else:
+                if graph is None:
+                    capture_start = time.perf_counter()
+                    graph = self._decode_graph = _BatchDecodeGraph(self, state, gen_cfg)
+                    # pool_bytes is None from a stand-in that captured nothing.
+                    self.graph_captures.append(dict(
+                        kind="decode", key=repr(key),
+                        seconds=time.perf_counter() - capture_start,
+                        pool_bytes=getattr(graph, "pool_bytes", None)))
+                graph.chunk(step, generator)
+                self.decode_chunks["graph"] += 1
+            packed = torch.cat([state.emitted[:, :step], state.done[:, None].to(torch.int32)],
+                               dim=1).cpu().numpy()  # one sync
+            collected.append(packed[:, :-1])
+            done_host = packed[:, -1].astype(bool)
             remaining -= step
             steps += step
         _sync(dev)

@@ -51,6 +51,14 @@ def allocate(cfg: QwenConfig, batch_size: int, max_seq_len: int,
     ]
 
 
+def reset(caches: List[LayerCache]) -> None:
+    """Set caches to what ``allocate`` makes, in place: codes and values 0,
+    scales 1."""
+    for layer in caches:
+        for i, buf in enumerate(layer):
+            buf.fill_(1.0 if i >= 2 else 0)
+
+
 def cache_bytes(cfg: QwenConfig, batch_size: int, max_seq_len: int,
                 dtype=torch.bfloat16) -> int:
     """Device bytes of ``allocate``'s result, the int8 mode's scales included

@@ -18,33 +18,50 @@ Round forms, as in the reference:
   whole admission prefills as one block, its rows merge into the decode
   state, then either the round ends there and the first tokens stream at
   once (``block_early_emit``), or the decode chunk runs in the same round
-  with the new rows live (fused);
+  with the new rows live (fused; on the card the chunk replays the decode
+  step's graph);
 - **scan-sliced mixed admission** (slots live and the block too large, or a
   prompt above ``prefill_chunk``): every round advances the decode slots
   ``decode_chunk`` steps and, in each step, consumes ``npt`` prompt tokens
   of every admission row in the same packed stream through the projections
   (``QwenModel.forward_mixed``); the prompt K/V lands in the slots directly.
-  After the round that consumes the last tokens, the first tokens are
-  sampled from the hidden states captured at each row's last prompt
-  position, and the rows go live.  A mixed admission whose padded prompt
-  would not fit the cache takes the monolithic path instead.
+  On the card a round replays a CUDA graph of one mixed step, one graph per
+  (a, npt, kv_limit), captured in the first round with that key.  After
+  the round that consumes the last tokens, the first tokens are sampled
+  from the hidden states captured at each row's last prompt position, and
+  the rows go live.  A mixed admission whose padded prompt would not fit
+  the cache takes the monolithic path instead.
+
+Every graph (``runtime/graphs.py``) is one step over tensors that never
+move, replayed once a step; its capture runs the step once eagerly first.
+A capture that fails raises, and the round fails as any other does: no
+round falls back to eager steps.  ``stats()`` counts the rounds run from a
+graph and run eagerly, by kind, and lists each capture's key, seconds and
+pool bytes.  The mixed graphs share one memory pool: they never run at
+once.
 
 What differs from the reference, and why:
-- Placement is an indexed copy of the admitted rows into their slots, and a
-  mixed step writes decode tokens for the active rows only and prompt spans
-  for the real admission rows only, by index.  The reference's host gather
-  plus select, its span scatters and its out-of-bounds write rows exist
-  because XLA serialises general scatters on the TPU; on the card an index
-  past the cache would fault.
+- Placement is an indexed copy of the admitted rows into their slots.  The
+  reference's host gather plus select and its span scatters exist because
+  XLA serialises general scatters on the TPU.  A mixed step keeps the
+  reference's fixed shapes, but where it routes the writes of inactive
+  decode rows and pad admission rows out of bounds (dropped), an index past
+  the cache would fault on the card: an inactive row writes back what its
+  position holds, and a pad row writes row 0's span into row 0's slot
+  again, so neither changes anything.
 - Block admissions have no pad rows: eager PyTorch compiles nothing, so the
   port computes exactly the rows of the processed batch.  ``_block_family``
   stays for the eligibility rule, so both engines take the same path.  A
   scan-sliced admission keeps the reference's row family ``a``, since its
   npt cap and padded length depend on it; its pad rows have length 0 and
-  write nothing.
-- A mixed round runs eagerly, ``decode_chunk`` steps of Python; it and the
-  mixed finalize update the decode state in place, so the decode graph's
-  replays see it.
+  change nothing.
+- The reference compiles each round once per shape; the port captures one
+  step of it per shape in a CUDA graph on the card and runs the same step
+  functions eagerly off it.  Every round and the mixed finalize update the
+  decode state in place, so every graph's replays see it.  A mixed round's
+  offsets are device scalars that each step advances, and its prompt slice
+  is copied into a buffer of its graph's before the round, since the
+  slice's address moves.
 - Decode is the per-step cache write form; the recent-KV mode is TPU-only
   machinery (ROADMAP "Not to port").
 - The prompt side of a mixed step always takes the prefill attention (B1 on
@@ -55,7 +72,7 @@ What differs from the reference, and why:
   nor ``mixed_admission``, which no caller turns off; the reference's
   ``mixed_npt`` default is the module constant ``MIXED_NPT``.
 - Shape keys that mark a round's first XLA compile (``fresh``) have no
-  counterpart: nothing compiles per shape.
+  counterpart; ``stats()["graph_captures"]`` lists the shapes captured.
 
 Tensor and data parallelism (a model from ``parallel/sharding.py``): JAX
 runs every device from the one engine loop; here every rank builds a
@@ -72,10 +89,10 @@ and the ids reach the whole world, so every dp replica runs the driver's
 schedule on the same requests, as JAX's engine, which never places its
 cache or batch over dp (``kv_cache_specs`` and ``batch_specs`` have no
 caller there), repeats the work on every replica; splitting requests over
-dp would be a feature JAX's engine lacks.  The decode step's CUDA graph is
+dp would be a feature JAX's engine lacks.  The rounds' CUDA graphs are
 captured only under NCCL (unverified); gloo collectives cannot be
-captured, so under gloo every decode round runs eagerly, by the
-constructor's choice, which ``stats()`` reports with its reason.
+captured, so under gloo every round runs eagerly, by the constructor's
+choice, which ``stats()`` reports with its reason.
 """
 from __future__ import annotations
 
@@ -101,7 +118,7 @@ from chatts_tpu_torch.models.chatts import ChatTSModel, maybe_fuse
 from chatts_tpu_torch.models.convert import from_jax_params
 from chatts_tpu_torch.parallel.mesh import broadcast_from_driver
 from chatts_tpu_torch.parallel.sharding import infer_mesh
-from chatts_tpu_torch.runtime import kv_cache, sampling
+from chatts_tpu_torch.runtime import graphs, kv_cache, sampling
 
 # The most prompt tokens an admission row consumes in one step of a
 # scan-sliced mixed round (the reference engine's ``mixed_npt`` default).
@@ -300,33 +317,22 @@ def _advance(logits, tokens, cur_lens, live, budget, temperature, top_p, eos_ids
     return emitted, tokens, cur_lens, budget, live
 
 
-def _decode_scan(model: ChatTSModel, chunk_size: int, caches, tokens, cur_lens, active,
-                 temperature, top_p, eos_ids, budget, generator):
-    """Advance every active slot ``chunk_size`` decode steps: the port of
-    the reference's non-recent ``_decode_scan`` as a loop on the device.
-    Returns (tokens, cur_lens, budget, emitted (B, chunk) int32, live (B,)
-    bool)."""
-    live = active & (budget > 0)
-    emitted = []
-    for _ in range(chunk_size):
-        emit, tokens, cur_lens, budget, live = _decode_step(
-            model.llm, caches, tokens, cur_lens, active, live, budget, temperature, top_p,
-            eos_ids, generator)
-        emitted.append(emit)
-    return tokens, cur_lens, budget, torch.stack(emitted, dim=1), live
-
-
 def _decode_all_slots(model, chunk_size, caches, tokens, cur_lens, active, temperature,
                       top_p, eos_ids, budget, generator):
-    """A pure decode round, ``tokens``, ``cur_lens`` and ``budget`` written
+    """A decode round run eagerly: every active slot advances ``chunk_size``
+    steps (the port of the reference's non-recent ``_decode_scan`` as a
+    loop on the device), ``tokens``, ``cur_lens`` and ``budget`` written
     back in place.  Returns the one packed (B, chunk + 1) int32 array the
     host fetches: the emitted tokens, then the live flag."""
-    new_tokens, new_lens, new_budget, emitted, live = _decode_scan(
-        model, chunk_size, caches, tokens, cur_lens, active, temperature, top_p,
-        eos_ids, budget, generator)
-    for state, new in ((tokens, new_tokens), (cur_lens, new_lens), (budget, new_budget)):
-        state.copy_(new)
-    return torch.cat([emitted, live[:, None].to(torch.int32)], dim=1)
+    live = active & (budget > 0)
+    new, emitted = [tokens, cur_lens, budget], []
+    for _ in range(chunk_size):
+        emit, *new, live = _decode_step(model.llm, caches, new[0], new[1], active, live,
+                                        new[2], temperature, top_p, eos_ids, generator)
+        emitted.append(emit)
+    for state, value in zip((tokens, cur_lens, budget), new):
+        state.copy_(value)
+    return torch.cat([torch.stack(emitted, dim=1), live[:, None].to(torch.int32)], dim=1)
 
 
 class _DecodeStepGraph:
@@ -345,21 +351,20 @@ class _DecodeStepGraph:
         self.live = torch.zeros((b,), dtype=torch.bool, device=dev)
         self.emitted = torch.zeros((b, chunk_size), dtype=torch.int32, device=dev)
         self.column = torch.zeros((b, 1), dtype=torch.int64, device=dev)
-        # One eager step first, so that every kernel of the step is built and
-        # loaded and the allocator is warm before the capture.  It updates no
-        # state and draws from a generator of its own; its K/V writes are the
-        # ones the round's first step makes.
-        _decode_step(model.llm, caches, tokens, cur_lens, active, self.live, budget,
-                     temperature, top_p, eos_ids, torch.Generator(device=dev))
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            emit, *new = _decode_step(model.llm, caches, tokens, cur_lens, active, self.live,
-                                      budget, temperature, top_p, eos_ids, generator)
+        args = (model.llm, caches, tokens, cur_lens, active, self.live, budget, temperature,
+                top_p, eos_ids)
+
+        def step():
+            emit, *new = _decode_step(*args, generator)
             self.emitted.scatter_(1, self.column, emit[:, None])
             self.column += 1
             for state, value in zip((*self.state, self.live), new):
                 state.copy_(value)
+
+        # The warm-up step updates no state and draws from a generator of
+        # its own; its K/V writes are the ones the round's first step makes.
+        self.graph, self.pool_bytes = graphs.capture(
+            lambda: _decode_step(*args, torch.Generator(device=dev)), step, generator)
 
     def round(self) -> torch.Tensor:
         """A pure decode round, as ``_decode_all_slots`` computes it."""
@@ -370,30 +375,28 @@ class _DecodeStepGraph:
         return torch.cat([self.emitted, self.live[:, None].to(torch.int32)], dim=1)
 
 
-def _block_admission_round(model, chunk_size, caches, tokens, cur_lens, active,
-                           temperature, top_p, eos_ids, budget, src, dst, embeds,
-                           seq_lens, adm_temp, adm_topp, adm_budget, generator,
-                           act_int8=False):
+def _block_admission_round(model, caches, tokens, cur_lens, active, temperature, top_p,
+                           eos_ids, budget, src, dst, embeds, seq_lens, adm_temp, adm_topp,
+                           adm_budget, generator, act_int8, decode_round):
     """One fused round: the admission's prompt block, then the decode chunk
-    with the admitted rows live from its first step.  Device liveness of the
-    new rows uses the global EOS set, a subset of each request's host-side
-    set (the host stays authoritative and drops over-decoded tokens).
-    Returns (tokens, cur_lens, budget, packed (B, chunk + 2)): the emitted
-    tokens, the live flag, and the first tokens in rows [0, A)."""
+    with the admitted rows live from its first step.  ``active`` (the
+    engine's device mirror of the live slots) takes the landing rows in
+    place, and ``decode_round()`` runs the chunk over the decode state, as a
+    pure decode round does: from the decode step's graph on the card.
+    Device liveness of the new rows uses the global EOS set, a subset of
+    each request's host-side set (the host stays authoritative and drops
+    over-decoded tokens).  Returns the packed (B, chunk + 2) result: the
+    emitted tokens, the live flag, and the first tokens in rows [0, A)."""
     b = tokens.shape[0]
     first = _block_prefill_merge(model, caches, tokens, cur_lens, temperature, top_p,
                                  budget, src, dst, embeds, seq_lens, adm_temp, adm_topp,
                                  adm_budget, generator, act_int8)
     first_eos = (first[:, None] == eos_ids[None, :]).any(dim=1)
-    active = active.clone()
     active[dst] = (~first_eos & (adm_budget > 1))[src]
-    tokens, cur_lens, budget, emitted, live = _decode_scan(
-        model, chunk_size, caches, tokens, cur_lens, active, temperature, top_p,
-        eos_ids, budget, generator)
+    packed = decode_round()
     first_b = torch.full((b,), -1, dtype=torch.int32, device=tokens.device)
     first_b[: first.shape[0]] = first
-    packed = torch.cat([emitted, live[:, None].to(torch.int32), first_b[:, None]], dim=1)
-    return tokens, cur_lens, budget, packed
+    return torch.cat([packed, first_b[:, None]], dim=1)
 
 
 def _sample_admission_first(model: ChatTSModel, last_hidden, temperature, top_p,
@@ -406,49 +409,128 @@ def _sample_admission_first(model: ChatTSModel, last_hidden, temperature, top_p,
     return _sample(model.mesh, logits, generator, temperature, top_p)
 
 
-def _mixed_round(model: ChatTSModel, chunk_size: int, npt: int, kv_limit: int, caches,
-                 tokens, cur_lens, active, dec_rows, temperature, top_p, eos_ids, budget,
-                 adm_slots, n_real: int, adm_embeds, adm_offset: int, adm_seq_lens,
-                 last_hidden, generator):
-    """One scan-sliced mixed round, the port of ``_mixed_step_all_slots``:
-    every slot advances ``chunk_size`` decode steps as ``_decode_step`` does,
-    and each step also consumes ``npt`` prompt tokens of every admission row
-    (``adm_embeds`` (A, chunk_size * npt, H) is this round's slice, at
-    absolute position ``adm_offset``) in the same packed stream.  Only the
-    active rows ``dec_rows`` write decode K/V; the admission slots are not
-    among them until their first token.  The hidden state at each row's
-    position seq_len - 1 is added into ``last_hidden`` (A, H) f32.
-    ``tokens``, ``cur_lens``, ``budget`` and ``last_hidden`` are updated in
-    place.  Returns the packed (B, chunk + 1) int32 result: the emitted
-    tokens (-1 where a slot did not emit), then the live flag."""
-    llm = model.llm
+class _MixedInputs:
+    """What a scan-sliced round reads besides the slots' decode state, at
+    addresses that never move (one set per (a, npt), made on first use):
+    the round's prompt slice (A, chunk, npt, H), the next step's span start
+    and index (device scalars that each step advances), the admission's
+    slots, real-row count and prompt lengths, the hidden states captured so
+    far (A, H) f32, and the round's emitted tokens and live flags."""
+
+    def __init__(self, b: int, a: int, npt: int, chunk_size: int, hdim: int, dtype, device):
+        self.embeds = torch.zeros((a, chunk_size, npt, hdim), dtype=dtype, device=device)
+        self.off = torch.zeros((), dtype=torch.int32, device=device)
+        self.step = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.adm_slots = torch.zeros((a,), dtype=torch.int64, device=device)
+        self.n_real = torch.zeros((), dtype=torch.int64, device=device)
+        self.seq_lens = torch.zeros((a,), dtype=torch.int32, device=device)
+        self.last_hidden = torch.zeros((a, hdim), dtype=torch.float32, device=device)
+        self.live = torch.zeros((b,), dtype=torch.bool, device=device)
+        self.emitted = torch.zeros((b, chunk_size), dtype=torch.int32, device=device)
+
+    def load(self, embeds, o: int, adm_slots, n_real: int, seq_lens, last_hidden, active,
+             budget) -> None:
+        """Set the inputs of the round that consumes tokens [o, o + chunk *
+        npt) of the admission's padded embeddings ``embeds`` (A, t_pad, H)."""
+        c = self.embeds.shape[1] * self.embeds.shape[2]
+        self.embeds.copy_(embeds[:, o:o + c].reshape(self.embeds.shape))
+        self.off.fill_(o)
+        self.step.zero_()
+        self.adm_slots.copy_(adm_slots)
+        self.n_real.fill_(n_real)
+        self.seq_lens.copy_(seq_lens)
+        self.last_hidden.copy_(last_hidden)
+        torch.logical_and(active, budget > 0, out=self.live)
+
+    def packed(self) -> torch.Tensor:
+        """The round's (B, chunk + 1) int32 result: the emitted tokens (-1
+        where a slot did not emit), then the live flag."""
+        return torch.cat([self.emitted, self.live[:, None].to(torch.int32)], dim=1)
+
+
+def _mixed_step(llm, npt: int, kv_limit: int, caches, tokens, cur_lens, active, temperature,
+                top_p, eos_ids, budget, generator, inp: _MixedInputs):
+    """One step of a scan-sliced round, the body of the reference's
+    ``_mixed_step_all_slots`` scan: every slot advances one decode step as
+    ``_decode_step`` does, and every admission row consumes the npt prompt
+    tokens at ``inp.off`` in the same packed stream; the active rows write
+    their decode K/V and the real admission rows their prompt span
+    (``QwenModel.forward_mixed``).  Updates no state.  Returns what
+    ``_advance`` returns (from ``inp.live``), then the hidden states (A, H)
+    f32 at each row's position seq_len - 1, zeros where that position is
+    not in this step."""
     b = tokens.shape[0]
-    a, _, hdim = adm_embeds.shape
-    dev = tokens.device
-    live = active & (budget > 0)
-    state = (tokens, cur_lens, budget)
-    emitted = []
-    for i in range(chunk_size):
-        off = adm_offset + i * npt
-        pro_pos = torch.arange(off, off + npt, dtype=torch.int32, device=dev)
-        dec_embeds = llm.embed(tokens)
-        x = torch.cat([dec_embeds, adm_embeds[:, i * npt:(i + 1) * npt]
-                       .reshape(a * npt, hdim).to(dec_embeds.dtype)])[None]
-        positions = torch.cat([cur_lens, pro_pos.repeat(a)])[None]
-        hidden = llm.forward_mixed(
-            x, positions, b=b, a=a, npt=npt, kv_caches=caches, dec_rows=dec_rows,
-            dec_kv_lengths=torch.where(active, cur_lens + 1, 1), adm_slots=adm_slots, n_real=n_real,
-            adm_seq_lens=adm_seq_lens, span_start=off, kv_limit=kv_limit)
-        emit, tokens, cur_lens, budget, live = _advance(
-            llm.compute_logits(hidden[0, :b, None])[:, 0], tokens, cur_lens, live, budget,
-            temperature, top_p, eos_ids, generator, llm.mesh)
-        emitted.append(emit)
-        captured = pro_pos[None, :] == (adm_seq_lens - 1)[:, None]  # (A, npt)
-        last_hidden += torch.where(captured[..., None], hidden[0, b:].reshape(a, npt, hdim).float(),
-                                   0.0).sum(dim=1)
-    for old, new in zip(state, (tokens, cur_lens, budget)):
-        old.copy_(new)
-    return torch.cat([torch.stack(emitted, dim=1), live[:, None].to(torch.int32)], dim=1)
+    a, _, _, hdim = inp.embeds.shape
+    pro_pos = inp.off + torch.arange(npt, dtype=torch.int32, device=tokens.device)
+    dec_embeds = llm.embed(tokens)
+    prompt = inp.embeds.index_select(1, inp.step).reshape(a * npt, hdim)
+    x = torch.cat([dec_embeds, prompt.to(dec_embeds.dtype)])[None]
+    positions = torch.cat([cur_lens, pro_pos.repeat(a)])[None]
+    hidden = llm.forward_mixed(
+        x, positions, b=b, a=a, npt=npt, kv_caches=caches, dec_rows=active,
+        dec_kv_lengths=torch.where(active, cur_lens + 1, 1), adm_slots=inp.adm_slots,
+        n_real=inp.n_real, adm_seq_lens=inp.seq_lens, span_start=inp.off, kv_limit=kv_limit)
+    out = _advance(llm.compute_logits(hidden[0, :b, None])[:, 0], tokens, cur_lens, inp.live,
+                   budget, temperature, top_p, eos_ids, generator, llm.mesh)
+    captured = pro_pos[None, :] == (inp.seq_lens - 1)[:, None]  # (A, npt)
+    grab = torch.where(captured[..., None], hidden[0, b:].reshape(a, npt, hdim).float(),
+                       0.0).sum(dim=1)
+    return (*out, grab)
+
+
+def _mixed_step_in_place(llm, npt: int, kv_limit: int, caches, tokens, cur_lens, active,
+                         temperature, top_p, eos_ids, budget, generator, inp: _MixedInputs):
+    """One step of a scan-sliced round with ``tokens``, ``cur_lens``,
+    ``budget`` and ``inp`` updated in place: its emitted tokens in column
+    ``inp.step``, the captured hidden states added into ``inp.last_hidden``,
+    the span start and the step advanced."""
+    emit, *new, grab = _mixed_step(llm, npt, kv_limit, caches, tokens, cur_lens, active,
+                                   temperature, top_p, eos_ids, budget, generator, inp)
+    inp.emitted.index_copy_(1, inp.step, emit[:, None])
+    for state, value in zip((tokens, cur_lens, budget, inp.live), new):
+        state.copy_(value)
+    inp.last_hidden += grab
+    inp.off += npt
+    inp.step += 1
+
+
+def _mixed_round(model: ChatTSModel, chunk_size: int, npt: int, kv_limit: int, caches,
+                 tokens, cur_lens, active, temperature, top_p, eos_ids, budget, generator,
+                 inp: _MixedInputs) -> torch.Tensor:
+    """One scan-sliced mixed round run eagerly, the port of
+    ``_mixed_step_all_slots``: ``chunk_size`` steps of ``_mixed_step`` over
+    the inputs ``inp.load`` set, the state updated in place (``tokens``,
+    ``cur_lens``, ``budget``, ``inp.last_hidden``).  Off the card and on a
+    gloo mesh; on the card ``_MixedStepGraph`` replays the same step, one
+    graph per (a, npt, kv_limit).  Returns the packed (B, chunk + 1) int32
+    result (``_MixedInputs.packed``)."""
+    for _ in range(chunk_size):
+        _mixed_step_in_place(model.llm, npt, kv_limit, caches, tokens, cur_lens, active,
+                             temperature, top_p, eos_ids, budget, generator, inp)
+    return inp.packed()
+
+
+class _MixedStepGraph:
+    """One step of a scan-sliced round captured in a CUDA graph for one
+    (a, npt, kv_limit), over the slots' state and ``inp``: a round replays
+    it ``chunk_size`` times and computes what ``_mixed_round`` computes.
+    ``pool`` is the memory pool the engine's mixed graphs share."""
+
+    def __init__(self, model, chunk_size, npt, kv_limit, caches, tokens, cur_lens, active,
+                 temperature, top_p, eos_ids, budget, generator, inp, pool=None):
+        self.chunk_size, self.inp = chunk_size, inp
+        args = (model.llm, npt, kv_limit, caches, tokens, cur_lens, active, temperature,
+                top_p, eos_ids, budget)
+        # The warm-up step updates no state and draws from a generator of
+        # its own; its K/V writes are the ones the round's first step makes.
+        self.graph, self.pool_bytes = graphs.capture(
+            lambda: _mixed_step(*args, torch.Generator(device=tokens.device), inp),
+            lambda: _mixed_step_in_place(*args, generator, inp), generator, pool)
+
+    def round(self) -> torch.Tensor:
+        for _ in range(self.chunk_size):
+            self.graph.replay()
+        return self.inp.packed()
 
 
 # ---------------------------------------------------------------------------
@@ -546,18 +628,28 @@ class ServeEngine:
             self._active_dev = torch.zeros((b,), dtype=torch.bool, device=dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         # These state tensors never move: rounds update them in place.  On
-        # the card every decode round replays a CUDA graph of one step over
-        # them, captured in the first.
+        # the card every decode chunk (of a pure decode round or a fused
+        # block round) replays a CUDA graph of one step over them, captured
+        # in the first, and every scan-sliced round a graph of one mixed
+        # step for its (a, npt, kv_limit) over them and its inputs (one set
+        # per (a, npt)), the mixed graphs in one memory pool.
         self._decode_graph: Optional[_DecodeStepGraph] = None
-        self.decode_graph_capture_s = 0.0
-        # Why decode rounds run eagerly, or None when they replay the graph.
+        self._mixed_inputs: Dict[tuple, _MixedInputs] = {}
+        self._mixed_graphs: Dict[tuple, _MixedStepGraph] = {}
+        self._mixed_pool = None
+        # Rounds run from a graph and run eagerly, by kind ("decode",
+        # "block", "mixed"); each capture's kind, key, seconds and pool bytes.
+        self.graph_rounds: Dict[str, int] = collections.Counter()
+        self.eager_rounds: Dict[str, int] = collections.Counter()
+        self.graph_captures: List[Dict[str, Any]] = []
+        # Why rounds run eagerly, or None when they replay graphs.
         self.eager_decode_reason: Optional[str] = None
         if self.device.type != "cuda":
             self.eager_decode_reason = "no CUDA graphs off the card"
         elif self.mesh is not None and self.mesh.backend != "nccl":
             self.eager_decode_reason = (f"{self.mesh.backend} collectives cannot be captured "
                                         f"in a CUDA graph")
-            print(f"[ServeEngine] decode rounds run eagerly: {self.eager_decode_reason}",
+            print(f"[ServeEngine] rounds run eagerly: {self.eager_decode_reason}",
                   file=sys.stderr)
         # Under tensor parallelism: the time of the driver's last plan, and
         # whether the followers were told to stop; an error that ended the
@@ -617,9 +709,9 @@ class ServeEngine:
         monolithic bursts of max_batch_size, 4, 2 and 1 rows, then every
         block-admission row count next to a decoding runner.  Every
         admission prefills as real ones do, with ``prefill_act_int8`` when
-        it is set.  Eager PyTorch builds nothing per shape, so the
-        scan-sliced round, whose kernels these rounds already load, is not
-        forced.
+        it is set.  The scan-sliced round, whose kernels these rounds already
+        load, is not forced: on the card its graph is captured in the first
+        round of each (a, npt, kv_limit).
         Failures are printed, not raised, as in the reference."""
         self.start()
         for bucket in sorted(prefill_buckets):
@@ -1173,39 +1265,61 @@ class ServeEngine:
                 self.model, self.caches, self.tokens, self.cur_lens, self.temperature,
                 self.top_p, self.budget, *adm)
             return ("block_pre", first, st, len(st["slots"]), rows)
-        tokens, cur_lens, budget, packed = _block_admission_round(
-            self.model, self.decode_chunk, self.caches, self.tokens, self.cur_lens,
-            self._active_device(), self.temperature, self.top_p, self._eos_dev,
-            self.budget, *adm)
-        for state, new in ((self.tokens, tokens), (self.cur_lens, cur_lens),
-                           (self.budget, budget)):
-            state.copy_(new)
+        packed = _block_admission_round(
+            self.model, self.caches, self.tokens, self.cur_lens, self._active_device(),
+            self.temperature, self.top_p, self._eos_dev, self.budget, *adm,
+            decode_round=lambda: self._decode_round("block"))
+        self._active_key = None  # the round made the landing rows live on the device
         return ("block", packed, st, len(st["slots"]), rows)
 
     def _dispatch_mixed(self):
         """One scan-sliced round: every slot advances ``decode_chunk`` steps
         and the admission consumes ``decode_chunk * npt`` tokens a row,
-        attending a prefix that steps by 512 positions.  The round that
-        consumes the last tokens clears the admission, so the next one can
-        be staged after it; its first tokens are sampled in
+        attending a prefix that steps by 512 positions.  On the card the
+        round replays the graph of one mixed step for its (a, npt,
+        kv_limit), captured in the first round with that key; off the card,
+        or on a gloo mesh, the same step runs eagerly.  The round's prompt
+        slice and offsets go into the inputs for its (a, npt) first.  The
+        round that consumes the last tokens clears the admission, so the
+        next one can be staged after it; its first tokens are sampled in
         ``_complete_round``."""
         st = self._pending_mixed
         npt, o = st["npt"], st["o"]
+        a, _, hdim = st["embeds"].shape
         c = self.decode_chunk * npt
         kv_limit = min(self.max_model_len, -(-min(o + c, st["t_pad"]) // 512) * 512)
-        packed = _mixed_round(
-            self.model, self.decode_chunk, npt, kv_limit, self.caches, self.tokens,
-            self.cur_lens, self._active_device(),
-            self._tensor(np.flatnonzero(self.live_host), torch.int64), self.temperature,
-            self.top_p, self._eos_dev, self.budget, st["adm_slots"], st["n_real"],
-            st["embeds"][:, o:o + c], o, st["seq_lens"], st["last_hidden"], self.generator)
+        inp = self._mixed_inputs.get((a, npt))
+        if inp is None:
+            inp = self._mixed_inputs[(a, npt)] = _MixedInputs(
+                self.max_batch_size, a, npt, self.decode_chunk, hdim, st["embeds"].dtype,
+                self.device)
+        active = self._active_device()
+        inp.load(st["embeds"], o, st["adm_slots"], st["n_real"], st["seq_lens"],
+                 st["last_hidden"], active, self.budget)
+        args = (self.model, self.decode_chunk, npt, kv_limit, self.caches, self.tokens,
+                self.cur_lens, active, self.temperature, self.top_p, self._eos_dev,
+                self.budget, self.generator, inp)
+        if self.eager_decode_reason is not None:
+            packed = _mixed_round(*args)
+            self._count_round(self.eager_rounds, "mixed")
+        else:
+            key = (a, npt, kv_limit)
+            graph = self._mixed_graphs.get(key)
+            if graph is None:
+                if self._mixed_pool is None:
+                    self._mixed_pool = torch.cuda.graph_pool_handle()
+                start = time.perf_counter()
+                graph = self._mixed_graphs[key] = _MixedStepGraph(*args, pool=self._mixed_pool)
+                self._log_capture("mixed", key, graph, time.perf_counter() - start)
+            packed = graph.round()
+            self._count_round(self.graph_rounds, "mixed")
+        st["last_hidden"].copy_(inp.last_hidden)
         st["o"] = o + c
         self.mixed_rounds_run += 1
         finalize = None
         if st["o"] >= st["t_pad"]:
             finalize = self._finalizing = st
             self._pending_mixed = None
-        a = st["embeds"].shape[0]
         return ("mixed", packed, finalize, a, a * npt)
 
     def _complete_round(self, handle) -> None:
@@ -1262,20 +1376,40 @@ class ServeEngine:
             self._active_key = key
         return self._active_dev
 
-    def _dispatch_decode(self):
+    def _count_round(self, counts: Dict[str, int], kind: str) -> None:
+        with self._round_log_lock:
+            counts[kind] += 1
+
+    def _log_capture(self, kind: str, key: tuple, graph, seconds: float) -> None:
+        """Record a capture: its kind, key, seconds (the warm-up step
+        included) and the pool bytes it added (None from a stand-in that
+        captured nothing)."""
+        with self._round_log_lock:
+            self.graph_captures.append(dict(kind=kind, key=list(key), seconds=seconds,
+                                            pool_bytes=getattr(graph, "pool_bytes", None)))
+        self._event(f"{kind}_graph_capture", seconds, key=key)
+
+    def _decode_round(self, kind: str) -> torch.Tensor:
+        """A decode chunk of every live slot over the decode state, the
+        packed (B, chunk + 1) result; ``kind`` is the round's ("decode", or
+        "block" for a fused block round's chunk).  On the card it replays
+        the graph of one decode step, captured in the first chunk."""
         args = (self.model, self.decode_chunk, self.caches, self.tokens, self.cur_lens,
                 self._active_device(), self.temperature, self.top_p, self._eos_dev,
                 self.budget, self.generator)
         if self.eager_decode_reason is not None:
-            packed = _decode_all_slots(*args)
-        else:
-            if self._decode_graph is None:
-                start = time.perf_counter()
-                self._decode_graph = _DecodeStepGraph(*args)
-                self.decode_graph_capture_s = time.perf_counter() - start
-                self._event("decode_graph_capture", self.decode_graph_capture_s)
-            packed = self._decode_graph.round()
-        return ("decode", packed, None, 0, 0)
+            self._count_round(self.eager_rounds, kind)
+            return _decode_all_slots(*args)
+        if self._decode_graph is None:
+            start = time.perf_counter()
+            self._decode_graph = _DecodeStepGraph(*args)
+            self._log_capture("decode", (self.max_batch_size, self.decode_chunk),
+                              self._decode_graph, time.perf_counter() - start)
+        self._count_round(self.graph_rounds, kind)
+        return self._decode_graph.round()
+
+    def _dispatch_decode(self):
+        return ("decode", self._decode_round("decode"), None, 0, 0)
 
     def _dispatch_round(self):
         """Dispatch the next device round; None when there is none."""
@@ -1410,6 +1544,10 @@ class ServeEngine:
             "eager_decode_reason": self.eager_decode_reason,
             "loop_error": self.loop_error,
         }
+        with self._round_log_lock:
+            out["graph_rounds"] = dict(self.graph_rounds)
+            out["eager_rounds"] = dict(self.eager_rounds)
+            out["graph_captures"] = [dict(c) for c in self.graph_captures]
         agg: Dict[str, list] = collections.defaultdict(lambda: [0, 0.0, 0, 0.0])
         for r in self.round_snapshot():
             g = agg[r["kind"]]

@@ -32,17 +32,25 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      monolithic admission and 8 decode steps on the card, run eagerly, their
      logits held against the same schedule on the CPU (plain versions, f32,
      the same int8 quantization, the card's tokens fed back); then the same
-     schedule replayed from the engine's decode graph, token-identical;
+     schedule replayed from the engine's decode graph, token-identical; then
+     a runner and a late request admitted by a fused block round
+     (``block_early_emit`` off), whose decode chunk replays the decode graph,
+     token-identical to the same schedule run eagerly;
   3d. the same widths with an int8 KV cache: a runner decodes while a
      ~700-token request is admitted by two scan-sliced mixed rounds (block
-     budget 0), driven on this thread; the runner's logits of every step and
-     the admission's first-token logits held against the same schedule on
-     the CPU (plain versions, f32, the card's tokens fed back);
+     budget 0), driven on this thread, every round eager; the runner's
+     logits of every step and the admission's first-token logits held
+     against the same schedule on the CPU (plain versions, f32, the card's
+     tokens fed back); then the schedule with the mixed rounds replayed from
+     their two graphs, token-identical;
   4. the batch slice at full size: ChatTS-14B shape (48 layers, int4, random
      weights from a seed), 4 prompts with series, ``InferenceEngine.generate``
-     greedy twice and sampled twice, each pair token-identical, every kernel
-     of the path launched; then one decode step under ``torch.profiler``, its
-     device time and the decode attention's share of it;
+     greedy twice and sampled twice, decoding from the decode step's CUDA
+     graph (one capture a key, reused by the second call), each pair
+     token-identical, every kernel of the path launched; then greedy and
+     sampled once with the decode chunks run eagerly, the same tokens; then
+     one decode step replayed from its graph, its device time by CUDA
+     events and under ``torch.profiler`` the decode attention's share;
   5. the serving slice at full size, on phase 4's weights: ``ServeEngine`` at
      the 14B serving configuration (24 slots, cap 1024, int8 KV, decode chunk
      32, early emit) behind ``ChatTSServer`` on 127.0.0.1.  Two waves of 8
@@ -93,8 +101,12 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      kv_limit 2,048 then 4,096); (c) the same engine with
      ``prefill_chunk=1024`` and the 4 long requests on an idle engine; each
      twice, token-identical, with the kernels' launches and shapes inside
-     the chunked and mixed regions; then one mixed round under
-     ``torch.profiler``;
+     the chunked and mixed regions; (e) 8b's schedule with eager mixed
+     rounds, token-identical to 8b's, whose mixed rounds replay one graph
+     per (a, npt, kv_limit); 8c's wave sampled from one seed with the mixed
+     rounds from the graphs and eager, token-identical; each mixed round's
+     host seconds beside its device time (CUDA events around its replays);
+     then 4 steps of a mixed round under ``torch.profiler``;
   9. (after phase 7, every earlier model freed) training: (a) the 14B
      widths at 2 layers, bf16 float weights from ``init_params``, 2 SFT rows
      of 234 tokens: the LoRA loss and every adapter gradient (b nonzero,
@@ -151,14 +163,21 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      prompts, rows, parse failures and seconds, and output tokens/s and
      TTFT over the phase.
 
+The engines replay CUDA graphs on the card (``runtime/graphs.py``): the
+batch decode step, the serving decode step (pure decode rounds and fused
+block rounds) and the mixed step.  A kernel wrapper counts a kernel inside a
+graph once, at its capture; ``GraphLedger`` counts each graph's replays.
+
 It prints a JSON line of per-kernel results (the kernel's, the plain
-version's and the library call's device times, the bound and what sets it),
+version's and the library call's device times, the bound and what sets it,
+the launches by path and the graphs' replays),
 the card's name and power limit, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero; there
 is no CPU path.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -420,17 +439,77 @@ def kernel_wrappers():
 def reset_launches() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    if GRAPH_LEDGER is not None:
+        GRAPH_LEDGER.mark()
 
 
 def read_launches(path: str, required) -> dict:
     """Every kernel's launches since ``reset_launches``; raises unless each
-    kernel in ``required`` launched."""
+    kernel in ``required`` launched.  A kernel inside a CUDA graph counts
+    once where the graph is captured; the graphs' replays since
+    ``reset_launches`` are logged and kept by ``GRAPH_LEDGER``, per path."""
     launches = {name: fn.launches for name, fn in kernel_wrappers().items()}
     log(f"  kernel launches on the {path} path: {launches}")
+    if GRAPH_LEDGER is not None:
+        for kernels, replays in GRAPH_LEDGER.read(path):
+            log(f"  a CUDA graph on the {path} path replayed {replays} times, each replay "
+                f"launching {kernels}")
     for name in required:
         if launches[name] < 1:
             raise AssertionError(f"the {path} path never launched {name}")
     return launches
+
+
+class _CountedGraph:
+    """A captured graph whose replays are counted."""
+
+    def __init__(self, graph, entry: dict):
+        self.graph, self.entry = graph, entry
+
+    def replay(self) -> None:
+        self.entry["replays"] += 1
+        self.graph.replay()
+
+
+class GraphLedger:
+    """Wraps ``runtime/graphs.py::capture`` for the run: for each CUDA graph
+    the engines capture, the kernels its one step launches (each wrapper
+    counts those once, at the capture) and its replays (which no wrapper
+    sees).  ``mark`` and ``read`` bracket a path, as ``reset_launches`` and
+    ``read_launches`` do; ``by_path`` keeps each path's (kernels a replay,
+    replays) per graph."""
+
+    def __init__(self):
+        from chatts_tpu_torch.runtime import graphs
+
+        self.module, self.inner = graphs, graphs.capture
+        self.graphs, self.since, self.by_path = [], {}, {}
+        graphs.capture = self._capture
+
+    def _capture(self, warmup, step, generator, pool=None):
+        entry = dict(kernels={}, replays=0)
+
+        def counted_step():
+            before = {k: fn.launches for k, fn in kernel_wrappers().items()}
+            step()
+            entry["kernels"] = {k: fn.launches - before[k] for k, fn in kernel_wrappers().items()
+                                if fn.launches > before[k]}
+
+        graph, pool_bytes = self.inner(warmup, counted_step, generator, pool)
+        self.graphs.append(entry)
+        return _CountedGraph(graph, entry), pool_bytes
+
+    def mark(self) -> None:
+        self.since = {id(e): e["replays"] for e in self.graphs}
+
+    def read(self, path: str) -> list:
+        out = [[e["kernels"], e["replays"] - self.since.get(id(e), 0)] for e in self.graphs
+               if e["replays"] > self.since.get(id(e), 0)]
+        self.by_path[path] = out
+        return out
+
+
+GRAPH_LEDGER = None  # main() installs a GraphLedger
 
 
 # ---------------------------------------------------------------------------
@@ -1292,6 +1371,89 @@ class EagerDecodeRounds:
         return scheduler._decode_all_slots(*self.args)
 
 
+class EagerMixedRounds:
+    """Stands in for ``ServeEngine``'s mixed-step graphs: each scan-sliced
+    round runs its steps eagerly, as on the CPU."""
+
+    def __init__(self, *args, pool=None):
+        self.args = args
+
+    def round(self):
+        from chatts_tpu_torch.serve import scheduler
+
+        return scheduler._mixed_round(*self.args)
+
+
+class EagerBatchDecode:
+    """Stands in for ``InferenceEngine``'s decode graph: each chunk runs its
+    steps eagerly, as on the CPU."""
+
+    def __init__(self, engine, state, gen_cfg):
+        self.engine, self.state, self.gen_cfg = engine, state, gen_cfg
+
+    def chunk(self, steps, generator):
+        from chatts_tpu_torch.runtime import engine as engine_module
+
+        engine_module._decode_chunk(self.engine, self.state, steps, generator, self.gen_cfg)
+
+
+@contextlib.contextmanager
+def eager_rounds(*kinds):
+    """Within the block, the engines' graphs of the given kinds ("decode":
+    ``ServeEngine``'s decode step, "mixed": its mixed steps, "batch":
+    ``InferenceEngine``'s decode step) are replaced by their eager stand-ins
+    wherever an engine makes one."""
+    from chatts_tpu_torch.runtime import engine as engine_module
+    from chatts_tpu_torch.serve import scheduler
+
+    swaps = {"decode": (scheduler, "_DecodeStepGraph", EagerDecodeRounds),
+             "mixed": (scheduler, "_MixedStepGraph", EagerMixedRounds),
+             "batch": (engine_module, "_BatchDecodeGraph", EagerBatchDecode)}
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in map(swaps.get, kinds)]
+    for owner, name, stand_in in map(swaps.get, kinds):
+        setattr(owner, name, stand_in)
+    try:
+        yield
+    finally:
+        for owner, name, inner in saved:
+            setattr(owner, name, inner)
+
+
+class RoundClock:
+    """Wraps the ``round`` method of the given classes with CUDA events on
+    the current stream: each call's span on the device's clock, in order,
+    read once the work has ended.  For a graph's round it is the replays'
+    device time (they are enqueued back to back)."""
+
+    def __init__(self, *classes):
+        import torch
+
+        self.events, self.saved = [], []
+        for cls in classes:
+            inner = cls.round
+
+            def timed(obj, inner=inner):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = inner(obj)
+                end.record()
+                self.events.append((start, end))
+                return out
+
+            cls.round = timed
+            self.saved.append((cls, inner))
+
+    def read_ms(self) -> list:
+        import torch
+
+        torch.cuda.synchronize()
+        return [start.elapsed_time(end) for start, end in self.events]
+
+    def remove(self) -> None:
+        for cls, inner in self.saved:
+            cls.round = inner
+
+
 def phase_serving_model():
     import numpy as np
     import torch
@@ -1299,7 +1461,6 @@ def phase_serving_model():
     from chatts_tpu_torch.models.qwen import embed_tokens
     from chatts_tpu_torch.models.quantize import init_quantized_params
     from chatts_tpu_torch.runtime import kv_cache
-    from chatts_tpu_torch.serve import scheduler
     from chatts_tpu_torch.serve.scheduler import Request, SamplingParams, ServeEngine
     from chatts_tpu_torch.processor.processor import ChatTSProcessor
 
@@ -1329,20 +1490,16 @@ def phase_serving_model():
             engine = ServeEngine(model, cfg, proc, device=dev, max_batch_size=len(reqs),
                                  max_model_len=1024, cache_dtype=torch.int8,
                                  decode_chunk=n_steps, fuse=False)
-            graph_class = scheduler._DecodeStepGraph
             recorder = LogitRecorder(model.llm) if eager else None
-            if eager:
-                scheduler._DecodeStepGraph = EagerDecodeRounds
             try:
                 engine.waiting.requeue(reqs)  # one monolithic admission of all four
-                with engine:
+                with eager_rounds("decode") if eager else contextlib.nullcontext(), engine:
                     deadline = time.time() + 300
                     while any(r.finished_s is None and r.error is None for r in reqs):
                         if time.time() > deadline:
                             raise TimeoutError("phase 3b requests did not finish")
                         time.sleep(0.01)
             finally:
-                scheduler._DecodeStepGraph = graph_class
                 if recorder is not None:
                     recorder.remove()
             for r in reqs:
@@ -1354,11 +1511,46 @@ def phase_serving_model():
                 raise AssertionError(f"phase 3b ran another schedule: {stats}")
             return reqs, recorder
 
+        def serve_block(eager: bool):
+            """A runner decodes while a late request is admitted by a fused
+            block round (``block_early_emit`` off), driven on this thread:
+            the round's decode chunk replays the decode graph with the
+            admitted row live, or, with ``eager``, every round runs eagerly."""
+            engine = ServeEngine(model, cfg, proc, device=dev, max_batch_size=2,
+                                 max_model_len=1024, cache_dtype=torch.int8,
+                                 decode_chunk=n_steps, fuse=False)
+            runner, late = (Request(prompt, series, SamplingParams(max_tokens=n, temperature=0.0))
+                            for (prompt, series), n in zip(specs[:2], (3 * n_steps, n_steps + 1)))
+            with eager_rounds("decode") if eager else contextlib.nullcontext(), \
+                    torch.inference_mode():
+                engine.submit(runner)
+                engine._admit()
+                engine._complete_round(engine._dispatch_round())  # a pure decode round
+                engine.submit(late)
+                engine._admit()
+                if (engine._pending_mixed or {}).get("mode") != "block":
+                    raise AssertionError("the late request was not staged as a block admission")
+                while engine._pending_mixed is not None or engine.live_host.any():
+                    engine._complete_round(engine._dispatch_round())
+            for r, n in ((runner, 3 * n_steps), (late, n_steps + 1)):
+                if r.error or len(r.output_tokens) != n:
+                    raise AssertionError(f"phase 3b fused block round: error {r.error}, "
+                                         f"{len(r.output_tokens)} tokens")
+            return [runner.output_tokens, late.output_tokens], engine.stats()
+
         reqs, recorder = serve(eager=True)
         got = recorder.calls  # prefill (4, V), then n_steps decode steps (4, V)
         replayed, _ = serve(eager=False)
         if [r.output_tokens for r in replayed] != [r.output_tokens for r in reqs]:
             raise AssertionError("the decode graph served other tokens than the eager round")
+        block_eager, _ = serve_block(eager=True)
+        block_graph, block_stats = serve_block(eager=False)
+        if block_stats["graph_rounds"].get("block") != 1:
+            raise AssertionError(f"the fused block round did not replay the decode graph: "
+                                 f"{block_stats['graph_rounds']}")
+        if block_graph != block_eager:
+            raise AssertionError("the fused block round's graph served other tokens than its "
+                                 "eager round")
 
         # The same schedule on the CPU in f32, the card's tokens fed back.
         cpu_plain_model(model)
@@ -1400,7 +1592,8 @@ def phase_serving_model():
             f"first token {float(errs[0]):.4g}, decode steps {float(errs[1:].max()):.4g} "
             f"(tolerance {tol:.4g} = {SERVE_LOGIT_RTOL_OF_MAX} x max |plain logit| "
             f"{float(want_t.abs().max()):.4g}); argmax agrees at {float(agree):.0%}; the "
-            f"decode graph served the eager round's tokens")
+            f"decode graph served the eager round's tokens, and a fused block round from "
+            f"the graph its eager round's ({[len(t) for t in block_graph]} tokens)")
         if float(errs.max()) > tol:
             raise AssertionError(f"int8-KV logits differ by {float(errs.max()):.4g} > {tol:.4g}")
         torch.cuda.empty_cache()
@@ -1479,18 +1672,26 @@ def phase_mixed_model():
         # token ends it at its first: no pure decode round.
         specs = [request(150, [256], 2 * decode_chunk + 1), request(560, [1024, 1024], 1)]
 
-        def serve(device, replay=None):
+        def serve(device, replay=None, graph=False):
+            """The schedule, every round eager with each step's logits and
+            tokens recorded (``replay`` feeds recorded tokens back), or with
+            ``graph`` the mixed rounds replayed from their graphs."""
             reqs = [Request(p, ts, SamplingParams(max_tokens=n, temperature=0.0))
                     for p, ts, n in specs]
             engine = ServeEngine(model, cfg, proc, device=device, max_batch_size=2,
                                  max_model_len=1024, cache_dtype=torch.int8,
                                  decode_chunk=decode_chunk, fuse=False)
-            recorder, tape = LogitRecorder(model.llm), SampleTape(replay)
-            try:
+            if graph:
                 drive_scan_sliced(engine, *reqs)
-            finally:
-                tape.remove()
-                recorder.remove()
+                recorder = tape = None
+            else:
+                recorder, tape = LogitRecorder(model.llm), SampleTape(replay)
+                try:
+                    with eager_rounds("decode", "mixed"):
+                        drive_scan_sliced(engine, *reqs)
+                finally:
+                    tape.remove()
+                    recorder.remove()
             for r in reqs:
                 if r.error or len(r.output_tokens) != r.params.max_tokens:
                     raise AssertionError(f"phase 3d request: error {r.error}, "
@@ -1498,12 +1699,27 @@ def phase_mixed_model():
             if engine.mixed_rounds_run != 2 or engine._decode_graph is not None:
                 raise AssertionError(f"phase 3d ran another schedule: {engine.mixed_rounds_run} "
                                      "mixed rounds")
+            if graph:
+                stats = engine.stats()
+                captures = [c for c in stats["graph_captures"] if c["kind"] == "mixed"]
+                if stats["graph_rounds"] != {"mixed": 2} or len(captures) != 2:
+                    raise AssertionError(f"phase 3d's mixed rounds did not replay two graphs: "
+                                         f"{stats['graph_rounds']}, {captures}")
+                return reqs, captures
             return reqs, recorder.calls, tape.calls
 
         reset_launches()
         reqs, got, tokens = serve(dev)
+        replayed, captures = serve(dev, graph=True)
         launches = read_launches("scan-sliced model (3d)", (
             "flash_attention", "ragged_decode_attention_int8", "int4_matmul"))
+        if [r.output_tokens for r in replayed] != [r.output_tokens for r in reqs]:
+            raise AssertionError("the mixed rounds' graphs served other tokens than their eager "
+                                 "rounds")
+        log(f"  the mixed rounds from their graphs served the eager rounds' tokens; captures "
+            f"(a, npt, kv_limit) {[c['key'] for c in captures]} in "
+            f"{[round(c['seconds'], 3) for c in captures]} s, pool bytes "
+            f"{[c['pool_bytes'] for c in captures]}")
         cpu_plain_model(model)
         _, want, _ = serve(torch.device("cpu"), replay=list(tokens))
         del model
@@ -1586,20 +1802,43 @@ def phase_slice(smi: str):
             raise AssertionError("sampled generation is not deterministic under one seed")
         if s1.token_ids == g1.token_ids:
             log("  note: sampled tokens equal the greedy ones at temperature 0.2")
+        # Greedy and sampled are two keys: each captured once, replayed by
+        # the second call.
+        if (engine.decode_chunks["eager"] or len(engine.graph_captures) != 2
+                or engine.decode_chunks["graph"] != 4 * -(-(n_new - 1) // engine.decode_chunk)):
+            raise AssertionError(f"decode chunks {engine.decode_chunks}, captures "
+                                 f"{engine.graph_captures}")
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        # The same calls with the decode chunks run eagerly, on an engine of
+        # their own (the graph keeps its key's cache).
+        with eager_rounds("batch"):
+            eager = InferenceEngine(model, cfg, device=dev, cache_dtype=torch.bfloat16)
+            e_g = eager.generate(batch, greedy)
+            e_s = eager.generate(batch, sampled,
+                                 generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+        del eager
+        if e_g.token_ids != g1.token_ids or e_s.token_ids != s1.token_ids:
+            raise AssertionError("decoding from the graph gave other tokens than eager decoding "
+                                 f"(greedy {'equal' if e_g.token_ids == g1.token_ids else 'not'}, "
+                                 f"sampled {'equal' if e_s.token_ids == s1.token_ids else 'not'})")
         stats = dict(
             batch=len(lens), prompt_tokens=lens, new_tokens=n_new,
             ttft_s=[g1.ttft_s, g2.ttft_s, s1.ttft_s, s2.ttft_s],
             tpot_s=[g1.tpot_s, g2.tpot_s, s1.tpot_s, s2.tpot_s],
             decode_tok_s=[len(lens) / r.tpot_s for r in (g1, g2, s1, s2)],
+            eager_tpot_s=[e_g.tpot_s, e_s.tpot_s], eager_ttft_s=[e_g.ttft_s, e_s.ttft_s],
+            graph_captures=engine.graph_captures, decode_chunks=engine.decode_chunks,
             peak_memory_gb=peak_gb, card=smi,
         )
-        log(f"  TTFT {g2.ttft_s * 1e3:.1f} ms, TPOT {g2.tpot_s * 1e3:.2f} ms, decode "
-            f"{len(lens) / g2.tpot_s:.1f} tok/s (greedy, second run; batch {len(lens)}); "
-            f"peak memory {peak_gb:.2f} GB; card {smi}")
+        log(f"  TTFT {g2.ttft_s * 1e3:.1f} ms, TPOT {g2.tpot_s * 1e3:.2f} ms from the decode "
+            f"graph, {len(lens) / g2.tpot_s:.1f} tok/s (greedy, second run; batch {len(lens)}); "
+            f"eager decoding TPOT {e_g.tpot_s * 1e3:.2f} ms greedy, {e_s.tpot_s * 1e3:.2f} ms "
+            f"sampled, the same tokens; captures (greedy, sampled) "
+            f"{[round(c['seconds'], 3) for c in engine.graph_captures]} s, pool bytes "
+            f"{[c['pool_bytes'] for c in engine.graph_captures]}; peak memory {peak_gb:.2f} GB; "
+            f"card {smi}")
         log("  slice stats: " + json.dumps(stats))
-        # The decode step's device time (TPOT is host-bound while the step
-        # runs eagerly), outside the launch counts read above.
+        # The decode step's device time, outside the launch counts read above.
         step = profile_batch_decode_step(torch, engine, batch, greedy)
         log("  batch decode step profile: " + json.dumps(step))
         del engine
@@ -1658,7 +1897,9 @@ def phase_slice_a8(smi: str, model, cfg, bf16_run):
 class WaveGate:
     """Stands in for ``engine.submit`` under the server: it holds the
     requests that the server submits until a whole wave is in, then queues
-    the wave with one ``requeue``, so every run admits the same waves."""
+    the wave in the order of its prompts with one ``requeue``, so every run
+    admits the same waves into the same slots whatever order the server's
+    threads submit them in (a sampled token depends on its slot's noise)."""
 
     def __init__(self, engine, size: int):
         import threading
@@ -1674,7 +1915,7 @@ class WaveGate:
             self.held.append(req)
             self.all.append(req)
             if len(self.held) == self.size:
-                self.engine.waiting.requeue(self.held)
+                self.engine.waiting.requeue(sorted(self.held, key=lambda r: r.prompt))
                 self.held = []
                 self.engine._wake.set()
         return req
@@ -1744,7 +1985,7 @@ def device_kernels(prof, what: str, mark=()) -> dict:
         raise AssertionError(f"{what}: the profiler saw no device time")
     marked = [e for e in kernels if any(m in e.key for m in mark)]
     marked_ms = sum(device_us(e) for e in marked) / 1e3
-    log(f"  {what}, eager under torch.profiler: {sum(e.count for e in kernels)} kernel "
+    log(f"  {what}, under torch.profiler: {sum(e.count for e in kernels)} kernel "
         f"launches, {busy_ms:.3f} ms of device time; top kernels:")
     top = []
     for e in kernels[:10]:
@@ -1795,13 +2036,18 @@ def profile_decode_round(torch, engine, live: int = 16, steps: int = 4) -> dict:
     return out
 
 
-def profile_batch_decode_step(torch, engine, batch, gen_cfg) -> dict:
-    """One decode step of the batch engine under ``torch.profiler``: the
-    step ``generate`` runs after the prefill, at the batch's prompt lengths,
-    on a cache of ``generate``'s capacity filled with random values.  Returns
-    the step's device time with the bf16 decode attention's share of it."""
+def profile_batch_decode_step(torch, engine, batch, gen_cfg, steps: int = 16) -> dict:
+    """One decode step of the batch engine as ``generate`` runs it on the
+    card: the step captured in a CUDA graph (``_BatchDecodeGraph``) at the
+    batch's prompt lengths, over a cache of ``generate``'s capacity filled
+    with random values.  Its device time from CUDA events over ``steps``
+    replays, then one replay under ``torch.profiler`` with the bf16 decode
+    attention's share; where the profiler sees no kernel inside the replay,
+    the same step run eagerly is profiled instead, and the log says so."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from chatts_tpu_torch.runtime import engine as engine_module
     from chatts_tpu_torch.runtime import kv_cache
     from chatts_tpu_torch.runtime.engine import default_cache_len
 
@@ -1809,29 +2055,50 @@ def profile_batch_decode_step(torch, engine, batch, gen_cfg) -> dict:
     b, t = batch.input_ids.shape
     cache_len = default_cache_len(t, gen_cfg.max_new_tokens)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    seq_lens = torch.as_tensor(batch.seq_lens, device=dev).to(torch.int32)
     with torch.inference_mode():
         caches = kv_cache.allocate(engine.cfg.llm, b, cache_len, engine.cache_dtype, dev)
         for layer in caches:
             for part in layer:
                 part.copy_(torch.randn(part.shape, generator=gen, device=dev))
-        tokens = torch.randint(10, 400, (b,), generator=gen, device=dev, dtype=torch.int32)
-        cur_lens = torch.as_tensor(batch.seq_lens, device=dev).to(torch.int32)
-        engine._decode_step(caches, tokens, cur_lens, gen, gen_cfg)
+        state = engine_module._DecodeState(None, caches, b, steps, gen_cfg, dev)
+        state.tokens.copy_(torch.randint(10, 400, (b,), generator=gen, device=dev))
+        state.cur_lens.copy_(seq_lens)
+        graph = engine_module._BatchDecodeGraph(engine, state, gen_cfg)
+        graph.chunk(steps, gen)  # warm
+        state.cur_lens.copy_(seq_lens)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.chunk(steps, gen)
+        end.record()
         torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / steps
+        state.cur_lens.copy_(seq_lens)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            engine._decode_step(caches, tokens, cur_lens, gen, gen_cfg)
+            graph.chunk(1, gen)
             torch.cuda.synchronize()
+        seen = any(e.device_type == DeviceType.CUDA for e in prof.key_averages())
+        if not seen:
+            log("  torch.profiler saw no kernel inside the graph's replay: the same step run "
+                "eagerly is profiled instead")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                engine._decode_step(caches, state.tokens, state.cur_lens, gen, gen_cfg)
+                torch.cuda.synchronize()
     out = device_kernels(prof, f"one batch decode step ({b} rows at {batch.seq_lens.tolist()} "
-                               f"tokens, capacity {cache_len})",
+                               f"tokens, capacity {cache_len}; "
+                               f"{'a graph replay' if seen else 'eager'})",
                          mark=("ragged_decode_split_kernel", "decode_merge_kernel",
                                "ragged_decode_kernel<"))  # the last: before the split
     layers = engine.cfg.llm.num_hidden_layers
     if out["marked_launches"] < layers:
         raise AssertionError("the batch decode step's profile holds no decode attention")
-    log(f"  batch decode step: {out['busy_ms']:.3f} ms of device time, of it "
-        f"ragged_decode_attention {out['marked_ms']:.3f} ms ({out['marked_ms'] / out['busy_ms']:.1%}) "
-        f"in {out['marked_launches']} launches ({out['marked_ms'] / layers * 1e3:.1f} us a layer)")
-    del caches
+    out.update(replay_step_ms=step_ms, profiled="replay" if seen else "eager")
+    log(f"  batch decode step: {step_ms:.3f} ms a step replayed from its graph (CUDA events over "
+        f"{steps} replays); under the profiler ({out['profiled']}) {out['busy_ms']:.3f} ms of "
+        f"device time, of it ragged_decode_attention {out['marked_ms']:.3f} ms "
+        f"({out['marked_ms'] / out['busy_ms']:.1%}) in {out['marked_launches']} launches "
+        f"({out['marked_ms'] / layers * 1e3:.1f} us a layer)")
+    del graph, state, caches
     return out
 
 
@@ -1952,11 +2219,13 @@ def phase_serving(smi: str, model, cfg, act_int8: bool = False):
                 f"{2 * wave} requests x {n_new} tokens in {s['wall_s']:.2f} s; decode rounds "
                 f"{', '.join(f'{x:.1f}' for x in s['decode_round_ms'])} ms")
         log(f"  rounds (both runs): {json.dumps(rounds)}; every decode round replayed one "
-            f"CUDA graph, captured in the first in {engine.decode_graph_capture_s:.2f} s "
-            f"(launches count a captured kernel once)")
+            f"CUDA graph, captured in the first ({json.dumps(stats['graph_captures'])}; "
+            f"launches count a captured kernel once)")
         log(f"  prompt tokens {sorted({r.prompt_tokens for r in runs[0][1]})}; peak memory "
             f"{peak_gb:.2f} GB; card {smi}")
         log(f"  {path} stats: " + json.dumps(dict(runs=summary, rounds=rounds,
+                                                  graph_rounds=stats["graph_rounds"],
+                                                  graph_captures=stats["graph_captures"],
                                                   peak_memory_gb=peak_gb, card=smi,
                                                   decode_round_profile=profile)))
         del engine
@@ -2078,19 +2347,19 @@ def profile_mixed_round(torch, engine, steps: int = 4, live: int = 8, a: int = 4
     slots = torch.arange(b - a, b, device=dev)
     seq_lens = torch.full((a,), kv_limit - 100, dtype=torch.int32, device=dev)
     embeds = torch.randn((a, chunk * npt, hdim), generator=gen, device=dev).to(torch.bfloat16)
-
-    def run():
-        return scheduler._mixed_round(
-            engine.model, chunk, npt, kv_limit, engine.caches, engine.tokens.clone(),
-            engine.cur_lens.clone(), torch.arange(b, device=dev) < live,
-            torch.arange(live, device=dev), engine.temperature.clone(), engine.top_p.clone(),
-            engine._eos_dev, torch.full((b,), chunk, dtype=torch.int32, device=dev), slots, a,
-            embeds, kv_limit // 2, seq_lens,
-            torch.zeros((a, hdim), dtype=torch.float32, device=dev), gen)
+    active = torch.arange(b, device=dev) < live
+    budget = torch.full((b,), chunk, dtype=torch.int32, device=dev)
 
     with torch.inference_mode():
+        inp = scheduler._MixedInputs(b, a, npt, chunk, hdim, torch.bfloat16, dev)
+        inp.load(embeds, 0, slots, a, seq_lens, torch.zeros((a, hdim), device=dev), active,
+                 budget)
+        inp.off.fill_(kv_limit // 2)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
+            scheduler._mixed_round(
+                engine.model, chunk, npt, kv_limit, engine.caches, engine.tokens.clone(),
+                engine.cur_lens.clone(), active, engine.temperature.clone(),
+                engine.top_p.clone(), engine._eos_dev, budget, gen, inp)
             torch.cuda.synchronize()
         prefix_ms = graph_ms(lambda: qwen._cache_prefix(engine.caches[0], slots, kv_limit,
                                                          torch.bfloat16))
@@ -2195,9 +2464,17 @@ def phase_chunked(smi: str, model, cfg, bf16_run) -> dict:
         gate = WaveGate(engine, 8)
         server = ChatTSServer(engine, tokenizer, host="127.0.0.1", port=0)
         wave1, wave2 = chat_bodies(8, 64), long_chat_bodies(4, 64)
+        sampled2 = [dict(body, temperature=0.8) for body in wave2]
         spy = ShapeSpy()
-        spy.region(scheduler, "_mixed_round", "mixed", note=lambda args: args[2:4])
-        runs = {"b": [], "m": [], "c": []}
+        # Each mixed step's shapes: the warm-up and the capture of a graph,
+        # and every step of an eager round.
+        spy.region(scheduler, "_mixed_step", "mixed", note=lambda args: args[1:3])
+        clock = RoundClock(scheduler._MixedStepGraph, EagerMixedRounds)
+        # "b" twice, "m" twice, "c" twice as described; "e" is 8b's schedule
+        # with eager mixed rounds, "cs" and "ce" 8c's wave sampled from one
+        # seed, its mixed rounds from the graphs and eager.
+        forms = ("b", "b", "m", "m", "c", "c", "e", "cs", "ce")
+        runs = {form: [] for form in forms}
         server.start_background()
         try:
             if server._httpd is None:
@@ -2205,40 +2482,55 @@ def phase_chunked(smi: str, model, cfg, bf16_run) -> dict:
             port = server._httpd.server_address[1]
             with concurrent.futures.ThreadPoolExecutor(12) as pool:
                 reset_launches()
-                for form in ("b", "b", "m", "m", "c", "c"):
+                for form in forms:
                     start = time.perf_counter()
                     n_before, log_before = len(gate.all), len(engine.round_snapshot())
+                    n_spans = len(clock.events)
                     futs = []
                     engine.block_token_budget = 4 * 6144 if form == "m" else 8192
-                    if form != "c":
-                        gate.size = 8
-                        futs = [pool.submit(_post_chat, port, body) for body in wave1]
-                        deadline = time.time() + 600
-                        while (len(gate.all) < n_before + 8
-                               or any(r.first_token_s is None for r in gate.all[n_before:])):
-                            if time.time() > deadline or any(f.done() for f in futs):
-                                raise RuntimeError("wave 1 did not start decoding")
-                            time.sleep(0.005)
-                    else:
-                        engine.prefill_chunk = 1024
-                    # Wave 1 decodes (8b, 8m) or the engine idles (8c): wave 2.
-                    gate.size = 4
-                    futs += [pool.submit(_post_chat, port, body) for body in wave2]
-                    results = [f.result(timeout=600) for f in futs]
+                    engine.prefill_chunk = 1024 if form[0] == "c" else None
+                    graphs = dict(engine._mixed_graphs)
+                    if form in ("e", "ce"):
+                        engine._mixed_graphs.clear()  # made again as eager stand-ins
+                    if form in ("cs", "ce"):
+                        engine.generator.manual_seed(SEED + 9)
+                    with eager_rounds("mixed") if form in ("e", "ce") else contextlib.nullcontext():
+                        if form[0] != "c":
+                            gate.size = 8
+                            futs = [pool.submit(_post_chat, port, body) for body in wave1]
+                            deadline = time.time() + 600
+                            while (len(gate.all) < n_before + 8
+                                   or any(r.first_token_s is None for r in gate.all[n_before:])):
+                                if time.time() > deadline or any(f.done() for f in futs):
+                                    raise RuntimeError("wave 1 did not start decoding")
+                                time.sleep(0.005)
+                        # Wave 1 decodes (8b, 8m, 8e) or the engine idles (8c): wave 2.
+                        gate.size = 4
+                        futs += [pool.submit(_post_chat, port, body)
+                                 for body in (sampled2 if form in ("cs", "ce") else wave2)]
+                        results = [f.result(timeout=600) for f in futs]
+                    if form in ("e", "ce"):
+                        engine._mixed_graphs.clear()
+                        engine._mixed_graphs.update(graphs)
                     runs[form].append((results, gate.all[n_before:], time.perf_counter() - start,
-                                       engine.round_snapshot()[log_before:]))
+                                       engine.round_snapshot()[log_before:], n_spans,
+                                       len(clock.events)))
                 paths["serving_6144"] = read_launches("serving at cap 6,144 (8b, 8m, 8c)", (
                     "flash_attention", "ragged_decode_attention_int8", "int4_matmul"))
             engine_stats = engine.stats()
         finally:
             server.shutdown()
             spy.remove()
+            clock.remove()
+        spans_ms = clock.read_ms()
         profile = profile_mixed_round(torch, engine)
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
         region = spy.regions["mixed"]
-        if engine.mixed_rounds_run < 1 or engine_stats.get("rounds_mixed", 0) != 8:
-            raise AssertionError(f"mixed rounds: {engine.mixed_rounds_run} run, {engine_stats}")
+        captures = [c for c in engine_stats["graph_captures"]
+                    if c["kind"] == "mixed" and c["pool_bytes"] is not None]
+        if sorted(c["key"] for c in captures) != [[4, 64, 2048], [4, 64, 4096]]:
+            raise AssertionError(f"mixed graphs captured: {captures}")
         if region["int4_matmul_a8"] or not region["ragged_decode_attention_int8"]:
             raise AssertionError(f"the mixed rounds launched {region}")
         if set(spy.t) != {64} or 24 + 4 * 64 not in spy.r:
@@ -2246,8 +2538,12 @@ def phase_chunked(smi: str, model, cfg, bf16_run) -> dict:
         if sorted({tuple(n) for n in spy.notes["mixed"]}) != [(64, 2048), (64, 4096)]:
             raise AssertionError(f"mixed rounds (npt, kv_limit): {spy.notes['mixed']}")
         summary = {}
+        ids = {form: [r["ids"] for r in form_runs[0][0]] for form, form_runs in runs.items()}
+        log(f"  8cs (sampled, mixed graphs) against 8ce (sampled, eager mixed rounds): requests "
+            f"equal {[a == b for a, b in zip(ids['cs'], ids['ce'])]}; against 8c (greedy): "
+            f"{[a == b for a, b in zip(ids['cs'], ids['c'])]}")
         for form, form_runs in runs.items():
-            for results, reqs, _, _ in form_runs:
+            for results, reqs, _, rounds, _, _ in form_runs:
                 if any(r.error for r in reqs):
                     raise AssertionError(f"engine errors: {[r.error for r in reqs if r.error]}")
                 for res in results:
@@ -2255,41 +2551,59 @@ def phase_chunked(smi: str, model, cfg, bf16_run) -> dict:
                             or len(res["ids"]) != 64):
                         raise AssertionError(f"a request ended {res['finish']} with "
                                              f"{res['completion_tokens']} tokens")
-            if [r["ids"] for r in form_runs[0][0]] != [r["ids"] for r in form_runs[1][0]]:
+                n_mixed = sum(r["kind"] == "mixed" for r in rounds)
+                if n_mixed != (0 if form == "m" else 2):
+                    raise AssertionError(f"8{form} ran {n_mixed} mixed rounds")
+            if len(form_runs) == 2 and ([r["ids"] for r in form_runs[0][0]]
+                                        != [r["ids"] for r in form_runs[1][0]]):
                 raise AssertionError(f"8{form}: the second run gave other tokens")
             lens = sorted(r.prompt_tokens for r in form_runs[0][1][-4:])
             if lens[0] < 2400 or lens[-1] > 3000:
                 raise AssertionError(f"wave 2 prompt tokens {lens} outside 2,400..3,000")
-            kinds = {r["kind"] for _, _, _, rounds in form_runs for r in rounds}
+            kinds = {r["kind"] for _, _, _, rounds, _, _ in form_runs for r in rounds}
             if form == "m" and ("block_pre" not in kinds or "mixed" in kinds):
                 raise AssertionError(f"8m ran rounds {kinds}, not a block admission")
             summary[form] = [dict(
                 wave2_ttft_ms=[r.ttft_s * 1e3 for r in reqs[-4:]],
                 wave1_ttft_ms=[r.ttft_s * 1e3 for r in reqs[:-4]], wall_s=wall,
                 rounds=[(r["kind"], round(r["round_s"], 4)) for r in rounds],
-                **wave1_rate(reqs[:-4]))
-                for _, reqs, wall, rounds in form_runs]
-        same = [r["ids"] for r in runs["b"][0][0][-4:]] == [r["ids"] for r in runs["c"][0][0]]
-        same_m = [r["ids"] for r in runs["b"][0][0]] == [r["ids"] for r in runs["m"][0][0]]
-        for form in ("b", "m", "c"):
+                mixed_host_s=[r["round_s"] for r in rounds if r["kind"] == "mixed"],
+                mixed_device_ms=spans_ms[first:last], **wave1_rate(reqs[:-4]))
+                for _, reqs, wall, rounds, first, last in form_runs]
+        if ids["e"] != ids["b"]:
+            raise AssertionError("8b's mixed rounds from their graphs served other tokens than "
+                                 "the same schedule with eager mixed rounds (8e)")
+        if ids["cs"] != ids["ce"]:
+            raise AssertionError("8c's sampled wave from the mixed graphs served other tokens "
+                                 "than with eager mixed rounds")
+        same, same_m = ids["b"][-4:] == ids["c"], ids["b"] == ids["m"]
+        for form in runs:
             for i, run in enumerate(summary[form]):
-                mixed = ", ".join(f"{t:.3f}" for k, t in run["rounds"] if k == "mixed")
+                mixed = ", ".join(f"{t:.3f} s ({ms:.1f} ms)" for t, ms in
+                                  zip(run["mixed_host_s"], run["mixed_device_ms"]))
                 wave2 = ", ".join(f"{x:.0f}" for x in run["wave2_ttft_ms"])
                 wave1 = (f"; wave 1 TTFT mean {np.mean(run['wave1_ttft_ms']):.1f} ms, decode "
                          f"{run['wave1_tok_s']:.1f} tokens/s ({run['wave1_tpot_ms']:.2f} ms "
                          "a token a request)" if run["wave1_ttft_ms"] else "")
                 log(f"  8{form} run {i + 1}: wave 2 TTFT mean {np.mean(run['wave2_ttft_ms']):.1f} "
-                    f"ms ({wave2}){wave1}; mixed rounds {mixed} s; rounds "
+                    f"ms ({wave2}){wave1}; mixed rounds, host (device span) {mixed}; rounds "
                     f"{[k for k, _ in run['rounds']]}; wall {run['wall_s']:.2f} s")
         log(f"  wave 2 prompt tokens {sorted(r.prompt_tokens for r in runs['b'][0][1][-4:])}; "
             f"mixed rounds (npt, kv_limit) {sorted({tuple(n) for n in spy.notes['mixed']})}; "
-            f"inside them: {region}, attention T {dict(spy.t)}, int4 R {dict(spy.r)}; wave 2's "
-            f"tokens in 8c {'equal' if same else 'not equal'} to 8b's, both waves' in 8m "
+            f"inside them (eager steps, warm-ups and captures): {region}, attention T "
+            f"{dict(spy.t)}, int4 R {dict(spy.r)}; mixed graphs (a, npt, kv_limit) "
+            f"{[c['key'] for c in captures]} captured in "
+            f"{[round(c['seconds'], 3) for c in captures]} s, pool bytes "
+            f"{[c['pool_bytes'] for c in captures]}; 8b's tokens equal to 8e's (eager mixed "
+            f"rounds) and 8cs's sampled ones to 8ce's; wave 2's tokens in 8c "
+            f"{'equal' if same else 'not equal'} to 8b's, both waves' in 8m "
             f"{'equal' if same_m else 'not equal'} to 8b's (not gated); peak memory "
             f"{peak_gb:.2f} GB; card {smi}")
-        stats.update(b=summary["b"], m=summary["m"], c=summary["c"], mixed_launches=region,
-                     attention_t=dict(spy.t), int4_rows=dict(spy.r), peak_memory_gb=peak_gb,
-                     mixed_round_profile=profile, c_equals_b=same, m_equals_b=same_m)
+        stats.update({form: summary[form] for form in runs})
+        stats.update(mixed_launches=region, attention_t=dict(spy.t), int4_rows=dict(spy.r),
+                     mixed_captures=captures, graph_rounds=engine_stats["graph_rounds"],
+                     peak_memory_gb=peak_gb, mixed_round_profile=profile, c_equals_b=same,
+                     m_equals_b=same_m)
         log("  chunked stats: " + json.dumps(stats))
         del engine, server, gate
         gc.collect()
@@ -3304,7 +3618,7 @@ def phase_eval(smi: str, model, cfg) -> dict:
                 prompt_tokens=[min(lens), max(lens)], cap=cap,
                 decode_round_ms=[min(decode) * 1e3, float(np.median(decode)) * 1e3,
                                  max(decode) * 1e3], decode_rounds=len(decode), rounds=rounds,
-                decode_graph_capture_s=engine.decode_graph_capture_s,
+                graph_captures=engine.stats()["graph_captures"],
                 summary=summary)
             log(f"  {EVAL_SAMPLES} samples in {wall:.2f} s: {stats['samples_per_min']:.1f} "
                 f"samples/min, {stats['output_tok_s']:.1f} output tokens/s ({sum(out_tokens)} "
@@ -4366,6 +4680,8 @@ def main() -> int:
         return 1
     import chatts_tpu_torch  # noqa: F401  (fails outside a checkout of the repository)
 
+    global GRAPH_LEDGER
+    GRAPH_LEDGER = GraphLedger()
     smi = phase_environment()
     phase_build()
     kernels = phase_kernels()
@@ -4396,13 +4712,23 @@ def main() -> int:
     paths["training"], refs = phase_train(smi)
     paths.update(phase_mesh_training(smi, refs))
     # Each path counted from 0: "launches" is a kernel's sum over the paths,
-    # and "launches_by_path" says which path launched what.
+    # and "launches_by_path" says which path launched what.  A wrapper counts
+    # a kernel inside a CUDA graph once, when the graph is captured; the
+    # graphs' replays are counted per graph ("graph_replays": by the path's
+    # label, [the kernel's launches in one replay, replays] a graph).
     by_path = {name: {path: counts[name] for path, counts in paths.items()}
+               for name in REPLACES}
+    replays = {name: {label: [[kernels[name], n] for kernels, n in graphs if name in kernels]
+                      for label, graphs in GRAPH_LEDGER.by_path.items()}
                for name in REPLACES}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"chatts_tpu_torch/csrc/{name}.cu",
          "replaces": REPLACES[name], "launches": sum(by_path[name].values()),
          "launches_by_path": by_path[name],
+         "launches_counted": "each call of the wrapper: every eager call, and once for each "
+                             "CUDA graph the kernel is captured into; graph_replays counts "
+                             "the replays per graph",
+         "graph_replays": {label: g for label, g in replays[name].items() if g},
          **{key: kernels[name].get(key) for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "library_note")}}
