@@ -23,7 +23,10 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      imported GPTQ checkpoint (OUT 1,024, 5,120, 13,824); the prefill
      attention at the chunked paths' shapes (512 queries over a 2,048
      prefix, 64 over 2,048 and 4,096) and the int4 matmul at a mixed step's
-     280 rows;
+     280 rows; B1, B2 and B3 at the shapes of phases 13, 13q and 8f (the 8B
+     shape's 28 heads over 4 kv heads, G = 7; Qwen3-8B's 32 over 8; the 14B
+     bf16 cache at cap 6,144; every projection and head of both models at
+     32 and 4,096 rows);
   3. the ChatTS-14B widths at 2 layers, int4 weights: logits of the kernel
      path on the card against the plain path on the CPU in f32;
   3c. the same with int8-activation prefill (``act_int8``), against the
@@ -106,7 +109,10 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      per (a, npt, kv_limit); 8c's wave sampled from one seed with the mixed
      rounds from the graphs and eager, token-identical; each mixed round's
      host seconds beside its device time (CUDA events around its replays);
-     then 4 steps of a mixed round under ``torch.profiler``;
+     then 4 steps of a mixed round under ``torch.profiler``; (f) 8b's
+     schedule with the bf16 cache (24 slots, cap 6,144: 29 GB of cache):
+     the two scan-sliced rounds from the mixed graphs, token-identical to
+     the same schedule with eager mixed rounds;
   9. (after phase 7, every earlier model freed) training: (a) the 14B
      widths at 2 layers, bf16 float weights from ``init_params``, 2 SFT rows
      of 234 tokens: the LoRA loss and every adapter gradient (b nonzero,
@@ -161,7 +167,30 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      hole-filling stages, the template files byte-equal to (a)'s, one
      request a prompt, each ended at EOS or 1,024 tokens; per stage its
      prompts, rows, parse failures and seconds, and output tokens/s and
-     TTFT over the phase.
+     TTFT over the phase.  Its answers are noise at random weights, so it
+     runs on the first ``DATAGEN_LAYERS`` layers of phase 4's model.
+ 13. (after phase 12, every model freed) the reference's headline serving
+     configuration (``bench.py:1-8,253-263,476-507``): the 8B shape at full
+     width and depth (28 layers), random int4 weights from a seed,
+     ``ServeEngine`` at 32 slots, cap 1,024, the bf16 KV cache, admission
+     bucket 8, decode chunk 32, early first tokens; bench.py's requests
+     (500 prompt tokens, series of 256 and 512 points, greedy): 8 on
+     an idle engine, 24 by three block rounds while they decode, 64 tokens
+     with all 32 slots live, a burst of 8 while 24 decode, one alone; twice,
+     token-identical; a shorter schedule from the decode graph against
+     eager rounds, token-identical; TPOT and tokens/s at c32, the burst's
+     and the single request's TTFT, the replayed step's device time, the
+     captures and the peak memory; then the 2-layer logit check and the
+     per-layer check against the CPU;
+ 13q. the Qwen3 decoder at Qwen3-8B's published widths and depth (36
+     layers, q/k norms drawn in [0.5, 1.5]): written by ``save_checkpoint``
+     and read back by ``load_checkpoint(quantize_bits=4)``, bit-equal to
+     what was written; served as phase 13 with the bf16 cache and once with
+     the int8 cache; the 2-layer and per-layer checks; a LoRA step of 2
+     layers at its widths against the CPU, as 9a.
+
+The per-layer check (phases 7e, 7h, 13, 13q) holds each decoder layer on
+the card to the same layer on the CPU in f32 on the card's own input to it.
 
 The engines replay CUDA graphs on the card (``runtime/graphs.py``): the
 batch decode step, the serving decode step (pure decode rounds and fused
@@ -554,15 +583,17 @@ def phase_build():
                     log(f"  {info.name}: {line.strip()}")
 
 
-def _flash_case(torch, gen, t: int, dev, b: int = 4, s: int = 0, q0=None):
+def _flash_case(torch, gen, t: int, dev, b: int = 4, s: int = 0, q0=None, h: int = 40,
+                kvh: int = 8):
     """B rows of T queries over S keys (S = T unless given) at the 14B head
-    shape.  The queries are positions q0 .. q0 + T of S (the last T unless
+    shape (or H heads over KVH kv heads).  The queries are positions q0 ..
+    q0 + T of S (the last T unless
     given: a prefill chunk's or a mixed step's queries over a cache prefix
     sit earlier, and the keys after them are masked by position); the rows
     are valid up to S, S - 37, S - 300 and S / 2 in turn, and every fourth
     row's first 5 keys are invalid: with T = S its queries 0..4 have no
     valid key."""
-    h, kvh, d = 40, 8, 128
+    d = 128
     s = s or t
     q0 = s - t if q0 is None else q0
     q = torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -782,6 +813,72 @@ def phase_int4_unfused(torch, gen, dev) -> list:
     return rows_out
 
 
+# B3 at the shapes of phases 13 (bench.py's 8B shape, fused) and 13q
+# (Qwen3-8B, its checkpoint's projections kept apart as the loader keeps
+# them; the fused widths, qkv 6,144 and gate_up 24,576, a fused model's):
+# (name, IN, OUT) at the rows of a decode step at 32 slots and of a block
+# admission (8 x 512), the heads at the decode rows only.
+NEW_INT4 = (("8b qkv", 3584, 4608), ("8b o", 3584, 3584), ("8b gate_up", 3584, 37888),
+            ("8b down", 18944, 3584), ("8b head", 3584, 152064),
+            ("qwen3_8b q, o", 4096, 4096), ("qwen3_8b k, v", 4096, 1024),
+            ("qwen3_8b gate, up", 4096, 12288), ("qwen3_8b down", 12288, 4096),
+            ("qwen3_8b head", 4096, 151936), ("qwen3_8b qkv fused", 4096, 6144),
+            ("qwen3_8b gate_up fused", 4096, 24576))
+NEW_INT4_ROWS = (32, 4096)
+
+
+def phase_int4_new_shapes(torch, gen, dev) -> list:
+    """B3 at ``NEW_INT4``: against both plain versions (the grouped one to
+    one bf16 ulp), with the device times by graph replay of the kernel, the
+    plain version and ``_weight_int4pack_mm``, and the bound.  Returns one
+    row a (shape, R)."""
+    from chatts_tpu_torch.ops import int4_matmul as i4
+
+    rows = []
+    for name, in_dim, out_dim in NEW_INT4:
+        weights = rotating(lambda _: _int4_weights(torch, gen, dev, in_dim, out_dim),
+                           in_dim * out_dim // 2)
+        packs = [int4pack_library(torch, i4, *w) for w in weights]
+        turn = [0]
+
+        def cycled(fn):
+            def run():
+                turn[0] = (turn[0] + 1) % len(weights)
+                return fn(turn[0])
+            return run
+
+        for r in NEW_INT4_ROWS[:1] if name.endswith("head") else NEW_INT4_ROWS:
+            what = f"int4 {name} {in_dim}->{out_dim} R={r}"
+            x = torch.randn((r, in_dim), generator=gen, device=dev).to(torch.bfloat16)
+            got = i4.int4_matmul(x, *weights[0])
+            plain_out = i4.int4_matmul_reference(x, *weights[0])
+            err = compare(got, plain_out, what)
+            _int4_close(got, i4.int4_matmul_grouped_reference(x, *weights[0]), what)
+
+            def library(i):
+                return torch._weight_int4pack_mm(x, packs[i][0], 128, packs[i][1])
+
+            try:
+                lib = _library_ms(torch, library(0), plain_out, cycled(library), what)
+            except (RuntimeError, AssertionError) as exc:  # as phase_int4: no library time
+                lib = None
+                log(f"  {what}: torch._weight_int4pack_mm: {exc}")
+            bound_ms, bound_by = int4_bound(r, in_dim, out_dim)
+            rows.append(dict(
+                shape=what[5:], path=i4.int4_path(r), max_abs_err=err,
+                ms=graph_ms(cycled(lambda i: i4.int4_matmul(x, *weights[i]))),
+                plain_ms=graph_ms(cycled(lambda i: i4.int4_matmul_reference(x, *weights[i]))),
+                library_ms=lib, bound_ms=bound_ms, bound_by=bound_by))
+            row = rows[-1]
+            log(f"  int4_matmul {row['shape']}: max_abs_err {err:.3g}, kernel {row['ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.3f} ms, int4pack_mm "
+                f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {bound_ms / row['ms']:.1%} of it)")
+        del weights, packs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
@@ -804,19 +901,22 @@ def phase_kernels():
         # chunked paths' shapes: a 512-token prefill chunk over the 2,048
         # prefix at query offsets 0, 512 and 1,024 (phase 8a), and a mixed
         # step's 64 prompt tokens a row over the 2,048 and 4,096 prefixes of
-        # its two rounds, at their last offsets (phase 8b).  The library
-        # call: SDPA with GQA and the boolean mask kv_valid & kv_pos <= q_pos,
-        # on head-major views.
+        # its two rounds, at their last offsets (phase 8b); then a block
+        # admission of 8 x 512 at the 8B shape and Qwen3-8B's heads (phases
+        # 13 and 13q: H, KVH given).  The library call: SDPA with GQA and the
+        # boolean mask kv_valid & kv_pos <= q_pos, on head-major views.
         errs, times = [], {}
-        for b, t, s_len, q0 in ((4, 640, 640, None), (4, 1152, 1152, None),
-                                (4, 600, 600, None), (4, 1280, 1280, None),
-                                (8, 512, 512, None), (4, 256, 1280, None), (1, 37, 37, None),
-                                (4, 512, 2048, 0), (4, 512, 2048, 512), (4, 512, 2048, 1024),
-                                (4, 64, 2048, 1984), (4, 64, 4096, 4032)):
-            q, k, v, q_pos, kv_pos, kv_valid = _flash_case(torch, gen, t, dev, b=b, s=s_len,
-                                                           q0=q0)
+        for b, t, s_len, q0, *heads in (
+                (4, 640, 640, None), (4, 1152, 1152, None), (4, 600, 600, None),
+                (4, 1280, 1280, None), (8, 512, 512, None), (4, 256, 1280, None),
+                (1, 37, 37, None), (4, 512, 2048, 0), (4, 512, 2048, 512),
+                (4, 512, 2048, 1024), (4, 64, 2048, 1984), (4, 64, 4096, 4032),
+                (8, 512, 512, None, 28, 4), (8, 512, 512, None, 32, 8)):
+            q, k, v, q_pos, kv_pos, kv_valid = _flash_case(torch, gen, t, dev, b, s_len, q0,
+                                                           *heads)
             kw = dict(q_positions=q_pos, kv_positions=kv_pos, kv_valid=kv_valid)
-            what = f"flash B={b} T={t} S={s_len}" + ("" if q0 is None else f" q0={q0}")
+            what = (f"flash B={b} H={q.shape[2]} KVH={k.shape[2]} T={t} S={s_len}"
+                    + ("" if q0 is None else f" q0={q0}"))
             got = fa.flash_attention(q, k, v, **kw)
             ref = fa.flash_attention_reference(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -857,34 +957,48 @@ def phase_kernels():
             nbytes = (2 * (2 * q.numel() + k.numel() + v.numel())
                       + 4 * (q_pos.numel() + kv_pos.numel()) + kv_valid.numel())
             bound_ms, bound_by = bound(nbytes, 4.0 * d * h * visible, PEAK_BF16_S)
-            times[(b, t, s_len, q0)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                            bound_ms=bound_ms, bound_by=bound_by)
+            times[(b, t, s_len, q0, *heads)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                                    bound_ms=bound_ms, bound_by=bound_by)
             tiles = ", ".join(f"{bq} rows {t_ms:.3f} ms (|kernel - tiled plain| {dist:.3g})"
                               for bq, (t_ms, dist) in by_tile.items())
-            log(f"  flash_attention B={b} H=40 KVH=8 D=128 T={t} S={s_len}"
+            log(f"  flash_attention B={b} H={h} KVH={k.shape[2]} D=128 T={t} S={s_len}"
                 f"{'' if q0 is None else f' q0={q0}'}: max_abs_err "
                 f"{errs[-1]:.3g}, kernel {ms:.3f} ms ({4.0 * d * h * visible / ms / 1e9:.0f} "
                 f"TFLOP/s of visible work; eager {eager:.3f}; tiles: {tiles}), plain "
                 f"{plain:.3f} ms, sdpa {lib:.3f} ms, "
                 f"bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} of it)")
-        results["flash_attention"] = dict(max_abs_err=max(errs), **times[(4, 1152, 1152, None)])
+        results["flash_attention"] = dict(
+            max_abs_err=max(errs), **times[(4, 1152, 1152, None)],
+            more_shapes=[dict(shape=f"B{key[0]} H{key[4]} KVH{key[5]} T=S={key[1]}", **row)
+                         for key, row in times.items() if len(key) > 4])
         log("  flash chunk shapes: " + json.dumps(
-            [dict(b=b, t=t, s=s_len, q0=q0, **row) for (b, t, s_len, q0), row in times.items()
+            [dict(b=b, t=t, s=s_len, q0=q0, **row) for (b, t, s_len, q0, *_), row in times.items()
              if q0 is not None]))
 
         # Ragged decode attention (bf16 cache): the case that stands, then
         # lengths on and beside the plan's chunk boundaries with a row of
         # length 0, one long row at the engine's default capacity, and G = 7
-        # (28 heads over 4 kv heads, the 7B shape).
+        # (28 heads over 4 kv heads, the 7B shape); then every slot of the
+        # serving decode steps of phases 13, 13q and 8f, lengths spread
+        # evenly over the capacity.
         def chunk_of(b, kvh, cap):
             return rda.split_plan(cap, b, kvh)[1]
 
+        def spread(b, cap):
+            return [round(i * cap / (b - 1)) for i in range(b)]
+
         c4 = chunk_of(6, 8, 2048)
+        more = {"8b c32": "B32 H28 KVH4 S1024", "qwen3_8b c32": "B32 H32 KVH8 S1024",
+                "14b cap 6144": "B24 H40 KVH8 S6144"}
+        results["ragged_decode_attention"] = dict(more_shapes=[])
         for name, h, kvh, cap, lens in (
                 ("main", 40, 8, 2048, [1, 255, 257, 2048]),
                 ("boundaries", 40, 8, 2048, [0, c4 - 1, c4, c4 + 1, 3 * c4, 2047]),
                 ("long", 40, 8, 6144, [6001]),
-                ("g7", 28, 4, 2048, [0, 129, 1000, 2048])):
+                ("g7", 28, 4, 2048, [0, 129, 1000, 2048]),
+                ("8b c32", 28, 4, 1024, spread(32, 1024)),
+                ("qwen3_8b c32", 32, 8, 1024, spread(32, 1024)),
+                ("14b cap 6144", 40, 8, 6144, spread(24, 6144))):
             b, d = len(lens), 128
             plan = rda.split_plan(cap, b, kvh)
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -935,12 +1049,17 @@ def phase_kernels():
             bound_ms, bound_by = bound(2 * 2 * n_pos * kvh * d + 2 * 2 * q.numel() + 4 * b,
                                        4.0 * d * h * n_pos, PEAK_BF16_S)
             log(f"  ragged_decode_attention {name} B={b} H={h} KVH={kvh} D=128 S={cap} lengths "
-                f"{lens}, {plan[0]} splits of {plan[1]} keys: max_abs_err {err:.3g} (|kernel - "
+                f"{lens if b < 8 else f'{lens[0]}..{lens[-1]}'}, {plan[0]} splits of {plan[1]} "
+                f"keys: max_abs_err {err:.3g} (|kernel - "
                 f"split plain| {of_split:.3g}), two calls bit-equal, kernel {ms:.4f} ms (eager "
                 f"{eager:.3f}), plain {plain:.3f} ms, sdpa {lib:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}; {bound_ms / ms:.1%} of it)")
+            if name in more:
+                results["ragged_decode_attention"]["more_shapes"].append(dict(
+                    shape=more[name], plan=list(plan), max_abs_err=err, ms=ms, plain_ms=plain,
+                    library_ms=lib, bound_ms=bound_ms, bound_by=bound_by))
             if name == "main":
-                results["ragged_decode_attention"] = dict(
+                results["ragged_decode_attention"].update(
                     max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
                     bound_by=bound_by)
                 # Other chunks at the same shape, for the plan's constants.
@@ -1150,6 +1269,9 @@ def phase_kernels():
             library_note=none_a8, **layer)
         unfused = phase_int4_unfused(torch, gen, dev)
         log("  unfused int4 stats: " + json.dumps(unfused))
+        rows = phase_int4_new_shapes(torch, gen, dev)
+        results["int4_matmul"].update(more_shapes=rows, max_abs_err=max(
+            [results["int4_matmul"]["max_abs_err"]] + [row["max_abs_err"] for row in rows]))
     return results
 
 
@@ -1174,6 +1296,63 @@ def chatts_14b_config(num_layers: int):
                            max_sequence_length=4096),
         ts_token_start_index=vocab - 10,
     )
+
+
+def chatts_8b_config(num_layers: int):
+    """The reference's headline serving shape (``bench.py:253-263``): a
+    Qwen2.5-7B-class decoder (the "8B shape") plus a 5-layer TS encoder."""
+    from chatts_tpu_torch.core.config import ChatTSConfig, QwenConfig, TSEncoderConfig
+
+    vocab = 152064
+    return ChatTSConfig(
+        llm=QwenConfig(
+            vocab_size=vocab, hidden_size=3584, intermediate_size=18944,
+            num_hidden_layers=num_layers, num_attention_heads=28,
+            num_key_value_heads=4, head_dim=128, rope_theta=1e6,
+            attention_bias=True, dtype="bfloat16",
+        ),
+        ts=TSEncoderConfig(patch_size=16, num_layers=5, hidden_size=3584,
+                           max_sequence_length=4096),
+        ts_token_start_index=vocab - 10,
+    )
+
+
+def qwen3_8b_config(num_layers: int):
+    """Qwen3-8B's published widths (the ``Qwen/Qwen3-8B`` config.json on the
+    Hugging Face hub: hidden 4,096, 36 layers, 32 heads over 8 kv heads,
+    head_dim 128, intermediate 12,288, vocab 151,936, rope theta 1e6, no
+    attention bias, q/k norms, an untied head) with ChatTS's 5-layer TS
+    encoder at its width: ``Qwen3TSForCausalLM``."""
+    from chatts_tpu_torch.core.config import ChatTSConfig, QwenConfig, TSEncoderConfig
+
+    vocab = 151936
+    return ChatTSConfig(
+        llm=QwenConfig(
+            vocab_size=vocab, hidden_size=4096, intermediate_size=12288,
+            num_hidden_layers=num_layers, num_attention_heads=32,
+            num_key_value_heads=8, head_dim=128, rope_theta=1e6,
+            tie_word_embeddings=False, attention_bias=False, qk_norm=True,
+            dtype="bfloat16",
+        ),
+        ts=TSEncoderConfig(patch_size=16, num_layers=5, hidden_size=4096,
+                           max_sequence_length=4096),
+        ts_token_start_index=vocab - 10,
+    )
+
+
+def first_layers(model, cfg, n: int):
+    """(config, model) of ``model``'s first n decoder layers, sharing its
+    tensors (embeddings, encoder, final norm and head)."""
+    import dataclasses
+
+    from chatts_tpu_torch.models.chatts import ChatTSModel
+    from chatts_tpu_torch.models.qwen import QwenModel
+
+    cut = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_hidden_layers=n))
+    llm = model.llm
+    view = QwenModel(cut.llm, llm.embed_tokens, list(llm.layers[:n]), llm.norm,
+                     lm_head=llm.lm_head, lm_head_q=llm.lm_head_q)
+    return cut, ChatTSModel(cut, model.ts_encoder, view)
 
 
 class WordTokenizer:
@@ -1242,18 +1421,19 @@ def cpu_plain_model(model):
     On a CPU tensor the int4 branch computes x @ dequantize(q, s) in f32
     (``int4_matmul_reference``) on every call; dequantizing once gives the
     same product without the per-call unpacking of 1.5 G weights a step.
-    Not for ``act_int8``, which a float ``Dense`` ignores."""
+    The weights are dequantized where they lie (on the card, many times
+    faster than on the CPU; each value is one f32 product either way), then
+    moved.  Not for ``act_int8``, which a float ``Dense`` ignores."""
     from chatts_tpu_torch.models.qwen import Dense
     from chatts_tpu_torch.ops import int4_matmul as i4
 
-    model.to("cpu").float()
     for module in list(model.modules()):
         for name, child in list(module.named_children()):
             if (isinstance(child, Dense) and child.kernel_q4 is not None
                     and child.perm4 is None and child.zeros4 is None):
                 setattr(module, name, Dense(i4.dequantize(child.kernel_q4, child.scales4),
                                             bias=child.bias))
-    return model
+    return model.to("cpu").float()
 
 
 def phase_model():
@@ -1278,26 +1458,37 @@ def phase_model():
         model.to("cpu").float()
         ref = tail_logits(model, batch, torch.device("cpu"), n)
         del model
-        if not torch.isfinite(got).all():
-            raise AssertionError("non-finite logits on the card")
-        err = float((got - ref).abs().max())
-        tol = LOGIT_RTOL_OF_MAX * float(ref.abs().max())
-        top2 = ref.topk(2, dim=-1).values
-        margin = top2[..., 0] - top2[..., 1]
-        decided = margin > tol
-        agree = got.argmax(-1) == ref.argmax(-1)
-        log(f"  max |logit diff| {err:.4g} over the last {n} positions of 4 rows (tolerance "
-            f"{tol:.4g} = {LOGIT_RTOL_OF_MAX} x max |plain logit| {float(ref.abs().max()):.4g})")
-        log(f"  argmax agrees on {int(agree.sum())}/{agree.numel()} positions; "
-            f"{int(decided.sum())} have a top-2 margin above tolerance, and all of them must "
-            f"agree (median top-2 margin {float(margin.median()):.3g}); last positions: "
-            f"{int(agree[:, -1].sum())}/4 agree, {int(decided[:, -1].sum())} decided")
-        if err > tol:
-            raise AssertionError(f"logits differ by {err:.4g} > {tol:.4g}")
-        if not agree[decided].all():
-            raise AssertionError("argmax differs where the top-2 margin exceeds the tolerance")
+        out = check_logits(torch, got, ref, "phase 3")
         torch.cuda.empty_cache()
-        return dict(max_abs_logit_err=err, tolerance=tol)
+        return out
+
+
+def check_logits(torch, got, ref, what: str) -> dict:
+    """Phase 3's rule for logits (B, n, vocab) of the card against the CPU's
+    f32 plain path: within ``LOGIT_RTOL_OF_MAX`` of the largest plain logit,
+    and the same argmax wherever the plain top-2 margin exceeds that."""
+    b, n = ref.shape[:2]
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite logits on the card")
+    err = float((got - ref).abs().max())
+    tol = LOGIT_RTOL_OF_MAX * float(ref.abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    decided = margin > tol
+    agree = got.argmax(-1) == ref.argmax(-1)
+    log(f"  {what}: max |logit diff| {err:.4g} over the last {n} positions of {b} rows "
+        f"(tolerance {tol:.4g} = {LOGIT_RTOL_OF_MAX} x max |plain logit| "
+        f"{float(ref.abs().max()):.4g})")
+    log(f"  {what}: argmax agrees on {int(agree.sum())}/{agree.numel()} positions; "
+        f"{int(decided.sum())} have a top-2 margin above tolerance, and all of them must "
+        f"agree (median top-2 margin {float(margin.median()):.3g}); last positions: "
+        f"{int(agree[:, -1].sum())}/{b} agree, {int(decided[:, -1].sum())} decided")
+    if err > tol:
+        raise AssertionError(f"{what}: logits differ by {err:.4g} > {tol:.4g}")
+    if not agree[decided].all():
+        raise AssertionError(f"{what}: argmax differs where the top-2 margin exceeds the "
+                             "tolerance")
+    return dict(max_abs_logit_err=err, tolerance=tol)
 
 
 def phase_model_a8():
@@ -2641,7 +2832,8 @@ def _logits_against_cpu(torch, ckpt: str, cfg, dev, what: str, extra=None) -> di
     loader on the card and on the CPU, both in bf16, and the CPU's model run
     in f32; their logits at the last positions of a small batch held to
     phase 3's rule, bf16 and act_int8 prefill, each against the CPU's plain
-    path of the same kind. ``extra(model)`` checks the card's model first.
+    path of the same kind; then each layer alone (``per_layer_against_cpu``).
+    ``extra(model)`` checks the card's model first.
 
     The CPU loads in bf16 because the separate fp16 head is quantized at
     load from the model's type: loaded in f32, the CPU quantized the fp16
@@ -2676,6 +2868,8 @@ def _logits_against_cpu(torch, ckpt: str, cfg, dev, what: str, extra=None) -> di
         if err > tol:
             raise AssertionError(f"{what}, {kind}: logits differ by {err:.4g} > {tol:.4g}")
         out[kind] = dict(max_abs_logit_err=err, tolerance=tol)
+    out["per_layer"] = per_layer_against_cpu(torch, card,
+                                             make_batch(cut, LAYER_CHECK_SPECS, SEED + 7), what)
     del card, cpu
     torch.cuda.empty_cache()
     return out
@@ -3652,6 +3846,9 @@ def phase_eval(smi: str, model, cfg) -> dict:
 # 1,024-token answers (about 17 s at 24 slots), and at 8 TSEvol alone sends
 # 255 prompts (3 for each of 85 seed rows), so the phase runs at 4.
 DATAGEN_NUM = 4
+# Phase 11 runs on phase 4's first layers: its stages are set by the number
+# of requests and their 1,024 tokens, the depth only scales each step.
+DATAGEN_LAYERS = 4
 DATAGEN_MAX_TOKENS = 1024  # OpenAIClient's default, which the scripts keep
 # The scripts' --llm-timeout: a request may wait behind a whole wave of
 # 1,024-token answers, so the client's 60 s default would send it again.
@@ -3786,7 +3983,8 @@ def phase_datagen(smi: str, model, cfg) -> dict:
                 f"{json.dumps(stats['cpu_prompts'])}; cache capacity {cap}")
 
         with Phase(11, f"datagen scripts through serve_openai.build: NUM_DATA {DATAGEN_NUM}, "
-                       f"24 slots, cap {cap}, int8 KV, decode chunk 32, early emit"):
+                       f"{cfg.llm.num_hidden_layers} layers, 24 slots, cap {cap}, int8 KV, "
+                       f"decode chunk 32, early emit"):
             args = serve_openai.parse_args([
                 "--kv-int8", "--max-batch-size", "24", "--max-model-len", str(cap),
                 "--decode-chunk", "32", "--admission-bucket", "8", "--early-first-token",
@@ -3919,25 +4117,34 @@ def _nonzero_b(torch, adapters, seed: int) -> None:
                 ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen) * 0.02)
 
 
-def phase_train_2_layers(smi: str) -> dict:
-    """9a: the 14B widths at 2 layers, bf16 weights from ``init_params``."""
-    import tempfile
+def qwen3_norms(torch, model, seed: int) -> None:
+    """Every layer's q_norm and k_norm drawn uniform in [0.5, 1.5] on the CPU
+    from ``seed``, in place: the ones that init leaves would not show a norm
+    weight skipped or applied to the wrong tensor."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for layer in model.llm.layers:
+            for norm in (layer.self_attn.q_norm, layer.self_attn.k_norm):
+                norm.copy_(torch.rand(norm.shape, generator=gen) + 0.5)
 
-    import torch
 
-    from chatts_tpu_torch.models import chatts, weights
-    from chatts_tpu_torch.processor.processor import ChatTSProcessor
-    from chatts_tpu_torch.train import data, lora, sft_driver, train_step
+def lora_against_cpu(torch, cfg, batch_np, what: str, norms_seed=None):
+    """A bf16 model from ``init_params`` (SEED) on the card, its q/k norms
+    drawn from ``norms_seed`` where given (``qwen3_norms``), and rank-8 LoRA
+    adapters with every b nonzero: the loss and every adapter gradient
+    (remat) held to the CPU's f32 plain path on the same weights
+    (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_RL2``).  Returns (model, adapters,
+    LoRA config, the card's loss and gradients, the errors)."""
+    from chatts_tpu_torch.models import chatts
+    from chatts_tpu_torch.train import data, lora, sft_driver
 
     dev = torch.device("cuda", 0)
-    out = {}
-    cfg = chatts_14b_config(num_layers=2)
     model = chatts.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
                                torch.bfloat16)
-    batch_np = data.build_sft_batch(ChatTSProcessor(WordTokenizer(), cfg),
-                                    sft_rows(2, 64, 1, 150, 60, SEED + 9))
-    log(f"  9a: {_model_gb(model):.2f} GB of bf16 weights; batch {batch_np['input_ids'].shape}, "
-        f"{batch_np['attention_mask'].sum(1).tolist()} tokens, "
+    if norms_seed is not None:
+        qwen3_norms(torch, model, norms_seed)
+    log(f"  {what}: {_model_gb(model):.2f} GB of bf16 weights; batch "
+        f"{batch_np['input_ids'].shape}, {batch_np['attention_mask'].sum(1).tolist()} tokens, "
         f"{batch_np['loss_mask'].sum(1).tolist()} answer tokens")
     lcfg = lora.LoRAConfig()
     adapters = lora.init_lora(model, lcfg, torch.Generator().manual_seed(SEED))
@@ -3952,7 +4159,10 @@ def phase_train_2_layers(smi: str) -> dict:
     # card's generator, cast to bf16 and placed on the CPU, then f32.
     start = time.perf_counter()
     cpu = chatts.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), "cpu",
-                             torch.bfloat16).float()
+                             torch.bfloat16)
+    if norms_seed is not None:
+        qwen3_norms(torch, cpu, norms_seed)
+    cpu.float()
     cpu_adapters = {"layers": [{m: {k: t.detach().cpu().requires_grad_() for k, t in ab.items()}
                                 for m, ab in layer.items()} for layer in adapters["layers"]]}
     ref, _ = sft_driver.lora_loss_fn(cpu_adapters, cpu, lcfg, data.to_device(batch_np, "cpu"),
@@ -3966,21 +4176,39 @@ def phase_train_2_layers(smi: str) -> dict:
             for k in ("a", "b"):
                 got, want = ab[k].grad.float().cpu(), cpu_layer[module][k].grad
                 if not torch.isfinite(got).all():
-                    raise AssertionError(f"9a: non-finite gradient {i}.{module}.{k}")
+                    raise AssertionError(f"{what}: non-finite gradient {i}.{module}.{k}")
                 errs[f"{i}.{module}.{k}"] = float((got - want).norm() / want.norm())
     worst = max(errs, key=errs.get)
-    log(f"  9a LoRA (rank {lcfg.rank}, {lora.lora_param_count(adapters):,} adapter parameters, "
-        f"remat) on the card against the CPU's f32 plain path ({cpu_s:.1f} s): loss "
+    log(f"  {what} LoRA (rank {lcfg.rank}, {lora.lora_param_count(adapters):,} adapter "
+        f"parameters, remat) on the card against the CPU's f32 plain path ({cpu_s:.1f} s): loss "
         f"{float(loss):.6f} against {float(ref):.6f}, relative error {loss_err:.3g} (tolerance "
         f"{TRAIN_LOSS_RTOL}); adapter gradients' relative L2 error median "
         f"{sorted(errs.values())[len(errs) // 2]:.3g}, largest {errs[worst]:.3g} ({worst}; "
         f"tolerance {TRAIN_GRAD_RL2})")
     if loss_err > TRAIN_LOSS_RTOL:
-        raise AssertionError(f"9a: the loss differs by {loss_err:.3g} relative")
+        raise AssertionError(f"{what}: the loss differs by {loss_err:.3g} relative")
     if errs[worst] > TRAIN_GRAD_RL2:
-        raise AssertionError(f"9a: {worst}'s gradient differs by {errs[worst]:.3g} (rel L2)")
-    out.update(loss=float(loss), loss_rel_err=loss_err, grad_rel_l2_max=errs[worst],
-               grad_rel_l2_median=sorted(errs.values())[len(errs) // 2])
+        raise AssertionError(f"{what}: {worst}'s gradient differs by {errs[worst]:.3g} (rel L2)")
+    return model, adapters, lcfg, card, dict(
+        loss=float(loss), loss_rel_err=loss_err, grad_rel_l2_max=errs[worst],
+        grad_rel_l2_median=sorted(errs.values())[len(errs) // 2])
+
+
+def phase_train_2_layers(smi: str) -> dict:
+    """9a: the 14B widths at 2 layers, bf16 weights from ``init_params``."""
+    import tempfile
+
+    import torch
+
+    from chatts_tpu_torch.models import weights
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
+    from chatts_tpu_torch.train import data, lora, sft_driver, train_step
+
+    dev = torch.device("cuda", 0)
+    cfg = chatts_14b_config(num_layers=2)
+    batch_np = data.build_sft_batch(ChatTSProcessor(WordTokenizer(), cfg),
+                                    sft_rows(2, 64, 1, 150, 60, SEED + 9))
+    model, adapters, lcfg, card, out = lora_against_cpu(torch, cfg, batch_np, "9a")
 
     # The merged export, loaded back by the port's loader: bit-equal kernels.
     with tempfile.TemporaryDirectory(prefix="chatts_phase9_") as tmp:
@@ -4662,6 +4890,643 @@ def phase_mesh_training(smi: str, refs: dict) -> dict:
     return {"tp_training_and_pipeline": launches}
 
 
+# ---------------------------------------------------------------------------
+# Per-layer checks; phases 13 and 13q (the reference's headline serving
+# configuration, the Qwen3 decoder) and 8f (the bf16 cache at cap 6,144)
+# ---------------------------------------------------------------------------
+
+# One decoder layer on the card against the same layer on the CPU in f32, on
+# the card's own input to it.  Its attention block (q/k/v, the norms, RoPE,
+# the attention, o) and its MLP each run on the card from a bf16 input with
+# bf16 intermediates (each rounding 2**-9 of the value, about ten on the way
+# to an output element) and f32 sums; on the CPU their inputs differ from
+# the card's by those roundings before them.  Each is held to
+# BLOCK_RTOL_OF_MAX of its largest output.  The layer adds both to the
+# residual stream, which the card rounds to bf16 after each addition at the
+# stream's own magnitude: the layer's output is held to BLOCK_RTOL_OF_MAX of
+# the largest it adds plus RESIDUAL_RTOL of the element (two roundings, half
+# an ulp each: 2**-8 of the value at most, each).  A norm weight, bias or
+# head group applied wrongly, or a key tile dropped, moves a block's output
+# by a large share of its largest.
+BLOCK_RTOL_OF_MAX = 3e-2
+RESIDUAL_RTOL = 2.0 ** -7
+
+
+def per_layer_against_cpu(torch, card, batch, what: str) -> dict:
+    """Every decoder layer of ``card`` (a model on the card) held to the same
+    layer on the CPU in f32 on the card's own input to it: forward hooks
+    keep each layer's input and output, and its attention block's and
+    MLP's outputs, in one uncached prefill of ``batch`` on the card; then a
+    plain f32 copy of each layer (``cpu_plain_model``) runs on the CPU, one
+    at a time, with the same hooks.  Phase 3's 2-layer check holds logits,
+    which compound every layer's rounding through the residual stream and
+    the head; this one sees each block alone.  Rule: ``BLOCK_RTOL_OF_MAX``."""
+    import copy
+
+    from chatts_tpu_torch.models import qwen
+
+    def hook_outputs(layer, into: dict) -> list:
+        def keep(key):
+            def post(module, args, out):
+                into[key] = (out[0] if isinstance(out, tuple) else out).float().cpu()
+            return post
+
+        return [layer.self_attn.register_forward_hook(keep("attention")),
+                layer.mlp.register_forward_hook(keep("mlp")),
+                layer.register_forward_hook(keep("layer"))]
+
+    dev = card.llm.embed_tokens.device
+    seen, shared, hooks = [{} for _ in card.llm.layers], {}, []
+
+    def keep_input(i):
+        def pre(module, args):
+            if not shared:
+                shared.update(positions=args[1].cpu(), kv_valid=args[5].cpu(),
+                              kv_positions=args[6].cpu())
+            seen[i]["input"] = args[0].float().cpu()
+        return pre
+
+    for i, layer in enumerate(card.llm.layers):
+        hooks += [layer.register_forward_pre_hook(keep_input(i))] + hook_outputs(layer, seen[i])
+    try:
+        tail_logits(card, batch, dev, 1)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    lcfg = card.llm.cfg
+    positions = shared["positions"]
+    rope = qwen.rope_cos_sin(positions, lcfg.head_dim, lcfg.rope_theta)
+    start, shares, stream = time.perf_counter(), {"attention": [], "mlp": [], "layer": []}, []
+    for i, layer in enumerate(card.llm.layers):
+        cpu_layer, want = cpu_plain_model(copy.deepcopy(layer)), {}
+        hooks = hook_outputs(cpu_layer, want)
+        with torch.inference_mode():
+            cpu_layer(seen[i]["input"], positions, rope, None, None, shared["kv_valid"],
+                      shared["kv_positions"], None)
+        for hook in hooks:
+            hook.remove()
+        del cpu_layer
+        for key, ref in want.items():
+            got = seen[i][key]
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{what}: layer {i}'s {key} gave non-finite values on the "
+                                     "card")
+            err = (got - ref).abs()
+            if key == "layer":
+                largest = float((ref - seen[i]["input"]).abs().max())
+                tol = BLOCK_RTOL_OF_MAX * largest + RESIDUAL_RTOL * ref.abs()
+                stream.append(float(ref.abs().max()) / largest)
+            else:
+                largest = float(ref.abs().max())
+                tol = BLOCK_RTOL_OF_MAX * largest
+            shares[key].append(float(err.max()) / largest)
+            if bool((err > tol).any()):
+                raise AssertionError(
+                    f"{what}: layer {i}'s {key}: {int((err > tol).sum())} elements out of "
+                    f"tolerance; max |diff| {float(err.max()):.4g} = {shares[key][-1]:.3g} of "
+                    f"its largest output{' addition' if key == 'layer' else ''} {largest:.4g}")
+    summary = {}
+    for key, vals in shares.items():
+        worst = max(range(len(vals)), key=vals.__getitem__)
+        summary[key] = dict(median=sorted(vals)[len(vals) // 2], max=vals[worst], layer=worst)
+    log(f"  {what}, per layer: {len(stream)} layers on the card against the CPU's f32 layer on "
+        f"the card's input ({batch.seq_lens.tolist()} tokens, {time.perf_counter() - start:.1f} "
+        f"s): max |diff| over the largest output, median and largest (layer): "
+        + "; ".join(f"{key} {v['median']:.3g}, {v['max']:.3g} ({v['layer']})"
+                    for key, v in summary.items())
+        + f" (the layer's over the largest it adds; its output up to {max(stream):.3g} times "
+        f"that); tolerance {BLOCK_RTOL_OF_MAX} of the largest, + {RESIDUAL_RTOL:.4g} of the "
+        f"element for the layer")
+    return dict(layers=len(stream), stream_over_added_max=max(stream), **summary)
+
+
+def two_layers_against_cpu(torch, model, cfg, batch, what: str, n: int = 32) -> dict:
+    """Phase 3's check on ``model``'s first two layers (a view sharing its
+    tensors): their logits on the card against a plain f32 copy of them on
+    the CPU, at each row's last n positions."""
+    import copy
+
+    dev = model.llm.embed_tokens.device
+    _, view = first_layers(model, cfg, 2)
+    got = tail_logits(view, batch, dev, n).cpu()
+    cpu = cpu_plain_model(copy.deepcopy(view))
+    ref = tail_logits(cpu, batch, torch.device("cpu"), n)
+    del cpu, view
+    return check_logits(torch, got, ref, what)
+
+
+# bench.py's headline serving engine (bench.py:476-507): 32 slots, cap
+# 1,024, the bf16 cache, admission bucket 8, decode chunk 32, no fusion,
+# early first tokens; its requests: prompts of about 500 tokens with two
+# series of 256 and 512 points (bench.py:19-20), greedy.
+HEADLINE_ENGINE = dict(max_batch_size=32, max_model_len=1024, admission_bucket=8,
+                       decode_chunk=32, fuse=False, block_early_emit=True)
+# The first 8 requests are admitted on an idle engine; after their first
+# decode round the next 24 arrive and take three block rounds of 8 in a
+# row.  With 1 + 3 x 32 tokens each, every slot is live for two whole
+# rounds (64 tokens at c32) before the first 8 finish; then a burst of 8
+# arrives while the other 24 decode, and at the end one request alone.
+HEADLINE_TOKENS = 97
+HEADLINE_BURST_TOKENS = 65
+HEADLINE_SINGLE_TOKENS = 17
+HEADLINE_REQUESTS = 41
+# The graph against eager rounds: 8 requests on an idle engine and 8 by one
+# block round, 33 tokens each.
+HEADLINE_CHECK_WAVES = [(0, 8, 33, None), (8, 16, 33, (0, "first_token"))]
+
+
+def headline_specs(count: int, seed: int) -> list:
+    """``count`` (prompt, series) of bench.py's shape: 500 prompt tokens (one
+    length class: under 512) with two random-walk series of 256 and 512
+    points."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        words = " ".join(f"w{int(x)}" for x in rng.integers(0, 10 ** 6, 430))
+        out.append((f"here are two metrics <ts><ts/> and <ts><ts/> then {words} analyze their "
+                    f"local changes", [rng.normal(0, 50, 256).cumsum(),
+                                       rng.normal(0, 5, 512).cumsum()]))
+    return out
+
+
+class WaveFeed:
+    """Queues waves of greedy requests from the engine's own loop: it wraps
+    ``engine._complete_round``, so that after a round, the next wave is
+    queued (its requests made there) as soon as every request of the wave
+    it waits for has its first token or has finished, before the loop's
+    next admission.  Each run then admits the same waves in the same rounds.
+    ``waves``: (first spec, end, max_tokens, after) each, ``after`` None for
+    the first wave, else (index of an earlier wave, "first_token" or
+    "finished")."""
+
+    def __init__(self, engine, specs, waves):
+        self.engine, self.specs, self.waves, self.queued = engine, specs, waves, []
+        self.inner = engine._complete_round
+        engine._complete_round = self._complete
+
+    def _queue(self, k: int) -> None:
+        from chatts_tpu_torch.serve.scheduler import Request, SamplingParams
+
+        lo, hi, n, _ = self.waves[k]
+        reqs = [Request(*self.specs[i], SamplingParams(max_tokens=n, temperature=0.0))
+                for i in range(lo, hi)]
+        self.queued.append(reqs)
+        self.engine.waiting.requeue(reqs)
+        self.engine._wake.set()
+
+    def _complete(self, handle):
+        out = self.inner(handle)
+        k = len(self.queued)
+        if k < len(self.waves):
+            wave, event = self.waves[k][3]
+            field = "first_token_s" if event == "first_token" else "finished_s"
+            if all(getattr(r, field) is not None for r in self.queued[wave]):
+                self._queue(k)
+        return out
+
+    def run(self, timeout_s: float = 600.0) -> list:
+        """Queue the first wave and wait until every wave is queued and every
+        request has finished; raises on a request's error.  Returns the
+        waves' requests."""
+        self._queue(0)
+        deadline = time.time() + timeout_s
+        try:
+            while (len(self.queued) < len(self.waves)
+                   or any(r.finished_s is None for w in self.queued for r in w)):
+                errors = [r.error for w in self.queued for r in w if r.error]
+                if errors:
+                    raise AssertionError(f"engine errors: {errors[:2]}")
+                if time.time() > deadline:
+                    raise TimeoutError(f"waves not served in {timeout_s} s")
+                time.sleep(0.002)
+        finally:
+            del self.engine._complete_round
+        # The loop logs a round after its admission: wait for the last entry.
+        count = -1
+        while count != len(self.engine.round_snapshot()) and time.time() < deadline:
+            count = len(self.engine.round_snapshot())
+            time.sleep(0.05)
+        for wave, (lo, hi, n, _) in zip(self.queued, self.waves):
+            for r in wave:
+                if r.error or len(r.output_tokens) != n or r.finish_reason != "length":
+                    raise AssertionError(f"a request ended {r.finish_reason} with "
+                                         f"{len(r.output_tokens)} of {n} tokens ({r.error})")
+        return self.queued
+
+
+def decode_step_ms(torch, decode_graph) -> float:
+    """A serving decode step's device time: CUDA events around the replays of
+    one round of its raw graph (no ledger count), the emitted column reset
+    first as ``round`` resets it, after one such round; per step."""
+    graph = getattr(decode_graph.graph, "graph", decode_graph.graph)  # a GraphLedger's
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.inference_mode():  # the engine made its state there
+        for _ in range(2):
+            decode_graph.column.zero_()
+            start.record()
+            for _ in range(decode_graph.chunk_size):
+                graph.replay()
+            end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / decode_graph.chunk_size
+
+
+def serve_headline(torch, smi: str, model, cfg, cache_dtype, path: str, runs: int,
+                   what: str) -> dict:
+    """Phase 13's serving: ``HEADLINE_ENGINE`` with ``cache_dtype`` and its
+    traffic ``runs`` times on one engine (the rounds from the decode step's
+    graph), each run's tokens equal to the first's; then, with ``runs`` > 1,
+    ``HEADLINE_CHECK_WAVES``' schedule on the same engine against a fresh
+    engine whose decode rounds run eagerly (``eager_rounds``): the same
+    tokens.  Logs TPOT and tok/s of the rounds with every slot live, the
+    burst's and the single request's TTFT, the replayed step's device time,
+    the captures and the peak memory, beside the card; returns the launches
+    of the graph runs as ``path`` and the numbers."""
+    import numpy as np
+
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
+    from chatts_tpu_torch.serve.scheduler import ServeEngine
+
+    dev = torch.device("cuda", 0)
+    slots, chunk = HEADLINE_ENGINE["max_batch_size"], HEADLINE_ENGINE["decode_chunk"]
+    specs = headline_specs(HEADLINE_REQUESTS, SEED + 13)
+    proc = ChatTSProcessor(WordTokenizer(), cfg)
+    waves = [(0, 8, HEADLINE_TOKENS, None), (8, 32, HEADLINE_TOKENS, (0, "first_token")),
+             (32, 40, HEADLINE_BURST_TOKENS, (0, "finished"))]
+    bf16 = cache_dtype == torch.bfloat16
+    required = ("flash_attention", "ragged_decode_attention" if bf16 else
+                "ragged_decode_attention_int8", "int4_matmul")
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine = ServeEngine(model, cfg, proc, device=dev, cache_dtype=cache_dtype, **HEADLINE_ENGINE)
+    tokens, summary = [], []
+    reset_launches()
+    with engine:
+        for _ in range(runs):
+            log_before = len(engine.round_snapshot())
+            start = time.perf_counter()
+            first, rest, burst = WaveFeed(engine, specs, waves).run()
+            (single,), = WaveFeed(engine, specs, [(40, 41, HEADLINE_SINGLE_TOKENS, None)]).run()
+            wall = time.perf_counter() - start
+            rounds = engine.round_snapshot()[log_before:]
+            kinds = [r["kind"] for r in rounds]
+            full = [r for r in rounds if r["kind"] == "decode" and r["live"] == slots
+                    and r["emitted"] == slots * chunk]
+            burst_live = [r["live"] for r in rounds if r["kind"] == "block_pre"][-1:]
+            if (kinds.count("mono") != 2 or kinds.count("block_pre") != 4 or len(full) < 2
+                    or burst_live != [slots - 8]):
+                raise AssertionError(f"{what}: rounds {kinds}, {len(full)} with every slot live, "
+                                     f"the burst admitted next to {burst_live} live slots")
+            ttft_burst = sorted(r.ttft_s * 1e3 for r in burst)
+            summary.append(dict(
+                tpot_ms=1e3 * float(np.mean([r["round_s"] for r in full])) / chunk,
+                decode_tok_s_c32=float(np.mean([slots * chunk / r["round_s"] for r in full])),
+                burst_ttft_ms_p50=ttft_burst[len(ttft_burst) // 2],
+                burst_ttft_ms_max=ttft_burst[-1], single_ttft_ms=single.ttft_s * 1e3,
+                wave_ttft_ms_mean=float(np.mean([r.ttft_s * 1e3 for r in first + rest])),
+                wall_s=wall, rounds=kinds, full_rounds=len(full),
+                live_when_burst_admitted=burst_live[0]))
+            tokens.append([r.output_tokens for r in first + rest + burst + [single]])
+            prompts = (min(r.prompt_tokens for r in first + rest + burst),
+                       max(r.prompt_tokens for r in first + rest + burst))
+        launches = read_launches(path, required)
+        if launches["ragged_decode_attention_int8" if bf16 else "ragged_decode_attention"]:
+            raise AssertionError(f"{what}: the {'bf16' if bf16 else 'int8'} cache launched the "
+                                 f"other decode attention: {launches}")
+        if any(t != tokens[0] for t in tokens[1:]):
+            raise AssertionError(f"{what}: a second run gave other tokens")
+        check = None
+        if runs > 1:
+            check = WaveFeed(engine, specs, HEADLINE_CHECK_WAVES)
+            check = [r.output_tokens for w in check.run() for r in w]
+    stats = engine.stats()
+    step_ms = decode_step_ms(torch, engine._decode_graph)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    captures = stats["graph_captures"]
+    if check is not None:
+        with eager_rounds("decode"):
+            eager = ServeEngine(model, cfg, proc, device=dev, cache_dtype=cache_dtype,
+                                **HEADLINE_ENGINE)
+            with eager:
+                got = WaveFeed(eager, specs, HEADLINE_CHECK_WAVES)
+                got = [r.output_tokens for w in got.run() for r in w]
+        if got != check:
+            raise AssertionError(f"{what}: the decode graph served other tokens than eager "
+                                 "rounds")
+        del eager
+    for i, s in enumerate(summary):
+        log(f"  {what} run {i + 1}: TPOT {s['tpot_ms']:.3f} ms and {s['decode_tok_s_c32']:.1f} "
+            f"tok/s over {s['full_rounds']} rounds with all {slots} slots live; burst of 8 "
+            f"TTFT p50 {s['burst_ttft_ms_p50']:.1f} ms (max {s['burst_ttft_ms_max']:.1f}; "
+            f"{s['live_when_burst_admitted']} slots decoding); single TTFT "
+            f"{s['single_ttft_ms']:.1f} ms; the first 32 TTFT mean "
+            f"{s['wave_ttft_ms_mean']:.1f} ms; rounds {' '.join(s['rounds'])} in "
+            f"{s['wall_s']:.2f} s")
+    log(f"  {what}: prompt tokens {prompts[0]} to {prompts[1]}; a decode step replayed from "
+        f"its graph {step_ms:.3f} ms of device time (a round's {chunk} replays, all {slots} "
+        f"slots); captures "
+        f"{json.dumps(captures)}; peak memory "
+        f"{peak_gb:.2f} GB; {runs} runs token-identical"
+        + ("; the decode graph served the eager rounds' tokens" if check is not None else "")
+        + f"; card {smi}")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(launches=launches, runs=summary, step_ms=step_ms, captures=captures,
+                peak_memory_gb=peak_gb, card=smi, tokens=tokens[0])
+
+
+# The per-layer check's prompt: one row of about 110 tokens with bench.py's
+# two series (the CPU runs every layer of it in f32).
+LAYER_CHECK_SPECS = [(50, [256, 512])]
+# The 2-layer logit check's batch (phase 3's lengths, shorter).
+TWO_LAYER_SPECS = [(250, [256]), (200, [512, 256]), (150, [300]), (100, [800])]
+
+
+def phase_headline(smi: str) -> dict:
+    """Phase 13: bench.py's headline serving configuration at full width
+    and depth (28 layers) on random int4 weights from ``init_quantized_params``
+    (``serve_headline``); then the 2-layer logit check and the per-layer
+    check against the CPU.  Returns the launches of the graph runs."""
+    import torch
+
+    from chatts_tpu_torch.models.quantize import init_quantized_params
+
+    dev = torch.device("cuda", 0)
+    with Phase(13, "the reference's headline serving configuration: bench.py's 8B shape, 28 "
+                   "layers, int4, bf16 KV cache, ServeEngine at 32 slots"):
+        cfg = chatts_8b_config(num_layers=28)
+        start = time.perf_counter()
+        model = init_quantized_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 13),
+                                      dev)
+        torch.cuda.synchronize(dev)
+        log(f"  random int4 weights on the card: {_model_gb(model):.2f} GB in "
+            f"{time.perf_counter() - start:.1f} s")
+        out = serve_headline(torch, smi, model, cfg, torch.bfloat16, "headline_bf16", 2, "13")
+        out["two_layers"] = two_layers_against_cpu(
+            torch, model, cfg, make_batch(cfg, TWO_LAYER_SPECS, SEED + 13), "13, 2 layers")
+        out["per_layer"] = per_layer_against_cpu(
+            torch, model, make_batch(cfg, LAYER_CHECK_SPECS, SEED + 13), "13")
+        log("  headline stats: " + json.dumps(
+            {k: v for k, v in out.items() if k not in ("launches", "tokens")}))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out["launches"]
+
+
+QWEN3_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+                     "down_proj")
+
+
+def _projection(llm, i: int, name: str):
+    """Layer i's unfused projection ``name``."""
+    layer = llm.layers[i]
+    return getattr(layer.mlp if name in ("gate_proj", "up_proj", "down_proj")
+                   else layer.self_attn, name)
+
+
+def float_twin(torch, model) -> None:
+    """``model``'s int4 projections and head made float in place: each holds
+    its dequantized weights in bf16, the layout ``save_checkpoint`` writes."""
+    from chatts_tpu_torch.models.qwen import Dense
+    from chatts_tpu_torch.ops import int4_matmul as i4
+
+    with torch.no_grad():
+        for module in list(model.modules()):
+            for name, child in list(module.named_children()):
+                if isinstance(child, Dense) and child.kernel_q4 is not None:
+                    setattr(module, name, Dense(
+                        i4.dequantize(child.kernel_q4, child.scales4, torch.bfloat16),
+                        bias=child.bias))
+        llm = model.llm
+        llm.lm_head = torch.nn.Parameter(llm.lm_head_q.kernel, requires_grad=False)
+        llm.lm_head_q = None
+
+
+def phase_qwen3(smi: str) -> dict:
+    """Phase 13q: the Qwen3 decoder at Qwen3-8B's published widths and depth
+    (``qwen3_8b_config``): random int4 weights from ``init_quantized_params``
+    (unfused) with q/k norms drawn in [0.5, 1.5], made float, written by
+    ``save_checkpoint`` and read back by ``load_checkpoint(quantize_bits=4)``
+    (the architecture, every norm, the embeddings, layers 0 and 35 and the
+    head bit-equal to ``pack_int4`` of what was written); the loaded model
+    served as phase 13 serves, with the bf16 cache (twice and against eager
+    rounds) and once with the int8 cache; the 2-layer and per-layer checks
+    against the CPU; and a LoRA step at 2 layers of the same widths against
+    the CPU (as 9a).  Returns the launches of the serving runs."""
+    import os
+    import tempfile
+
+    import torch
+
+    from chatts_tpu_torch.models import weights
+    from chatts_tpu_torch.models.quantize import init_quantized_params
+    from chatts_tpu_torch.ops import int4_matmul as i4
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
+    from chatts_tpu_torch.train import data
+
+    dev = torch.device("cuda", 0)
+    out = dict(card=smi)
+    with Phase("13q", "the Qwen3 decoder at Qwen3-8B's widths, 36 layers, int4: written by "
+                      "save_checkpoint, loaded by load_checkpoint, served from the bf16 and int8 "
+                      "KV caches; a 2-layer LoRA step against the CPU"):
+        cfg = qwen3_8b_config(num_layers=36)
+        last = cfg.llm.num_hidden_layers - 1
+        model = init_quantized_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 14),
+                                      dev, fused=False)
+        qwen3_norms(torch, model, SEED + 14)
+        float_twin(torch, model)
+        llm = model.llm
+        # What the loader must make of layers 0 and 35 and of the head, which
+        # it quantizes HEAD_COLUMNS output columns at a time.
+        want = {(i, name): i4.pack_int4(_projection(llm, i, name).kernel)
+                for i in (0, last) for name in QWEN3_PROJECTIONS}
+        want["head"] = i4.pack_int4(llm.lm_head)
+        norms = [(layer.self_attn.q_norm.clone(), layer.self_attn.k_norm.clone())
+                 for layer in llm.layers]
+        embed = llm.embed_tokens.clone()
+        with tempfile.TemporaryDirectory(prefix="chatts_phase13q_") as tmp:
+            start = time.perf_counter()
+            weights.save_checkpoint(tmp, cfg, model)
+            save_s = time.perf_counter() - start
+            size_gb = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp)) / 1e9
+            with open(os.path.join(tmp, "config.json")) as f:
+                arch = json.load(f)["architectures"]
+            del model, llm
+            gc.collect()
+            torch.cuda.empty_cache()
+            start = time.perf_counter()
+            loaded_cfg, model = weights.load_checkpoint(tmp, quantize_bits=4, device=dev)
+            torch.cuda.synchronize(dev)
+            load_s = time.perf_counter() - start
+        llm = model.llm
+        differ = []
+        for key, (packed, scales) in want.items():
+            dense = llm.lm_head_q if key == "head" else _projection(llm, *key)
+            if not (torch.equal(packed, dense.kernel_q4) and torch.equal(scales, dense.scales4)):
+                differ.append(str(key))
+        differ += [f"norms {i}" for i, (q, k) in enumerate(norms)
+                   if not (torch.equal(q, llm.layers[i].self_attn.q_norm)
+                           and torch.equal(k, llm.layers[i].self_attn.k_norm))]
+        if not torch.equal(embed, llm.embed_tokens):
+            differ.append("embed_tokens")
+        del want, norms, embed
+        log(f"  save_checkpoint: {size_gb:.2f} GB (f32) in {save_s:.1f} s, architectures {arch}; "
+            f"load_checkpoint(quantize_bits=4): {_model_gb(model):.2f} GB in {load_s:.1f} s; "
+            f"config {'equal' if loaded_cfg.llm == cfg.llm else 'NOT equal'}; "
+            f"{len(differ)} of layers 0 and {last}'s projections, the head, every norm and the "
+            f"embeddings differ from what was written")
+        if arch != ["Qwen3TSForCausalLM"] or loaded_cfg.llm != cfg.llm or differ:
+            raise AssertionError(f"13q: the Qwen3 directory did not round-trip: {arch}, "
+                                 f"{loaded_cfg.llm}, {differ[:4]}")
+        if llm.layers[0].self_attn.q_proj.bias is not None or llm.lm_head_q is None:
+            raise AssertionError("13q: the loaded model has an attention bias or no int4 head")
+        out.update(save_s=save_s, load_s=load_s, directory_gb=size_gb)
+        out["bf16"] = serve_headline(torch, smi, model, loaded_cfg, torch.bfloat16, "qwen3", 2,
+                                     "13q bf16")
+        launches = out["bf16"]["launches"]
+        out["int8"] = serve_headline(torch, smi, model, loaded_cfg, torch.int8, "qwen3_int8", 1,
+                                     "13q int8")
+        launches = {k: v + out["int8"]["launches"][k] for k, v in launches.items()}
+        agree = sum(a == b for a, b in zip(out["bf16"]["tokens"], out["int8"]["tokens"]))
+        log(f"  13q: requests with the same tokens from the bf16 and the int8 cache: "
+            f"{agree}/{len(out['bf16']['tokens'])} (not gated)")
+        out["two_layers"] = two_layers_against_cpu(
+            torch, model, loaded_cfg, make_batch(loaded_cfg, TWO_LAYER_SPECS, SEED + 14),
+            "13q, 2 layers")
+        out["per_layer"] = per_layer_against_cpu(
+            torch, model, make_batch(loaded_cfg, LAYER_CHECK_SPECS, SEED + 14), "13q")
+        del model, llm
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut = qwen3_8b_config(num_layers=2)
+        batch_np = data.build_sft_batch(ChatTSProcessor(WordTokenizer(), cut),
+                                        sft_rows(2, 64, 1, 150, 60, SEED + 15))
+        lora_model, _, _, _, out["lora"] = lora_against_cpu(torch, cut, batch_np, "13q",
+                                                            norms_seed=SEED + 15)
+        del lora_model
+        log("  qwen3 stats: " + json.dumps(
+            {k: ({kk: vv for kk, vv in v.items() if kk not in ("launches", "tokens")}
+                 if isinstance(v, dict) else v) for k, v in out.items()}))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def long_specs(count: int, seed: int) -> list:
+    """Phase 8b's second wave as (prompt, series): about 2,400 to 2,900
+    prompt tokens, four random-walk series of 512 points and a long text."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        holes = " ".join(f"metric {j} <ts><ts/>" for j in range(4))
+        words = " ".join(f"word{k}" for k in range(2270 + 150 * i))
+        out.append((f"here are four metrics {holes} then {words} compare their local changes",
+                    [rng.normal(0, 10, 512).cumsum() for _ in range(4)]))
+    return out
+
+
+def phase_serving_6144_bf16(smi: str, model, cfg) -> dict:
+    """Phase 8f, on phase 4's weights after phase 8's engines are freed: 8b's
+    schedule with the bf16 cache.  ``ServeEngine`` at 24 slots, cap 6,144,
+    bf16 KV (29 GB beside the 9.41 GB of weights), decode chunk 32, early
+    emit: 8 requests of bench.py's shape, then, once they decode, 4 of 2,400
+    to 2,900 tokens that no block takes, admitted by two scan-sliced rounds
+    (npt 64, kv_limit 2,048 then 4,096) whose steps replay the mixed graphs
+    (B2 on the decode side, the bf16 prefix copied for B1), each round's
+    device span beside its host seconds (which hold the capture); then the
+    same schedule with eager mixed rounds: the same tokens.  Returns the
+    launches of both runs."""
+    import numpy as np
+    import torch
+
+    from chatts_tpu_torch.processor.processor import ChatTSProcessor
+    from chatts_tpu_torch.serve import scheduler
+    from chatts_tpu_torch.serve.scheduler import ServeEngine
+
+    dev = torch.device("cuda", 0)
+    with Phase("8f", "scan-sliced admission at full size from the bf16 cache: ServeEngine, "
+                     "24 slots, cap 6,144, bf16 KV; mixed rounds from their graphs, then eager"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        engine = ServeEngine(model, cfg, ChatTSProcessor(WordTokenizer(), cfg), device=dev,
+                             max_batch_size=24, max_model_len=6144, cache_dtype=torch.bfloat16,
+                             decode_chunk=32, fuse=False, block_early_emit=True,
+                             admission_bucket=8)
+        specs = headline_specs(8, SEED + 16) + long_specs(4, SEED + 8)
+        waves = [(0, 8, 64, None), (8, 12, 64, (0, "first_token"))]
+        clock = RoundClock(scheduler._MixedStepGraph, EagerMixedRounds)
+        runs = {}
+        reset_launches()
+        try:
+            with engine:
+                for form in ("graph", "eager"):
+                    log_before, n_spans = len(engine.round_snapshot()), len(clock.events)
+                    graphs = dict(engine._mixed_graphs)
+                    if form == "eager":
+                        engine._mixed_graphs.clear()  # made again as eager stand-ins
+                    with eager_rounds("mixed") if form == "eager" else contextlib.nullcontext():
+                        start = time.perf_counter()
+                        short, long = WaveFeed(engine, specs, waves).run()
+                        wall = time.perf_counter() - start
+                    if form == "eager":
+                        engine._mixed_graphs.clear()
+                        engine._mixed_graphs.update(graphs)
+                    runs.setdefault(form, []).append((
+                        short, long, engine.round_snapshot()[log_before:], n_spans,
+                        len(clock.events), wall))
+            launches = read_launches("serving at cap 6,144 from the bf16 cache (8f)", (
+                "flash_attention", "ragged_decode_attention", "int4_matmul"))
+        finally:
+            clock.remove()
+        spans_ms = clock.read_ms()
+        stats = engine.stats()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        captures = [c for c in stats["graph_captures"]
+                    if c["kind"] == "mixed" and c["pool_bytes"] is not None]
+        if sorted(c["key"] for c in captures) != [[4, 64, 2048], [4, 64, 4096]]:
+            raise AssertionError(f"8f: mixed graphs captured: {captures}")
+        if launches["ragged_decode_attention_int8"] or launches["int4_matmul_a8"]:
+            raise AssertionError(f"8f: the bf16 cache's path launched {launches}")
+        lens = sorted(r.prompt_tokens for r in runs["graph"][0][1])
+        if lens[0] < 2400 or lens[-1] > 3000:
+            raise AssertionError(f"8f: wave 2 prompt tokens {lens} outside 2,400..3,000")
+        ids, summary = [], {}
+        for form, form_runs in runs.items():
+            for i, (short, long, rounds, first, last, wall) in enumerate(form_runs):
+                ids.append([r.output_tokens for r in short + long])
+                mixed = [r["round_s"] for r in rounds if r["kind"] == "mixed"]
+                if len(mixed) != 2:
+                    raise AssertionError(f"8f {form}: {len(mixed)} mixed rounds, not 2")
+                run = dict(wave2_ttft_ms=[r.ttft_s * 1e3 for r in long], mixed_host_s=mixed,
+                           mixed_device_ms=spans_ms[first:last], wall_s=wall,
+                           **wave1_rate(short))
+                summary.setdefault(form, []).append(run)
+                log(f"  8f {form} run {i + 1}: wave 2 TTFT mean "
+                    f"{np.mean(run['wave2_ttft_ms']):.1f} ms; wave 1 decode "
+                    f"{run['wave1_tok_s']:.1f} tokens/s while it is admitted; mixed rounds, host "
+                    f"(device span) " + ", ".join(f"{t:.3f} s ({ms:.1f} ms)" for t, ms in
+                                                  zip(mixed, run["mixed_device_ms"]))
+                    + f"; wall {wall:.2f} s")
+        if any(other != ids[0] for other in ids[1:]):
+            raise AssertionError("8f: the mixed rounds from their graphs and eager mixed rounds "
+                                 "on the bf16 cache served other tokens")
+        log(f"  8f: wave 2 prompt tokens {lens}; mixed graphs (a, npt, kv_limit) "
+            f"{[c['key'] for c in captures]} captured in "
+            f"{[round(c['seconds'], 3) for c in captures]} s (in the graph run's rounds), pool "
+            f"bytes {[c['pool_bytes'] for c in captures]}; the graph run's tokens equal to the "
+            f"eager run's; peak memory {peak_gb:.2f} GB; card {smi}")
+        log("  serving_6144_bf16 stats: " + json.dumps(dict(
+            runs=summary, captures=captures, graph_rounds=stats["graph_rounds"],
+            peak_memory_gb=peak_gb, card=smi)))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 REPLACES = {
     "flash_attention": "chatts_tpu/ops/flash_attention.py:129",
     "ragged_decode_attention": "chatts_tpu/ops/ragged_decode_attention.py:123",
@@ -4701,16 +5566,22 @@ def main() -> int:
     paths.update(phase_chunked(smi, model, cfg, bf16_run))
     gc.collect()
     torch.cuda.empty_cache()
+    paths["serving_6144_bf16"] = phase_serving_6144_bf16(smi, model, cfg)
     paths["eval"] = phase_eval(smi, model, cfg)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["datagen"] = phase_datagen(smi, model, cfg)
-    del model
+    # Phase 11's answers are noise at random weights: it runs on the first
+    # DATAGEN_LAYERS layers of phase 4's model.
+    datagen_cfg, datagen_model = first_layers(model, cfg, DATAGEN_LAYERS)
+    paths["datagen"] = phase_datagen(smi, datagen_model, datagen_cfg)
+    del model, datagen_model
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(phase_disk(smi, bf16_run, paths["batch"]))
     paths["training"], refs = phase_train(smi)
     paths.update(phase_mesh_training(smi, refs))
+    paths["headline_bf16"] = phase_headline(smi)
+    paths["qwen3"] = phase_qwen3(smi)
     # Each path counted from 0: "launches" is a kernel's sum over the paths,
     # and "launches_by_path" says which path launched what.  A wrapper counts
     # a kernel inside a CUDA graph once, when the graph is captured; the
@@ -4731,7 +5602,7 @@ def main() -> int:
          "graph_replays": {label: g for label, g in replays[name].items() if g},
          **{key: kernels[name].get(key) for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "library_note")}}
+             "library_note", "more_shapes")}}
         for name in REPLACES
     ]}))
     log(smi)

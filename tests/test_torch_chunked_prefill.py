@@ -33,15 +33,16 @@ from chatts_tpu_torch.processor import processor as tprocessor
 from chatts_tpu_torch.runtime import kv_cache as tkv
 from chatts_tpu_torch.runtime.engine import InferenceEngine, default_cache_len
 from tests.helpers import FakeTokenizer
+from tests.test_torch_qwen import _randomize
 
 TOL = 1e-4
 DECODE_TOL = 2e-3
 
 
-def _config(m=tconfig):
+def _config(m=tconfig, qwen3=False):
     return m.tiny_config(vocab_size=512, hidden_size=128, intermediate_size=256,
                          num_attention_heads=4, num_key_value_heads=2, head_dim=32,
-                         patch_size=4)
+                         patch_size=4, qwen3=qwen3)
 
 
 def _assert_caches_close(tcaches, jcaches, int8: bool) -> None:
@@ -58,16 +59,21 @@ def _assert_caches_close(tcaches, jcaches, int8: bool) -> None:
                 np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("cache", ["f32", "int8"])
+@pytest.mark.parametrize("cache", ["f32", "int8", "qwen3-f32", "qwen3-int8"])
 def test_torch_chunked_forward_matches_jax(cache):
     """Chunks of 8 over a 21-token block (two rows of 21 and 13 tokens, so
     the second chunk straddles row 1's end and the third row 0's), each
     written at absolute slots and attending the prefix [:kv_limit] of a
     32-slot cache (kv_limit 16, 16, 32): hidden states and every cache
-    buffer after each chunk."""
-    cfg, jcfg = _config().llm, _config(jconfig).llm
+    buffer after each chunk.  The Qwen3 decoder's norm weights are drawn
+    around 1, so that neither q_norm nor k_norm is a no-op."""
+    qwen3 = cache.startswith("qwen3-")
+    cache = cache.removeprefix("qwen3-")
+    cfg, jcfg = _config(qwen3=qwen3).llm, _config(jconfig, qwen3).llm
     params = jax.tree.map(np.asarray, jqwen.init_params(jcfg, jax.random.PRNGKey(3),
                                                         dtype=jnp.float32))
+    if qwen3:
+        params = _randomize(params, np.random.default_rng(3))
     model = qwen_from_jax(params, cfg)
     b, t, c, cap = 2, 21, 8, 32
     rng = np.random.default_rng(5)

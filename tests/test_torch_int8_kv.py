@@ -47,6 +47,7 @@ from tests.test_torch_engine import _config as _engine_config
 from chatts_tpu_torch.serve.scheduler import Request, SamplingParams, ServeEngine
 from tests.helpers import FakeTokenizer
 from tests.test_torch_engine import _generate_both, _params
+from tests.test_torch_qwen import _randomize
 
 TOL = 1e-4
 DECODE_TOL = 2e-3
@@ -163,19 +164,26 @@ def test_torch_ragged_int8_on_plan_is_for_the_card():
         trda.ragged_decode_attention_int8_on_plan(*args, (4, 128))
 
 
-def _config(m=tconfig):
+def _config(m=tconfig, qwen3=False):
     """The tiny config from module ``m``: the port's, or the JAX package's
     for the JAX side."""
     return m.tiny_config(vocab_size=512, hidden_size=128, intermediate_size=256,
-                       num_attention_heads=4, num_key_value_heads=2, head_dim=64)
+                       num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+                       qwen3=qwen3)
 
 
-def test_torch_int8_cache_prefill_then_decode_matches_jax():
+@pytest.mark.parametrize("qwen3", [False, True], ids=["qwen2", "qwen3"])
+def test_torch_int8_cache_prefill_then_decode_matches_jax(qwen3):
     """Prefill writes codes and scales but attends the unquantized block;
-    three decode steps write at cur_len and attend the quantized cache."""
-    lcfg, jlcfg = _config().llm, _config(jconfig).llm
-    params = jax.tree.map(np.asarray, jqwen.fuse_projections(
-        jqwen.init_params(jlcfg, jax.random.PRNGKey(2), dtype=jnp.float32)))
+    three decode steps write at cur_len and attend the quantized cache.
+    Qwen3's q_norm and k_norm weights are drawn around 1, so that neither
+    is a no-op."""
+    lcfg, jlcfg = _config(qwen3=qwen3).llm, _config(jconfig, qwen3).llm
+    params = jax.tree.map(np.asarray, jqwen.init_params(jlcfg, jax.random.PRNGKey(2),
+                                                        dtype=jnp.float32))
+    if qwen3:
+        params = _randomize(params, np.random.default_rng(2))
+    params = jax.tree.map(np.asarray, jqwen.fuse_projections(params))
     rng = np.random.default_rng(3)
     b, t, cap = 2, 12, 32
     embeds = rng.normal(0, 1, (b, t, lcfg.hidden_size)).astype(np.float32)

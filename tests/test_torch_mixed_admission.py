@@ -7,7 +7,9 @@ Tolerances: 1e-4 (rtol and atol) in f32 with the f32 cache, as
 ``test_torch_qwen.py``; with the int8 cache the codes written from f32
 activations may round the other way at a .5 boundary (at most one step, in
 few elements), and values read from them compare at ``DECODE_TOL`` 2e-3, as
-``test_torch_int8_kv.py``.  Greedy tokens must be exact.  Every engine is
+``test_torch_int8_kv.py``; with the bf16 cache (f32 weights) the hidden
+states compare at 1e-4 and the cache is equal but where a bf16 rounding
+lands the other way (one ulp, in few elements).  Greedy tokens must be exact.  Every engine is
 stopped on the way out, and every wait is bounded."""
 import time
 import types
@@ -30,6 +32,7 @@ from chatts_tpu_torch.processor.processor import ChatTSProcessor
 from chatts_tpu_torch.serve import scheduler
 from chatts_tpu_torch.serve.scheduler import Request, SamplingParams, ServeEngine
 from tests.helpers import FakeTokenizer
+from tests.test_torch_qwen import _randomize
 
 TOL = 1e-4
 DECODE_TOL = 2e-3
@@ -40,9 +43,10 @@ GREEDY = dict(temperature=0.0)
 # forward_mixed against the JAX function
 # ---------------------------------------------------------------------------
 
-def _llm_config(m=tconfig):
+def _llm_config(m=tconfig, qwen3=False):
     return m.tiny_config(vocab_size=512, hidden_size=128, intermediate_size=256,
-                         num_attention_heads=4, num_key_value_heads=2, head_dim=32).llm
+                         num_attention_heads=4, num_key_value_heads=2, head_dim=32,
+                         qwen3=qwen3).llm
 
 
 def _random_caches(lcfg, b, cap, int8: bool, rng):
@@ -62,22 +66,41 @@ def _random_caches(lcfg, b, cap, int8: bool, rng):
     return out
 
 
-@pytest.mark.parametrize("cache", ["f32", "int8"])
+def _assert_bf16_close(got, want) -> None:
+    """A bf16 cache written from f32 K/V that agree to f32 rounding: equal
+    but where one lands on the other side of a bf16 half step (one ulp, in
+    few elements)."""
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    diff = np.abs(got - want)
+    assert (diff <= 2.0 ** -7 * np.abs(want)).all() and (diff > 0).mean() < 1e-3
+
+
+@pytest.mark.parametrize("cache", ["f32", "int8", "bf16", "qwen3-f32", "qwen3-int8",
+                                   "qwen3-bf16"])
 def test_torch_forward_mixed_matches_jax(cache):
     """B 4 decode rows (row 2 inactive: it is the admission's slot), A 2
     admission rows of npt 8 (row 1 a pad), two steps at offsets 8 and 16
     with kv_limit 16 then 32: hidden states of the active decode rows and of
-    every admission row, and every cache buffer, after each step."""
-    lcfg, jlcfg = _llm_config(), _llm_config(jconfig)
-    params = jax.tree.map(np.asarray, jqwen.fuse_projections(
-        jqwen.init_params(jlcfg, jax.random.PRNGKey(4), dtype=jnp.float32)))
+    every admission row, and every cache buffer, after each step.  The
+    Qwen3 decoder's norm weights are drawn around 1, so that neither q_norm
+    nor k_norm is a no-op."""
+    qwen3 = cache.startswith("qwen3-")
+    cache = cache.removeprefix("qwen3-")
+    lcfg, jlcfg = _llm_config(qwen3=qwen3), _llm_config(jconfig, qwen3)
+    params = jax.tree.map(np.asarray, jqwen.init_params(jlcfg, jax.random.PRNGKey(4),
+                                                        dtype=jnp.float32))
+    if qwen3:
+        params = _randomize(params, np.random.default_rng(4))
+    params = jax.tree.map(np.asarray, jqwen.fuse_projections(params))
     model = qwen_from_jax(params, lcfg)
     rng = np.random.default_rng(6)
     b, a, npt, cap = 4, 2, 8, 32
-    int8 = cache == "int8"
+    int8, bf16 = cache == "int8", cache == "bf16"
     caches = _random_caches(lcfg, b, cap, int8, rng)
-    jcaches = [tuple(jnp.asarray(x) for x in layer) for layer in caches]
-    tcaches = [tuple(torch.from_numpy(x.copy()) for x in layer) for layer in caches]
+    jcaches = [tuple(jnp.asarray(x, jnp.bfloat16 if bf16 else x.dtype) for x in layer)
+               for layer in caches]
+    tcaches = [tuple(torch.from_numpy(x.copy()).to(torch.bfloat16 if bf16 else None)
+                     for x in layer) for layer in caches]
     active = np.asarray([True, True, False, True])
     cur = np.asarray([5, 20, 7, 11], np.int32)
     adm_slots = np.asarray([2, 0], np.int32)
@@ -110,6 +133,9 @@ def test_torch_forward_mixed_matches_jax(cache):
                                    rtol=tol, atol=tol)
         for tlayer, jlayer in zip(tcaches, jcaches):
             for got, want in zip(tlayer, jlayer):
+                if bf16:
+                    _assert_bf16_close(got, want)
+                    continue
                 got, want = got.numpy(), np.asarray(want)
                 if int8 and got.dtype == np.int8:
                     diff = np.abs(got.astype(np.int32) - want.astype(np.int32))

@@ -51,6 +51,9 @@ TINY = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_la
             num_attention_heads=8, num_key_value_heads=4, patch_size=4,
             max_sequence_length=64, ts_token_start_index=240)
 TINY_KV2 = dict(TINY, num_key_value_heads=2)
+# The Qwen3 decoder: qk_norm, no attention bias.
+TINY_QWEN3 = dict(TINY, qwen3=True)
+CONFIGS = {"TINY": TINY, "TINY_KV2": TINY_KV2, "TINY_QWEN3": TINY_QWEN3}
 BATCH2 = (["analyze <ts><ts/> now", "and <ts><ts/> too"],
           [np.arange(12.0), np.sin(np.arange(8.0))])
 BATCH4 = (["one <ts><ts/>", "two <ts><ts/>", "three <ts><ts/>", "four <ts><ts/>"],
@@ -60,6 +63,7 @@ GENERATE = {
     "tp4": ("TINY", "BATCH2", 6, 1, 4),
     "dp2_tp2": ("TINY", "BATCH4", 4, 2, 2),
     "kv2_tp4": ("TINY_KV2", "BATCH2", 6, 1, 4),
+    "qwen3_dp2_tp2": ("TINY_QWEN3", "BATCH4", 4, 2, 2),
 }
 # The GPTQ directories: widths that tile B3 (head_dim 128), 2 heads and 2 kv
 # heads, so tp = 2 shards the attention and tp = 4 replicates it.
@@ -71,7 +75,7 @@ INT4 = dict(r=5, in_dim=512, out_dim=512)
 
 
 def _config(name):
-    return tconfig.tiny_config(**{"TINY": TINY, "TINY_KV2": TINY_KV2}[name])
+    return tconfig.tiny_config(**CONFIGS[name])
 
 
 def _batch(proc, name):
@@ -90,9 +94,16 @@ def _jax_params(name, seed=0):
     from chatts_tpu.core import config as jconfig
     from chatts_tpu.models import chatts
 
-    kw = {"TINY": TINY, "TINY_KV2": TINY_KV2}[name]
-    return chatts.init_params(jconfig.tiny_config(**kw), jax.random.PRNGKey(seed),
-                              dtype=jnp.float32)
+    params = chatts.init_params(jconfig.tiny_config(**CONFIGS[name]), jax.random.PRNGKey(seed),
+                                dtype=jnp.float32)
+    if CONFIGS[name].get("qwen3"):
+        # Norm weights of ones would not show one skipped or misapplied.
+        rng = np.random.default_rng(seed)
+        for layer in params["llm"]["layers"]:
+            for norm in ("q_norm", "k_norm"):
+                attn = layer["self_attn"]
+                attn[norm] = jnp.asarray(rng.uniform(0.5, 1.5, attn[norm].shape), jnp.float32)
+    return params
 
 
 def write_gptq_dir(path, style, seed=0):
@@ -300,7 +311,7 @@ def world(tmp_path_factory):
     import jax
 
     root = tmp_path_factory.mktemp("tp_world")
-    trees = {name: jax.tree.map(np.asarray, _jax_params(name)) for name in ("TINY", "TINY_KV2")}
+    trees = {name: jax.tree.map(np.asarray, _jax_params(name)) for name in CONFIGS}
     dirs = {}
     for style in LOAD_STYLES:
         dirs[style] = str(root / style)
@@ -338,7 +349,7 @@ def _jax_generate(cfg_name, batch_name, n_new):
     from chatts_tpu.processor import processor as jprocessor
     from chatts_tpu.runtime.engine import InferenceEngine as JaxEngine
 
-    jcfg = jconfig.tiny_config(**{"TINY": TINY, "TINY_KV2": TINY_KV2}[cfg_name])
+    jcfg = jconfig.tiny_config(**CONFIGS[cfg_name])
     jproc = jprocessor.ChatTSProcessor(FakeTokenizer(vocab_limit=200), jcfg)
     texts, series = {"BATCH2": BATCH2, "BATCH4": BATCH4}[batch_name]
     engine = JaxEngine(_jax_params(cfg_name), jcfg, cache_dtype=jnp.float32, attn_impl="xla",

@@ -2,12 +2,12 @@
 tiny f32 ChatTS on the CPU.
 
 Greedy tokens must match the JAX batch engine exactly (f32 weights, XLA
-attention, per-step scatter decode), with the f32 cache and with the int8
-cache; the int8 decode attention differs from the JAX path's dequantize-first
-form only by f32 rounding.  Requests served together must get the tokens
-each gets alone, through the monolithic, fused block and early-emit block
-admissions.  Every engine is stopped on the way out, and every wait is
-bounded."""
+attention, per-step scatter decode), with the f32, the int8 and the bf16
+cache, for the Qwen2 and the Qwen3 decoder; the int8 decode attention
+differs from the JAX path's dequantize-first form only by f32 rounding.
+Requests served together must get the tokens each gets alone, through the
+monolithic, fused block and early-emit block admissions.  Every engine is
+stopped on the way out, and every wait is bounded."""
 import json
 import queue
 import time
@@ -38,6 +38,7 @@ from chatts_tpu_torch.serve.scheduler import (
 )
 from chatts_tpu_torch.serve.server import ChatTSServer
 from tests.helpers import FakeTokenizer
+from tests.test_torch_qwen import _randomize
 
 GREEDY = dict(temperature=0.0)
 
@@ -89,14 +90,43 @@ PROMPTS = [
 ]
 
 
-@pytest.mark.parametrize("cache", ["f32", "int8"])
-def test_torch_serve_greedy_matches_jax_engine(setup, cache):
+CACHES = {"f32": (jnp.float32, torch.float32), "int8": (jnp.int8, torch.int8),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.fixture(scope="module")
+def qwen3_setup():
+    """The Qwen3 decoder (qk_norm, no attention bias) at the tiny config, its
+    norm weights and biases drawn around 1 and 0 so that none is a no-op."""
+    tiny = dict(TINY, qwen3=True)
+    cfg = tconfig.tiny_config(**tiny)
+    params = chatts.init_params(jconfig.tiny_config(**tiny), jax.random.PRNGKey(3),
+                                dtype=jnp.float32)
+    params = _randomize(jax.tree.map(np.asarray, params), np.random.default_rng(3))
+    proc = ChatTSProcessor(FakeTokenizer(vocab_limit=200), cfg)
+    model = from_jax_params(params, cfg)
+    assert model.llm.layers[0].self_attn.q_norm is not None
+    return cfg, params, proc, model
+
+
+@pytest.mark.parametrize("cache", ["f32", "int8", "bf16", "qwen3-f32", "qwen3-int8",
+                                   "qwen3-bf16"])
+def test_torch_serve_greedy_matches_jax_engine(request, monkeypatch, cache):
+    """Greedy tokens equal to the JAX batch engine's, f32 weights.  With the
+    bf16 cache JAX's decode takes its Pallas bf16 kernel in interpret mode
+    (``attn_impl="ragged"``): XLA:CPU's jitted dense decode refuses a bf16 x
+    bf16 -> f32 dot.  Both engines round the same f32 K/V to bf16 and read
+    it in f32, so the tokens must be equal here too."""
+    qwen3 = cache.startswith("qwen3-")
+    setup = request.getfixturevalue("qwen3_setup" if qwen3 else "setup")
     _, params, _, _ = setup
-    jdtype, tdtype = {"f32": (jnp.float32, torch.float32),
-                      "int8": (jnp.int8, torch.int8)}[cache]
-    jcfg = jconfig.tiny_config(**TINY)
+    jdtype, tdtype = CACHES[cache.removeprefix("qwen3-")]
+    if jdtype == jnp.bfloat16:
+        monkeypatch.setenv("CHATTS_RAGGED_INTERPRET", "1")
+    jcfg = jconfig.tiny_config(**TINY, qwen3=qwen3)
     jproc = jprocessor.ChatTSProcessor(FakeTokenizer(vocab_limit=200), jcfg)
-    jax_engine = JaxEngine(params, jcfg, cache_dtype=jdtype, attn_impl="xla",
+    jax_engine = JaxEngine(params, jcfg, cache_dtype=jdtype,
+                           attn_impl="ragged" if jdtype == jnp.bfloat16 else "xla",
                            decode_recent_kv=False, decode_chunk=4)
     want = [jax_engine.generate(jproc([p], ts),
                                 jconfig.GenerationConfig(max_new_tokens=7, greedy=True))

@@ -1,8 +1,11 @@
 """The engines' rounds replayed from CUDA graphs on the card, held to the same
 rounds run eagerly (the CPU's path), greedy and sampled: the batch engine's
 decode chunk across calls that share a graph's key and one that does not, a
-scan-sliced mixed admission, and a fused block round.  Each eager form
-stands in for the graph class, as ``test_torch_serve_gpu.py`` does.
+scan-sliced mixed admission, and a fused block round; and both serving
+rounds over the bf16 cache at seven query heads a kv head (G = 7, the 8B
+shape's grouping), where the decode graph and the mixed step's decode side
+take B2.  Each eager form stands in for the graph class, as
+``test_torch_serve_gpu.py`` does.
 
 Marked ``gpu``; the tests skip where there is no CUDA card.  This file
 imports no JAX, so on a machine without it run it without the repository's
@@ -18,6 +21,7 @@ import torch
 
 from chatts_tpu_torch.core.config import GenerationConfig, tiny_config
 from chatts_tpu_torch.models.quantize import init_quantized_params
+from chatts_tpu_torch.ops import ragged_decode_attention as rda
 from chatts_tpu_torch.processor.processor import ChatTSProcessor
 from chatts_tpu_torch.runtime import engine as engine_module
 from chatts_tpu_torch.runtime.engine import InferenceEngine
@@ -187,4 +191,59 @@ def test_torch_block_round_graph_matches_eager(tiny_int4, monkeypatch, temperatu
     assert stats["graph"]["graph_rounds"]["block"] == 1
     assert [c["kind"] for c in stats["graph"]["graph_captures"]] == ["decode"]
     assert [len(t) for t in tokens["graph"]] == [20, 10]
+    assert tokens["graph"] == tokens["eager"]
+
+
+@pytest.fixture
+def tiny_g7():
+    """G = 7: 7 query heads over 1 kv head, head_dim 128 (hidden 896)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = tiny_config(vocab_size=512, hidden_size=896, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=7, num_key_value_heads=1,
+                      head_dim=128, patch_size=4, max_sequence_length=64,
+                      ts_token_start_index=500)
+    model = init_quantized_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    return cfg, model, ChatTSProcessor(WordTokenizer(), cfg)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("mode", ["block", "mixed"])
+def test_torch_bf16_serving_graphs_match_eager(tiny_g7, monkeypatch, mode, temperature):
+    """The bf16 cache at G = 7: a runner, then a late request admitted next
+    to it by a fused block round (its chunk replays the decode graph) or by
+    scan-sliced rounds (npt 16: the mixed graphs, whose decode side reads the
+    bf16 cache through B2 and whose prompt side copies its bf16 prefix); the
+    tokens of both requests equal those of the same schedule with every
+    round eager, and B2, never B4, served the decode steps."""
+    cfg, model, proc = tiny_g7
+
+    def request(prompt, n):
+        return Request(prompt, [np.sin(np.arange(40.0))],
+                       SamplingParams(max_tokens=n, temperature=temperature))
+
+    monkeypatch.setattr(scheduler, "MIXED_NPT", 16)
+    tokens, stats = {}, {}
+    for form in ("graph", "eager"):
+        if form == "eager":
+            monkeypatch.setattr(scheduler, "_DecodeStepGraph", EagerRounds)
+            monkeypatch.setattr(scheduler, "_MixedStepGraph", EagerRounds)
+        eng = ServeEngine(model, cfg, proc, max_batch_size=3, max_model_len=1024,
+                          cache_dtype=torch.bfloat16, decode_chunk=4, seed=3)
+        if mode == "mixed":
+            eng.block_token_budget = 0
+        runner = request("runner <ts><ts/> keeps decoding the series", 30)
+        late = request(("late " * 560 if mode == "mixed" else "late ")
+                       + "<ts><ts/> joins while it decodes", 10)
+        before = (rda.ragged_decode_attention.launches,
+                  rda.ragged_decode_attention_int8.launches)
+        _drive(eng, runner, late, mode)
+        assert runner.error is None and late.error is None
+        assert rda.ragged_decode_attention.launches > before[0]
+        assert rda.ragged_decode_attention_int8.launches == before[1]
+        stats[form] = eng.stats()
+        tokens[form] = (runner.output_tokens, late.output_tokens)
+    rounds = stats["graph"]["graph_rounds"]
+    assert rounds["decode"] >= 1 and rounds.get(mode, 0) >= 1, rounds
+    assert [len(t) for t in tokens["graph"]] == [30, 10]
     assert tokens["graph"] == tokens["eager"]

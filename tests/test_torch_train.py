@@ -115,10 +115,11 @@ def jax_batch(jx, batch):
     return {k: jx.jnp.asarray(v) for k, v in batch.items()}
 
 
-def jax_lora(jx, rank=4, seed=1, b_scale=0.05):
+def jax_lora(jx, rank=4, seed=1, b_scale=0.05, params=None):
     """JAX adapters with a nonzero b, so every adapter gets a gradient."""
     jlcfg = jx.lora.LoRAConfig(rank=rank)
-    tree = jx.lora.init_lora(jx.params, jlcfg, jx.jax.random.PRNGKey(seed))
+    tree = jx.lora.init_lora(jx.params if params is None else params, jlcfg,
+                             jx.jax.random.PRNGKey(seed))
     key = jx.jax.random.PRNGKey(seed + 1)
     for layer in tree["layers"]:
         for ab in layer.values():
@@ -192,15 +193,38 @@ def test_torch_cross_entropy_matches_jax(jx, empty_mask):
 # Gradients against jax.value_and_grad
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("remat", [False, True])
-def test_torch_lora_loss_and_grads_match_jax(jx, port, remat):
+def qwen3_family(jx):
+    """The Qwen3 decoder (qk_norm, no attention bias) at TINY: the JAX config
+    and f32 params, with q_norm and k_norm drawn in [0.5, 1.5] so that
+    neither is a no-op, and the port's config and processor."""
+    from chatts_tpu.core.config import tiny_config as jtiny
+    from chatts_tpu.models import chatts as jchatts
+
+    cfg = jtiny(**TINY, qwen3=True)
+    params = jchatts.init_params(cfg, jx.jax.random.PRNGKey(0), dtype=jx.jnp.float32)
+    rng = np.random.default_rng(0)
+    for layer in params["llm"]["layers"]:
+        for norm in ("q_norm", "k_norm"):
+            layer["self_attn"][norm] = jx.jnp.asarray(
+                rng.uniform(0.5, 1.5, layer["self_attn"][norm].shape), jx.jnp.float32)
+    pcfg = tiny_config(**TINY, qwen3=True)
+    return cfg, params, types.SimpleNamespace(cfg=pcfg, proc=ChatTSProcessor(Words(), pcfg))
+
+
+@pytest.mark.parametrize("remat,qwen3", [(False, False), (True, False), (True, True)],
+                         ids=["False", "True", "qwen3-True"])
+def test_torch_lora_loss_and_grads_match_jax(jx, port, remat, qwen3):
+    jcfg, jparams = jx.cfg, jx.params
+    if qwen3:
+        jcfg, jparams, port = qwen3_family(jx)
     batch = data.build_sft_batch(port.proc, make_rows(4))
-    jlcfg, jtree = jax_lora(jx)
+    jlcfg, jtree = jax_lora(jx, params=jparams)
     grad_fn = jx.jax.jit(jx.jax.value_and_grad(jx.sft.lora_loss_fn, has_aux=True),
                          static_argnums=(2, 3, 5))
-    (want, _), jgrads = grad_fn(jtree, jx.params, jx.cfg, jlcfg, jax_batch(jx, batch), remat)
+    (want, _), jgrads = grad_fn(jtree, jparams, jcfg, jlcfg, jax_batch(jx, batch), remat)
 
-    model = port_model(jx, port)
+    model = from_jax_params(jx.jax.tree.map(np.asarray, jparams), port.cfg, device="cpu")
+    assert (model.llm.layers[0].self_attn.q_norm is not None) == qwen3
     adapters = lora.lora_from_jax(jx.jax.tree.map(np.asarray, jtree), device="cpu")
     loss, metrics = sft_driver.lora_loss_fn(adapters, model, lora.LoRAConfig(rank=4),
                                             data.to_device(batch, "cpu"), remat)
@@ -211,7 +235,8 @@ def test_torch_lora_loss_and_grads_match_jax(jx, port, remat):
         for module, ab in tl.items():
             for k in ("a", "b"):
                 assert_grad_close(ab[k].grad, jl[module][k], f"layer {i} {module}.{k}")
-    # The base stays frozen; after the call the adapters are detached.
+    # The base, Qwen3's q_norm and k_norm too, stays frozen; after the call
+    # the adapters are detached.
     assert all(p.grad is None for p in model.parameters())
     assert all(m.lora is None for m in model.modules() if isinstance(m, qwen.Dense))
 
