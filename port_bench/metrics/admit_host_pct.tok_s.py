@@ -1,0 +1,6 @@
+"""admit_host_pct.tok_s: see BENCHMARK.json for its unit, layer and the metric it moves."""
+from port_bench import readers
+
+
+def read(run):
+    return readers.admit_host_pct(run)

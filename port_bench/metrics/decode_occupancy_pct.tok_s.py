@@ -1,0 +1,6 @@
+"""decode_occupancy_pct.tok_s: see BENCHMARK.json for its unit, layer and the metric it moves."""
+from port_bench import readers
+
+
+def read(run):
+    return readers.decode_occupancy_pct(run)

@@ -1,0 +1,6 @@
+"""flash_attention.roofline_pct.tpot: see BENCHMARK.json for its unit, layer and the metric it moves."""
+from port_bench import readers
+
+
+def read(run):
+    return readers.roofline_pct(run, "flash")
