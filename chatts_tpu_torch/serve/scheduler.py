@@ -93,6 +93,28 @@ dp would be a feature JAX's engine lacks.  The rounds' CUDA graphs are
 captured only under NCCL (unverified); gloo collectives cannot be
 captured, so under gloo every round runs eagerly, by the constructor's
 choice, which ``stats()`` reports with its reason.
+
+The span record: every round, and every monolithic admission, logs one
+entry in ``round_log`` (``_log_round``), with the host seconds of each loop
+phase it ran under the fields of ``utils/profiling.py::SPANS``: the round's
+``dispatch_s``, ``wait_s`` and ``apply_s`` nest within its ``round_s``, and
+the admission staged after it (``grace_s``, ``select_s``, ``process_s``,
+``embed_s``, ``stage_s``) within its ``admit_s``; each field is a phase's
+self time, so the fields add up.  What the loop does while no round is in
+flight (``idle_s``, and an admission made then) adds up into the next
+round's entry, within its ``gap_s``; a monolithic admission's own entry
+holds the phases of its prefill (dispatch, the first tokens' fetch, apply),
+and the admission that made it holds the rest.  On the card world rank
+0 also stamps each entry from CUDA events read on the same host clock:
+``dev_start`` and ``dev_end``, when the device began and ended the round,
+``pre_dev_s``, the device seconds of the work launched since the previous
+round (staging, the first tokens of a scan-sliced admission), and
+``embed_dev_s``, those of the embeddings (``_embed``) launched since then.
+Every field is final when the entry is logged: an event is read only after
+the fetch that follows it, so an embedding launched after round n's fetch
+is reported in round n + 1's entry.  Off the card and on follower ranks the
+device fields are None.  While ``torch.profiler`` records on the loop's
+thread, every span is also a range under its name.
 """
 from __future__ import annotations
 
@@ -113,7 +135,8 @@ import torch.nn.functional as F
 from chatts_tpu_torch.core import encoding
 from chatts_tpu_torch.core.config import ChatTSConfig
 from chatts_tpu_torch.processor.processor import ChatTSProcessor
-from chatts_tpu_torch.utils.profiling import MetricsAggregator
+from chatts_tpu_torch.utils.profiling import (SPANS, DeviceClock, MetricsAggregator,
+                                              SpanTimer, device_gap_s)
 from chatts_tpu_torch.models.chatts import ChatTSModel, maybe_fuse
 from chatts_tpu_torch.models.convert import from_jax_params
 from chatts_tpu_torch.parallel.mesh import broadcast_from_driver
@@ -160,6 +183,12 @@ class Request:
     # fails to encode (such a request admits alone, so the per-request error
     # isolation catches it without failing a wave).
     token_class: Optional[int] = None
+    # When submit() queued it and when an admission took it off the queue
+    # (time.perf_counter), and that admission's route: "mono", "block" or
+    # "mixed".
+    submitted_s: Optional[float] = None
+    admitted_s: Optional[float] = None
+    route: Optional[str] = None
 
     def cancel(self) -> None:
         """Request cancellation (client disconnect); honoured at the next
@@ -684,17 +713,32 @@ class ServeEngine:
         # Block and scan-sliced admission rounds run, as the reference counts.
         self.mixed_rounds_run = 0
         self.metrics = MetricsAggregator()
-        # Round anatomy ring buffer: one dict per engine-loop round,
-        # {kind, admit_s, round_s, live, a, rows, emitted, gap_s}.  gap_s is
-        # host time since the previous round ended (loop starvation).
+        # The span record, a ring buffer: one dict per engine-loop round,
+        # {kind, admit_s, round_s, live, a, rows, emitted, gap_s}, the span
+        # fields and the device stamps (module docstring).  gap_s is host
+        # time since the previous round ended (loop starvation).
         self.round_log: "collections.deque" = collections.deque(maxlen=4096)
         # stats() snapshots the deques from caller threads while the loop
         # appends.
         self._round_log_lock = threading.Lock()
-        # Slow-event log: any loop phase that blocks >= slow_event_s.
-        self.events: "collections.deque" = collections.deque(maxlen=512)
+        # stats()["slow_events"] counts the spans this long or longer.
         self.slow_event_s = 1.0
         self._last_round_end = time.perf_counter()
+        self._span = SpanTimer()
+        # Span seconds of the round in flight, and of the admission and idle
+        # phases that go into the next round's entry.
+        self._round_spans: Dict[str, float] = {}
+        self._carry: Dict[str, float] = {}
+        # On the card the loop's DeviceClock; the (start, end) marks of the
+        # work launched between rounds and of the embeddings, since the last
+        # round's launch; that round's (start, end, those two lists).
+        self._clock: Optional[DeviceClock] = None
+        self._dev_pending: tuple = ([], [])
+        self._dev_round: Optional[tuple] = None
+        # Each admitted request's wait in the queue (seconds), and the
+        # admitted requests by route.
+        self._queue_waits: "collections.deque" = collections.deque(maxlen=4096)
+        self._routes: Dict[str, int] = collections.Counter()
 
     # -- public API --------------------------------------------------------
 
@@ -829,6 +873,7 @@ class ServeEngine:
             raise RuntimeError("a follower rank takes no requests: submit to world rank 0 "
                                "(tp rank 0 of dp group 0)")
         self.total_requests += 1
+        request.submitted_s = time.perf_counter()
         if self.loop_error is not None:
             self._fail(request, f"the engine loop ended: {self.loop_error}")
             return request
@@ -872,11 +917,27 @@ class ServeEngine:
 
     def _run(self, op: str, *args):
         """Run the device op ``_op_<op>(*args)``; under a mesh the driver
-        broadcasts it as a plan first, so every rank runs it."""
+        broadcasts it as a plan first, so every rank runs it.  On the card
+        world rank 0 marks the op's start and end: a round's or a monolithic
+        admission's for its entry, which also takes the marks of the work
+        launched since the last one; any other op's as such work."""
         if self.mesh is not None:
             broadcast_from_driver(self.mesh, (op, args), world=True)
             self._last_plan_s = time.perf_counter()
-        return getattr(self, "_op_" + op)(*args)
+        fn = getattr(self, "_op_" + op)
+        clock = self._clock
+        if clock is None or op == "idle":
+            return fn(*args)
+        start = clock.mark()
+        if op in ("round", "mono"):
+            pre, embed = self._dev_pending
+            self._dev_pending = ([], [])
+            out = fn(*args)
+            self._dev_round = (start, clock.mark(), pre, embed)
+            return out
+        out = fn(*args)
+        self._dev_pending[0].append((start, clock.mark()))
+        return out
 
     def _stop_followers(self) -> None:
         if not self._followers_stopped:
@@ -908,19 +969,30 @@ class ServeEngine:
 
     # -- engine loop -------------------------------------------------------
 
-    def _event(self, label: str, seconds: float, **info) -> None:
-        """Record a slow loop phase (admission, round, post-round admit)."""
-        if seconds >= self.slow_event_s:
-            with self._round_log_lock:
-                self.events.append((time.time(), label, round(seconds, 3), info))
-
-    def event_snapshot(self) -> list:
-        with self._round_log_lock:
-            return list(self.events)
-
     def _log_round(self, **entry) -> None:
         with self._round_log_lock:
             self.round_log.append(entry)
+
+    def _device_fields(self) -> Dict[str, Optional[float]]:
+        """The device stamps of the round or monolithic admission last
+        launched, read after its fetch (every mark is then complete); None
+        off the card."""
+        marks, self._dev_round = self._dev_round, None
+        if marks is None:
+            return dict(dev_start=None, dev_end=None, pre_dev_s=None, embed_dev_s=None)
+        start, end, pre, embed = marks
+        seconds = DeviceClock.seconds
+        out = dict(dev_start=DeviceClock.host_s(start), dev_end=DeviceClock.host_s(end),
+                   pre_dev_s=sum(seconds(a, b) for a, b in pre),
+                   embed_dev_s=sum(seconds(a, b) for a, b in embed))
+        self._clock.release([start, end, *(m for pair in pre + embed for m in pair)])
+        return out
+
+    def _anchor(self) -> None:
+        """Let the device clock re-take its anchor; where the stream is
+        empty."""
+        if self._clock is not None:
+            self._clock.anchor()
 
     def _free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
@@ -970,6 +1042,9 @@ class ServeEngine:
         else:
             chosen = live[:n_free]
         self.waiting.remove(chosen)
+        now = time.perf_counter()
+        for req in chosen:
+            req.admitted_s = now
         return chosen
 
     def _fail(self, req: Request, message: str) -> None:
@@ -986,13 +1061,15 @@ class ServeEngine:
         free = self._free_slots()
         if not free:
             return
-        candidates = self._select_candidates(len(free))
+        with self._span(self._carry, "select_s"):
+            candidates = self._select_candidates(len(free))
         if not candidates:
             return
 
         def process(reqs):
-            return self.processor([r.prompt for r in reqs],
-                                  [ts for r in reqs for ts in r.timeseries])
+            with self._span(self._carry, "process_s"):
+                return self.processor([r.prompt for r in reqs],
+                                      [ts for r in reqs for ts in r.timeseries])
 
         try:
             batch = process(candidates)
@@ -1000,7 +1077,7 @@ class ServeEngine:
             kept: List[Request] = []
             for req in candidates:
                 try:
-                    self.processor([req.prompt], req.timeseries)
+                    process([req])
                     kept.append(req)
                 except Exception as err:
                     self._fail(req, f"{type(err).__name__}: {err}")
@@ -1047,7 +1124,8 @@ class ServeEngine:
                 # monolithic (round kind "mono").
                 mode = "mixed"
         try:
-            self._prefill_requests(admitted, free[: len(admitted)], batch, keep_rows, mode)
+            with self._span(self._carry, "stage_s"):
+                self._prefill_requests(admitted, free[: len(admitted)], batch, keep_rows, mode)
         except Exception as err:
             for req in admitted:
                 self._fail(req, f"{type(err).__name__}: {err}")
@@ -1059,14 +1137,21 @@ class ServeEngine:
         """Admit the rows as ``_admit`` routed them: ``"mono"`` prefills
         them now; ``"block"`` and ``"mixed"`` stage a block or a scan-sliced
         admission for the next rounds."""
+        with self._round_log_lock:
+            for req in reqs:
+                req.route = mode
+                self._routes[mode] += 1
+                if req.submitted_s is not None and req.admitted_s is not None:
+                    self._queue_waits.append(req.admitted_s - req.submitted_s)
         if mode == "block":
             self._start_block_admission(reqs, slots, keep_rows, batch)
             return
         if mode == "mixed":
             self._start_mixed_admission(reqs, slots, keep_rows, batch)
             return
-        kb, t = batch.input_ids.shape
+        kb = batch.input_ids.shape[0]
         mono_t0 = time.perf_counter()
+        spans: Dict[str, float] = {}
         # Every processed row computes (rejected over-long rows included);
         # only the admitted rows land in a slot.
         temp = np.zeros((kb,), np.float32)
@@ -1076,14 +1161,19 @@ class ServeEngine:
             temp[row] = req.params.temperature
             topp[row] = req.params.top_p
             budget[row] = req.params.max_tokens
-        first = self._run("mono", batch, keep_rows, slots, temp, topp, budget)
-        self._finalize_admission(reqs, slots, keep_rows, first.cpu().numpy())
+        with self._span(spans, "dispatch_s"):
+            first = self._run("mono", batch, keep_rows, slots, temp, topp, budget)
+        with self._span(spans, "wait_s"):
+            first = first.cpu().numpy()
+        self._anchor()
+        device = self._device_fields()
+        with self._span(spans, "apply_s"):
+            self._finalize_admission(reqs, slots, keep_rows, first)
         # Monolithic admissions run outside the round loop and block on the
         # first-token fetch; they are logged as their own round kind.
-        mono_s = time.perf_counter() - mono_t0
-        self._log_round(kind="mono", admit_s=0.0, round_s=mono_s, live=0, a=len(reqs),
-                        rows=kb, emitted=len(reqs), gap_s=0.0)
-        self._event("mono_admission", mono_s, rows=kb, t=t)
+        self._log_round(kind="mono", admit_s=0.0, round_s=time.perf_counter() - mono_t0,
+                        live=0, a=len(reqs), rows=kb, emitted=len(reqs), gap_s=0.0,
+                        **{f: spans.get(f, 0.0) for f in SPANS}, **device)
 
     def _op_mono(self, batch, keep_rows, slots, temp, topp, budget) -> torch.Tensor:
         """A monolithic admission's prefill: the first tokens (A,)."""
@@ -1096,14 +1186,20 @@ class ServeEngine:
             self._tensor(budget, torch.int32), self.generator, self.prefill_act_int8)
 
     def _embed(self, batch) -> torch.Tensor:
-        """Merged prompt embeddings (A, T, H) of a processed batch."""
-        return self.model.input_embeddings(
-            self._tensor(batch.input_ids, torch.int64),
-            self._tensor(batch.ts_values, torch.float32),
-            self._tensor(batch.ts_mask, torch.float32),
-            self._tensor(batch.scatter_seq, torch.int64),
-            self._tensor(batch.scatter_tok, torch.int64),
-        )
+        """Merged prompt embeddings (A, T, H) of a processed batch: the TS
+        encoder and the merge, marked on the card."""
+        with self._span(self._carry, "embed_s"):
+            start = self._clock.mark() if self._clock is not None else None
+            out = self.model.input_embeddings(
+                self._tensor(batch.input_ids, torch.int64),
+                self._tensor(batch.ts_values, torch.float32),
+                self._tensor(batch.ts_mask, torch.float32),
+                self._tensor(batch.scatter_seq, torch.int64),
+                self._tensor(batch.scatter_tok, torch.int64),
+            )
+            if start is not None:
+                self._dev_pending[1].append((start, self._clock.mark()))
+        return out
 
     def _finalize_admission(self, reqs, slots, keep_rows, first_host,
                             device_synced: bool = True) -> None:
@@ -1326,29 +1422,32 @@ class ServeEngine:
         """Fetch the dispatched round's result (the one host sync of the
         round) and apply it."""
         kind, packed, finalize = handle[0], handle[1], handle[2]
-        arr = packed.cpu().numpy()
-        if kind == "block_pre":
-            # The fetched array is the (A,) first tokens; the admitted rows
-            # decode in the next round.
-            self._finalize_admission(finalize["reqs"], finalize["slots"],
-                                     finalize["keep_rows"], arr)
-            return
-        if kind == "block":
-            # (B, chunk + 2): emitted | live | first tokens.  Finalize first:
-            # the round already decoded the admitted rows, so their slots
-            # must be live before their chunk tokens are appended.
-            self._finalize_admission(finalize["reqs"], finalize["slots"],
-                                     finalize["keep_rows"], arr[:, -1])
-            self._process_emitted(arr[:, :-2], arr[:, -2].astype(bool))
-            return
-        self._process_emitted(arr[:, :-1], arr[:, -1].astype(bool))
-        if finalize is not None:
-            # The scan-sliced admission's last round: sample the first tokens
-            # from the captured hidden states, then the rows go live.
-            first = self._run("mixed_first")
-            self._finalize_admission(finalize["reqs"], finalize["slots"],
-                                     finalize["keep_rows"], first.cpu().numpy(),
-                                     device_synced=False)
+        with self._span(self._round_spans, "wait_s"):
+            arr = packed.cpu().numpy()
+        self._anchor()
+        with self._span(self._round_spans, "apply_s"):
+            if kind == "block_pre":
+                # The fetched array is the (A,) first tokens; the admitted rows
+                # decode in the next round.
+                self._finalize_admission(finalize["reqs"], finalize["slots"],
+                                         finalize["keep_rows"], arr)
+                return
+            if kind == "block":
+                # (B, chunk + 2): emitted | live | first tokens.  Finalize first:
+                # the round already decoded the admitted rows, so their slots
+                # must be live before their chunk tokens are appended.
+                self._finalize_admission(finalize["reqs"], finalize["slots"],
+                                         finalize["keep_rows"], arr[:, -1])
+                self._process_emitted(arr[:, :-2], arr[:, -2].astype(bool))
+                return
+            self._process_emitted(arr[:, :-1], arr[:, -1].astype(bool))
+            if finalize is not None:
+                # The scan-sliced admission's last round: sample the first tokens
+                # from the captured hidden states, then the rows go live.
+                first = self._run("mixed_first")
+                self._finalize_admission(finalize["reqs"], finalize["slots"],
+                                         finalize["keep_rows"], first.cpu().numpy(),
+                                         device_synced=False)
 
     def _op_mixed_first(self) -> torch.Tensor:
         """The first tokens (A,) of the scan-sliced admission whose last
@@ -1387,7 +1486,6 @@ class ServeEngine:
         with self._round_log_lock:
             self.graph_captures.append(dict(kind=kind, key=list(key), seconds=seconds,
                                             pool_bytes=getattr(graph, "pool_bytes", None)))
-        self._event(f"{kind}_graph_capture", seconds, key=key)
 
     def _decode_round(self, kind: str) -> torch.Tensor:
         """A decode chunk of every live slot over the decode state, the
@@ -1419,7 +1517,8 @@ class ServeEngine:
                 self._finish(slot, "cancelled")
         if self._pending_mixed is None and not self.live_host.any():
             return None
-        return self._run("round", self.live_host.copy())
+        with self._span(self._round_spans, "dispatch_s"):
+            return self._run("round", self.live_host.copy())
 
     def _op_round(self, live: np.ndarray):
         """The round the staged admission and the ``live`` slots call for."""
@@ -1464,51 +1563,60 @@ class ServeEngine:
         followers to stop."""
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+            # The stream is empty: the device clock's first anchor.
+            torch.cuda.synchronize(self.device)
+            self._clock = DeviceClock()
         with torch.inference_mode():
             while not self._stop.is_set():
                 try:
                     t0 = time.perf_counter()
                     n_live = int(self.live_host.sum())
                     tok0 = self.streamed_tokens
+                    self._round_spans = {}
                     handle = self._dispatch_round()
                     if handle is None:
                         if not self.waiting.empty():
                             # Idle device: monolithic admission runs here.
-                            a0 = time.perf_counter()
                             self._admit()
-                            self._event("idle_admit", time.perf_counter() - a0)
                         elif self._pending_mixed is None and not self.live_host.any():
-                            self._wake.wait(timeout=0.05)
+                            with self._span(self._carry, "idle_s"):
+                                self._wake.wait(timeout=0.05)
                             self._wake.clear()
+                            self._anchor()  # nothing runs on an idle engine's stream
                             if (self.mesh is not None
                                     and time.perf_counter() - self._last_plan_s > HEARTBEAT_S):
                                 self._run("idle")
                         continue
                     fin0 = self._finished_total
                     self._complete_round(handle)
+                    device = self._device_fields()
                     t_done = time.perf_counter()
-                    self._event(f"round_{handle[0]}", t_done - t0)
                     if self._pending_mixed is None:
                         if self._finished_total > fin0:
-                            want = min(self._finished_total - fin0, self._a_bucket)
-                            grace = time.perf_counter() + self.admit_grace_s
-                            while (self.waiting.qsize() < want
-                                   and time.perf_counter() < grace):
-                                time.sleep(0.0005)
+                            with self._span(self._carry, "grace_s"):
+                                want = min(self._finished_total - fin0, self._a_bucket)
+                                grace = time.perf_counter() + self.admit_grace_s
+                                while (self.waiting.qsize() < want
+                                       and time.perf_counter() < grace):
+                                    time.sleep(0.0005)
                         if not self.waiting.empty():
                             self._admit()
                     # Fused block rounds decode their admitted rows in the
                     # same round, so those count as live.
                     rows_live = n_live + (handle[3] if handle[0] == "block" else 0)
                     t_end = time.perf_counter()
-                    self._event("post_round_admit", t_end - t_done, kind=handle[0])
+                    spans = {f: self._round_spans.get(f, 0.0) + self._carry.get(f, 0.0)
+                             for f in SPANS}
+                    self._carry = {}
                     self._log_round(kind=handle[0], admit_s=t_end - t_done,
                                     round_s=t_done - t0, live=rows_live, a=handle[3],
                                     rows=handle[4], emitted=self.streamed_tokens - tok0,
-                                    gap_s=t0 - self._last_round_end)
+                                    gap_s=t0 - self._last_round_end, **spans, **device)
                     self._last_round_end = t_end
                 except Exception as err:  # the engine survives a bad step
                     traceback.print_exc()
+                    self._carry = {}
+                    self._dev_pending, self._dev_round = ([], []), None
                     self._pending_mixed = None
                     for slot, req in enumerate(self.slots):
                         if req is not None:
@@ -1534,6 +1642,14 @@ class ServeEngine:
             return list(self.round_log)
 
     def stats(self) -> Dict[str, Any]:
+        """The engine's state and its span record for an operator
+        (``/metrics``): per round kind the rounds, their mean host
+        milliseconds, tokens and, on the card, device seconds; the host
+        seconds of each span name (``span_s``); the device seconds between
+        rounds that no device work covers (``device_gap_s``, None off the
+        card); the queue wait's p50 and p99; the admitted requests by route;
+        the spans of ``slow_event_s`` or more (``slow_events``); and the
+        request metrics."""
         out: Dict[str, Any] = {
             "active_slots": int(self.live_host.sum()),
             "max_batch_size": self.max_batch_size,
@@ -1548,18 +1664,35 @@ class ServeEngine:
             out["graph_rounds"] = dict(self.graph_rounds)
             out["eager_rounds"] = dict(self.eager_rounds)
             out["graph_captures"] = [dict(c) for c in self.graph_captures]
-        agg: Dict[str, list] = collections.defaultdict(lambda: [0, 0.0, 0, 0.0])
-        for r in self.round_snapshot():
+            waits = sorted(self._queue_waits)
+            out["admissions"] = dict(self._routes)
+        rounds = self.round_snapshot()
+        agg: Dict[str, list] = collections.defaultdict(lambda: [0, 0.0, 0, 0.0, None])
+        spans = dict.fromkeys(SPANS.values(), 0.0)
+        slow = 0
+        for r in rounds:
             g = agg[r["kind"]]
             g[0] += 1
             g[1] += r["round_s"]
             g[2] += r["emitted"]
             g[3] += r["gap_s"]
-        for kind, (n, rnd, emitted, _) in agg.items():
+            if r["dev_start"] is not None:
+                g[4] = (g[4] or 0.0) + r["dev_end"] - r["dev_start"]
+            for field, name in SPANS.items():
+                spans[name] += r[field]
+                slow += r[field] >= self.slow_event_s
+        for kind, (n, rnd, emitted, _, device) in agg.items():
             out[f"rounds_{kind}"] = n
             out[f"round_{kind}_mean_ms"] = round(rnd / n * 1e3, 1)
             out[f"round_{kind}_tokens"] = emitted
+            if device is not None:
+                out[f"round_{kind}_device_s"] = device
         out["round_gap_total_s"] = round(sum(g[3] for g in agg.values()), 2)
-        out["slow_events"] = len(self.events)
+        out["span_s"] = spans
+        out["device_gap_s"] = device_gap_s(rounds)
+        for p in (50, 99):
+            out[f"queue_wait_p{p}_ms"] = (
+                waits[min(len(waits) * p // 100, len(waits) - 1)] * 1e3 if waits else None)
+        out["slow_events"] = slow
         out.update(self.metrics.summary())
         return out

@@ -1,0 +1,6 @@
+"""device_gap_pct.tpot: see BENCHMARK.json for its unit, layer and the metric it moves."""
+from port_bench import spans
+
+
+def read(run):
+    return spans.device_gap_pct(run)
