@@ -33,7 +33,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 KERNELS = ("flash_attention", "ragged_decode_attention", "ragged_decode_attention_int8",
-           "int4_matmul", "int4_matmul_a8")
+           "int4_matmul", "int4_matmul_a8", "fused_glue")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -15,6 +15,13 @@ On CUDA tensors the hot spots are the port's kernels: prefill attention
 (``ops/ragged_decode_attention.py``) and every int4 projection
 (``ops/int4_matmul.py``: ``int4_matmul``, or ``int4_matmul_a8`` for a
 prefill with ``act_int8``).  On CPU tensors each runs its plain version.
+The elementwise glue between them takes the kernels of
+``ops/fused_glue.py`` where their gate lets it (CUDA bf16 tensors that
+autograd does not record, no mesh): each residual add with the norm after it
+(``add_rms_norm``; a layer hands its MLP output to the next layer's input
+norm, ``DecoderLayer.forward_residual``), SiLU x up (``silu_mul``) and a
+decode step's qkv epilogue with its cache write; everywhere else the eager
+functions here run.
 
 A layer cache is a (k, v) pair of float tensors, or the int8 4-tuple
 (k_q, v_q, k_scale, v_scale) of ``runtime/kv_cache.py``.  With an int8 cache
@@ -79,6 +86,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from chatts_tpu_torch.core.config import QwenConfig
+from chatts_tpu_torch.ops import fused_glue as glue
 from chatts_tpu_torch.ops.attention import attention
 from chatts_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_a8, int4_matmul_tp
 from chatts_tpu_torch.ops.ragged_decode_attention import (
@@ -120,6 +128,30 @@ def rope_cos_sin(
     angles = positions.float()[..., None] * inv_freq
     angles = torch.cat([angles, angles], dim=-1)
     return torch.cos(angles), torch.sin(angles)
+
+
+def add_rms_norm(x: torch.Tensor, branch: Optional[torch.Tensor], weight: torch.Tensor,
+                 eps: float, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual stream ``x + branch`` (``x`` itself where ``branch`` is
+    None) and its ``rms_norm``: one kernel where the glue gate lets it
+    (``ops/fused_glue.py``), else the add and ``rms_norm``."""
+    fused = glue.engaged(mesh, x, branch, weight)
+    if fused:  # the kernel reads whole rows: a chunk's view of the embeddings is copied
+        x, branch = x.contiguous(), None if branch is None else branch.contiguous()
+    if glue.take("add_rms_norm", fused and glue.norm_fits(x, branch, weight)):
+        return glue.add_rms_norm(x, branch, weight, eps)
+    if branch is not None:
+        x = x + branch
+    return x, rms_norm(x, weight, eps)
+
+
+def silu_mul(gate: torch.Tensor, up: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``F.silu(gate) * up``: one kernel where the glue gate lets it, else
+    the two ops."""
+    g2, u2 = gate.reshape(-1, gate.shape[-1]), up.reshape(-1, up.shape[-1])
+    if glue.take("silu_mul", glue.engaged(mesh, gate, up) and glue.silu_fits(g2, u2)):
+        return glue.silu_mul(g2, u2).reshape(gate.shape)
+    return F.silu(gate) * up
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -260,7 +292,10 @@ class Dense(nn.Module):
     Results are rounded as the reference rounds them: float and int8
     products are f32 (``matmul_f32``); the int4 kernels return x's type, which
     is then cast to f32; the bias is added in f32 and the sum cast to x's
-    type.  ``act_int8`` quantizes the rows of x first (``quantize_acts``).
+    type.  Where nothing is added to a whole int4 product (no bias, no
+    zero-points, no mesh) the kernel's output is returned as it is: the round
+    trip through f32 is exact.  ``act_int8`` quantizes the rows of x first
+    (``quantize_acts``).
 
     ``lora``, None or (a, b, scale) set by ``train/lora.py::applied_lora``
     on a float ``Dense``, folds the adapter into the kernel on every call
@@ -351,23 +386,53 @@ class Dense(nn.Module):
     def _weight(self) -> torch.Tensor:
         return next(w for w in (self.kernel, self.kernel_q4, self.kernel_q) if w is not None)
 
+    @property
+    def _whole_int4(self) -> bool:
+        """int4 with the kernel's output the whole product: no zero-points,
+        and no mesh to sum it over."""
+        return self.kernel_q4 is not None and self.zeros4 is None and self.mesh is None
+
+    def forward_unbiased(self, x: torch.Tensor, act_int8: bool = False
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(y, bias): for a whole int4 projection the kernel's output in x's
+        type and the bias still to be added (in f32, the sum rounded to x's
+        type, as ``forward`` adds it); else (``forward(x)``, None)."""
+        if not self._whole_int4:
+            return self(x, act_int8), None
+        y, _ = self._int4_rows(self._int4_input(x), act_int8)
+        return y.reshape(*x.shape[:-1], y.shape[-1]), self.bias
+
+    def _int4_input(self, x: torch.Tensor) -> torch.Tensor:
+        """x's rows (R, in) as the int4 kernels take them: in ``perm4``'s
+        order where there is one (a row shard's input gathered over tp
+        first: the permutation is global)."""
+        x2 = x.reshape(-1, x.shape[-1])
+        if self.perm4 is None:
+            return x2
+        mesh = self.mesh if self.tp_kind == "row" else None
+        return all_gather_tp(mesh, x2, dim=1).index_select(1, self.perm4.long())
+
+    def _int4_rows(self, x2: torch.Tensor, act_int8: bool) -> Tuple[torch.Tensor, bool]:
+        """The int4 kernel's product of rows ``x2`` (``_int4_input``), in
+        their type, and whether it was summed over tp already."""
+        if self.tp_kind and self.zeros4 is None and self.perm4 is None:
+            return int4_matmul_tp(x2.contiguous(), self.kernel_q4, self.scales4,
+                                  mesh=self.mesh, kind=self.tp_kind), True
+        if act_int8 and self.mesh is None:
+            xq, xs = quantize_acts(x2)
+            return int4_matmul_a8(xq, xs, self.kernel_q4, self.scales4, out_dtype=x2.dtype), False
+        return int4_matmul(x2.contiguous(), self.kernel_q4, self.scales4), False
+
     def forward(self, x: torch.Tensor, act_int8: bool = False) -> torch.Tensor:
+        if self._whole_int4:
+            y, bias = self.forward_unbiased(x, act_int8)
+            return y if bias is None else (y.float() + bias.float()).to(x.dtype)
         lead = x.shape[:-1]
         mesh = self.mesh if self.tp_kind == "row" else None  # the group a row layer sums over
         reduced = False
         if self.kernel_q4 is not None:
-            x2 = x.reshape(-1, x.shape[-1])
-            if self.perm4 is not None:
-                x2 = all_gather_tp(mesh, x2, dim=1).index_select(1, self.perm4.long())
-            if self.tp_kind and self.zeros4 is None and self.perm4 is None:
-                y = int4_matmul_tp(x2.contiguous(), self.kernel_q4, self.scales4,
-                                   mesh=self.mesh, kind=self.tp_kind)
-                reduced = True
-            elif act_int8 and self.mesh is None:
-                xq, xs = quantize_acts(x2)
-                y = int4_matmul_a8(xq, xs, self.kernel_q4, self.scales4, out_dtype=x.dtype)
-            else:
-                y = int4_matmul(x2.contiguous(), self.kernel_q4, self.scales4)
+            x2 = self._int4_input(x)
+            y, reduced = self._int4_rows(x2, act_int8)
             out = y.float()
             if self.zeros4 is not None:
                 # Asymmetric GPTQ zero-points: W = s*(code-8) + s*(8-z); the
@@ -473,8 +538,17 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, t, _ = x.shape
         h, d = self.num_heads, cfg.head_dim
-        q, k, v = self._qkv(x, rope, act_int8)
         scale = d ** -0.5
+        decode = kv_cache is not None and write_pos is not None and kv_lengths is not None
+        projs = [self.qkv_proj] if self.qkv_proj is not None else [
+            self.q_proj, self.k_proj, self.v_proj]
+        fused = decode and glue.engaged(self.o_proj.mesh, x, self.q_norm, self.k_norm,
+                                        *(p.bias for p in projs)) and glue.qkv_fits(kv_cache, d)
+        if glue.take("qkv_decode", fused):
+            q1 = self._qkv_decode_fused(x, rope, kv_cache, write_pos, act_int8)
+            out = _decode_attention(q1, kv_cache, kv_lengths, scale, self.mesh)[:, None]
+            return self.o_proj(out.reshape(b, t, h * d), act_int8), kv_cache
+        q, k, v = self._qkv(x, rope, act_int8)
         if kv_cache is not None:
             # This block's K/V head-major (B, KVH, T, D), as the cache stores it.
             values = _cache_values(kv_cache, k.transpose(1, 2), v.transpose(1, 2))
@@ -513,6 +587,27 @@ class Attention(nn.Module):
             )
         return self.o_proj(out.reshape(b, t, h * d), act_int8), kv_cache
 
+    def _qkv_decode_fused(self, x, rope, kv_cache: LayerCache, write_pos: torch.Tensor,
+                          act_int8: bool = False) -> torch.Tensor:
+        """A decode step's ``_qkv`` and cache write in one kernel
+        (``glue.qkv_decode``) after the projections: q (B, H, D)."""
+        b = x.shape[0]
+        h, kvh, d = self.num_heads, self.num_kv_heads, self.cfg.head_dim
+        x2 = x.reshape(b, -1)
+        if self.qkv_proj is not None:
+            y, bias = self.qkv_proj.forward_unbiased(x2, act_int8)
+            widths = [h * d, kvh * d, kvh * d]
+            q, k, v = y.split(widths, dim=-1)
+            biases = [None] * 3 if bias is None else bias.split(widths)
+        else:
+            (q, bq), (k, bk), (v, bv) = (p.forward_unbiased(x2, act_int8)
+                                         for p in (self.q_proj, self.k_proj, self.v_proj))
+            biases = [bq, bk, bv]
+        cos, sin = (c.reshape(b, d) for c in rope)
+        return glue.qkv_decode(q, k, v, biases, self.q_norm, self.k_norm, self.cfg.rms_norm_eps,
+                               cos, sin, write_pos.reshape(b).to(torch.int32), kv_cache, h, kvh,
+                               d)
+
     def forward_mixed(self, x: torch.Tensor, rope, kv_cache: LayerCache,
                       step: "MixedStep") -> torch.Tensor:
         """The mixed step's attention block (the port of
@@ -521,6 +616,7 @@ class Attention(nn.Module):
         cfg = self.cfg
         h, d = self.num_heads, cfg.head_dim
         b, a, npt = step.b, step.a, step.npt
+        glue.take("qkv_decode", False)  # the qkv epilogue stays eager here
         q, k, v = (z[0] for z in self._qkv(x, rope))  # (Tp, H|KVH, D)
         scale = d ** -0.5
         values = _cache_values(kv_cache, k, v)  # (Tp, KVH, D) and scales (Tp, KVH)
@@ -631,7 +727,7 @@ class MLP(nn.Module):
             gate, up = self.gate_up_proj(x, act_int8).chunk(2, dim=-1)
         else:
             gate, up = self.gate_proj(x, act_int8), self.up_proj(x, act_int8)
-        return self.down_proj(F.silu(gate) * up, act_int8)
+        return self.down_proj(silu_mul(gate, up, self.down_proj.mesh), act_int8)
 
 
 class DecoderLayer(nn.Module):
@@ -647,21 +743,33 @@ class DecoderLayer(nn.Module):
     def forward(self, x, positions, rope, kv_cache, write_pos, kv_valid,
                 kv_positions, kv_lengths, act_int8: bool = False,
                 kv_limit: Optional[int] = None, attn_impl: str = "auto"):
-        eps = self.cfg.rms_norm_eps
-        attn_out, kv_cache = self.self_attn(
-            rms_norm(x, self.input_layernorm, eps), positions, rope,
-            kv_cache, write_pos, kv_valid, kv_positions, kv_lengths, act_int8, kv_limit,
-            attn_impl,
-        )
-        x = x + attn_out
-        x = x + self.mlp(rms_norm(x, self.post_attention_layernorm, eps), act_int8)
-        return x, kv_cache
+        x, branch = self.forward_residual(x, None, positions, rope, kv_cache, write_pos,
+                                          kv_valid, kv_positions, kv_lengths, act_int8,
+                                          kv_limit, attn_impl)
+        return x + branch, kv_cache
 
-    def forward_mixed(self, x, rope, kv_cache, step: "MixedStep"):
-        eps = self.cfg.rms_norm_eps
-        x = x + self.self_attn.forward_mixed(rms_norm(x, self.input_layernorm, eps), rope,
-                                             kv_cache, step)
-        return x + self.mlp(rms_norm(x, self.post_attention_layernorm, eps))
+    def forward_residual(self, x, branch, positions, rope, kv_cache, write_pos, kv_valid,
+                         kv_positions, kv_lengths, act_int8: bool = False,
+                         kv_limit: Optional[int] = None, attn_impl: str = "auto"):
+        """The layer with each residual add left to the norm after it
+        (``add_rms_norm``): ``x`` is the stream before ``branch``, the
+        previous layer's MLP output (None for the first layer), is added.
+        Returns the stream before this layer's MLP output is added, and that
+        output."""
+        return self._residual(x, branch, act_int8, lambda normed: self.self_attn(
+            normed, positions, rope, kv_cache, write_pos, kv_valid, kv_positions, kv_lengths,
+            act_int8, kv_limit, attn_impl)[0])
+
+    def forward_mixed(self, x, branch, rope, kv_cache, step: "MixedStep"):
+        """``forward_residual`` for the mixed step."""
+        return self._residual(x, branch, False, lambda normed: self.self_attn.forward_mixed(
+            normed, rope, kv_cache, step))
+
+    def _residual(self, x, branch, act_int8: bool, attend):
+        eps, mesh = self.cfg.rms_norm_eps, self.self_attn.o_proj.mesh
+        x, normed = add_rms_norm(x, branch, self.input_layernorm, eps, mesh)
+        x, normed = add_rms_norm(x, attend(normed), self.post_attention_layernorm, eps, mesh)
+        return x, self.mlp(normed, act_int8)
 
 
 def _recompute_contexts():
@@ -792,17 +900,17 @@ class QwenModel(nn.Module):
             kv_positions = kv_positions.to(torch.int32)
 
         rope = rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
-        x = inputs_embeds
+        x, branch = inputs_embeds, None
         for i, layer in enumerate(self.layers):
             cache = kv_caches[i] if kv_caches is not None else None
-            args = (x, positions, rope, cache, write_pos, kv_valid, kv_positions,
+            args = (positions, rope, cache, write_pos, kv_valid, kv_positions,
                     kv_lengths, act_int8, kv_limit, attn_impl)
             if remat:
-                x, _ = checkpoint(layer, *args, use_reentrant=False,
+                x, _ = checkpoint(layer, x, *args, use_reentrant=False,
                                   context_fn=_recompute_contexts, preserve_rng_state=False)
             else:
-                x, _ = layer(*args)
-        return rms_norm(x, self.norm, self.cfg.rms_norm_eps), kv_caches
+                x, branch = layer.forward_residual(x, branch, *args)
+        return add_rms_norm(x, branch, self.norm, self.cfg.rms_norm_eps, self.mesh)[1], kv_caches
 
     def forward_mixed(
         self,
@@ -855,10 +963,10 @@ class QwenModel(nn.Module):
             adm_kv_positions=kv_pos, adm_kv_valid=kv_pos < adm_seq_lens[:, None],
         )
         rope = rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
-        x = embeds
+        x, branch = embeds, None
         for layer, cache in zip(self.layers, kv_caches):
-            x = layer.forward_mixed(x, rope, cache, step)
-        return rms_norm(x, self.norm, self.cfg.rms_norm_eps)
+            x, branch = layer.forward_mixed(x, branch, rope, cache, step)
+        return add_rms_norm(x, branch, self.norm, self.cfg.rms_norm_eps, self.mesh)[1]
 
     def compute_logits(self, hidden: torch.Tensor, gather: bool = True) -> torch.Tensor:
         """hidden (B, T, hidden) -> logits (B, T, vocab), f32.  A quantized

@@ -44,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import sys
 import time
-from typing import Any, List, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -54,6 +54,7 @@ from chatts_tpu_torch.core.config import ChatTSConfig, GenerationConfig
 from chatts_tpu_torch.processor.processor import ProcessedBatch
 from chatts_tpu_torch.models.chatts import ChatTSModel, maybe_fuse
 from chatts_tpu_torch.models.convert import from_jax_params
+from chatts_tpu_torch.ops import fused_glue
 from chatts_tpu_torch.parallel.mesh import all_gather_dp, broadcast_from_driver
 from chatts_tpu_torch.parallel.sharding import infer_mesh, local_batch
 from chatts_tpu_torch.runtime import graphs, kv_cache, sampling
@@ -165,9 +166,12 @@ class _BatchDecodeGraph:
         self.generator = torch.Generator(device=engine.device)
         # The warm-up step updates no state and draws from a generator of
         # its own; its K/V writes are the ones the first replay makes.
+        self.glue_calls: Dict[str, int] = {}
         self.graph, self.pool_bytes = graphs.capture(
             lambda: _next_tokens(engine, state, torch.Generator(device=engine.device), gen_cfg),
-            lambda: _decode_step_in_place(engine, state, self.generator, gen_cfg),
+            fused_glue.counting(
+                lambda: _decode_step_in_place(engine, state, self.generator, gen_cfg),
+                self.glue_calls),
             self.generator)
 
     def chunk(self, steps: int, generator: torch.Generator) -> None:
@@ -371,7 +375,8 @@ class InferenceEngine:
                     self.graph_captures.append(dict(
                         kind="decode", key=repr(key),
                         seconds=time.perf_counter() - capture_start,
-                        pool_bytes=getattr(graph, "pool_bytes", None)))
+                        pool_bytes=getattr(graph, "pool_bytes", None),
+                        glue_calls=getattr(graph, "glue_calls", None)))
                 graph.chunk(step, generator)
                 self.decode_chunks["graph"] += 1
             packed = torch.cat([state.emitted[:, :step], state.done[:, None].to(torch.int32)],

@@ -139,6 +139,7 @@ from chatts_tpu_torch.utils.profiling import (SPANS, DeviceClock, MetricsAggrega
                                               SpanTimer, device_gap_s)
 from chatts_tpu_torch.models.chatts import ChatTSModel, maybe_fuse
 from chatts_tpu_torch.models.convert import from_jax_params
+from chatts_tpu_torch.ops import fused_glue
 from chatts_tpu_torch.parallel.mesh import broadcast_from_driver
 from chatts_tpu_torch.parallel.sharding import infer_mesh
 from chatts_tpu_torch.runtime import graphs, kv_cache, sampling
@@ -392,8 +393,10 @@ class _DecodeStepGraph:
 
         # The warm-up step updates no state and draws from a generator of
         # its own; its K/V writes are the ones the round's first step makes.
+        self.glue_calls: Dict[str, int] = {}
         self.graph, self.pool_bytes = graphs.capture(
-            lambda: _decode_step(*args, torch.Generator(device=dev)), step, generator)
+            lambda: _decode_step(*args, torch.Generator(device=dev)),
+            fused_glue.counting(step, self.glue_calls), generator)
 
     def round(self) -> torch.Tensor:
         """A pure decode round, as ``_decode_all_slots`` computes it."""
@@ -552,9 +555,11 @@ class _MixedStepGraph:
                 top_p, eos_ids, budget)
         # The warm-up step updates no state and draws from a generator of
         # its own; its K/V writes are the ones the round's first step makes.
+        self.glue_calls: Dict[str, int] = {}
         self.graph, self.pool_bytes = graphs.capture(
             lambda: _mixed_step(*args, torch.Generator(device=tokens.device), inp),
-            lambda: _mixed_step_in_place(*args, generator, inp), generator, pool)
+            fused_glue.counting(lambda: _mixed_step_in_place(*args, generator, inp),
+                                self.glue_calls), generator, pool)
 
     def round(self) -> torch.Tensor:
         for _ in range(self.chunk_size):
@@ -1481,11 +1486,13 @@ class ServeEngine:
 
     def _log_capture(self, kind: str, key: tuple, graph, seconds: float) -> None:
         """Record a capture: its kind, key, seconds (the warm-up step
-        included) and the pool bytes it added (None from a stand-in that
-        captured nothing)."""
+        included), the pool bytes it added and the decoder glue's call sites
+        the captured step ran by path, fused or eager (each None from a
+        stand-in that captured nothing)."""
         with self._round_log_lock:
             self.graph_captures.append(dict(kind=kind, key=list(key), seconds=seconds,
-                                            pool_bytes=getattr(graph, "pool_bytes", None)))
+                                            pool_bytes=getattr(graph, "pool_bytes", None),
+                                            glue_calls=getattr(graph, "glue_calls", None)))
 
     def _decode_round(self, kind: str) -> torch.Tensor:
         """A decode chunk of every live slot over the decode state, the
@@ -1648,8 +1655,10 @@ class ServeEngine:
         seconds of each span name (``span_s``); the device seconds between
         rounds that no device work covers (``device_gap_s``, None off the
         card); the queue wait's p50 and p99; the admitted requests by route;
-        the spans of ``slow_event_s`` or more (``slow_events``); and the
-        request metrics."""
+        the spans of ``slow_event_s`` or more (``slow_events``); the decoder
+        glue's call sites by path since the process started (``glue_calls``,
+        fused or eager; a graph's replays count nothing, its capture once);
+        and the request metrics."""
         out: Dict[str, Any] = {
             "active_slots": int(self.live_host.sum()),
             "max_batch_size": self.max_batch_size,
@@ -1666,6 +1675,7 @@ class ServeEngine:
             out["graph_captures"] = [dict(c) for c in self.graph_captures]
             waits = sorted(self._queue_waits)
             out["admissions"] = dict(self._routes)
+        out["glue_calls"] = fused_glue.counts()
         rounds = self.round_snapshot()
         agg: Dict[str, list] = collections.defaultdict(lambda: [0, 0.0, 0, 0.0, None])
         spans = dict.fromkeys(SPANS.values(), 0.0)

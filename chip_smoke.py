@@ -5,7 +5,7 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
+It builds the CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
 
   0. environment: card, power limit, torch, CUDA, nvcc;
   1. build: nvcc time and each kernel's registers and spills;
@@ -26,7 +26,14 @@ It builds the five CUDA kernels from ``chatts_tpu_torch/csrc`` and runs:
      280 rows; B1, B2 and B3 at the shapes of phases 13, 13q and 8f (the 8B
      shape's 28 heads over 4 kv heads, G = 7; Qwen3-8B's 32 over 8; the 14B
      bf16 cache at cap 6,144; every projection and head of both models at
-     32 and 4,096 rows);
+     32 and 4,096 rows); the decoder glue's kernels (``add_rms_norm``,
+     ``silu_mul``, ``qkv_decode``) against their eager compositions at the
+     14B and Qwen3-8B shapes (B = 32, and R = 4,096 for the first two),
+     beside the eager composition's time, the bound and, for the norm,
+     ``F.rms_norm``; and the decode step at full depth with the glue fused
+     and eager.  On every later path no glue call site whose gate lets it
+     through (CUDA bf16, autograd off, no mesh) may run eagerly, and no
+     captured step may but a prefill's or mixed step's qkv epilogue;
   3. the ChatTS-14B widths at 2 layers, int4 weights: logits of the kernel
      path on the card against the plain path on the CPU in f32;
   3c. the same with int8-activation prefill (``act_int8``), against the
@@ -199,7 +206,8 @@ graph once, at its capture; ``GraphLedger`` counts each graph's replays.
 
 It prints a JSON line of per-kernel results (the kernel's, the plain
 version's and the library call's device times, the bound and what sets it,
-the launches by path and the graphs' replays),
+the launches by path and the graphs' replays), one of the decoder glue's
+kernels and the decode step fused and eager,
 the card's name and power limit, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero; there
 is no CPU path.
@@ -453,8 +461,10 @@ def int4pack_library(torch, i4, packed, scales):
 
 
 def kernel_wrappers():
-    """Every kernel's wrapper by name; each counts its launches."""
+    """Every kernel's wrapper by name, the decoder glue's (``GLUE``) last;
+    each counts its launches."""
     from chatts_tpu_torch.ops import flash_attention as fa
+    from chatts_tpu_torch.ops import fused_glue as glue
     from chatts_tpu_torch.ops import int4_matmul as i4
     from chatts_tpu_torch.ops import ragged_decode_attention as rda
 
@@ -462,7 +472,72 @@ def kernel_wrappers():
             "ragged_decode_attention": rda.ragged_decode_attention,
             "ragged_decode_attention_int8": rda.ragged_decode_attention_int8,
             "int4_matmul": i4.int4_matmul,
-            "int4_matmul_a8": i4.int4_matmul_a8}
+            "int4_matmul_a8": i4.int4_matmul_a8,
+            "add_rms_norm": glue.add_rms_norm,
+            "silu_mul": glue.silu_mul,
+            "qkv_decode": glue.qkv_decode}
+
+
+# The decoder glue's kernels (csrc/fused_glue.cu), which replace no TPU
+# kernel (XLA fuses the glue there).
+GLUE = ("add_rms_norm", "silu_mul", "qkv_decode")
+
+
+def glue_eager() -> dict:
+    """The glue's call sites that ran eagerly so far, process-wide (the
+    CPU's plain runs and training included), by kernel."""
+    from chatts_tpu_torch.ops import fused_glue
+
+    return dict(fused_glue.eager)
+
+
+class GlueWatch:
+    """Wraps ``models/qwen.py``'s ``add_rms_norm`` and ``silu_mul`` for the
+    run: counts, by kernel, the calls whose gate let them through (CUDA bf16
+    tensors, autograd off, no mesh: ``fused_glue.engaged``) that still ran
+    eagerly, their shapes not the kernel's.  ``mark`` and ``read`` bracket a
+    path, as ``reset_launches`` and ``read_launches`` do."""
+
+    def __init__(self):
+        from chatts_tpu_torch.models import qwen
+        from chatts_tpu_torch.ops import fused_glue
+
+        self.fallbacks, self.since = dict.fromkeys(GLUE[:2], 0), {}
+        for name in self.fallbacks:
+            setattr(qwen, name, self._watch(name, getattr(qwen, name),
+                                            getattr(fused_glue, name), fused_glue.engaged))
+
+    def _watch(self, name, inner, kernel, engaged):
+        import inspect
+
+        signature = inspect.signature(inner)
+
+        def watched(*args, **kw):
+            before = kernel.launches
+            out = inner(*args, **kw)
+            given = signature.bind(*args, **kw).arguments
+            if kernel.launches == before and engaged(given.get("mesh"), *(
+                    a for a in given.values() if hasattr(a, "is_cuda"))):
+                self.fallbacks[name] += 1
+            return out
+        return watched
+
+    def mark(self) -> None:
+        self.since = dict(self.fallbacks)
+
+    def read(self) -> dict:
+        return {k: n - self.since.get(k, 0) for k, n in self.fallbacks.items()}
+
+
+def check_glue_captures(stats: dict, cfg, path: str) -> None:
+    """Raises unless each decode-step capture in a ``ServeEngine``'s
+    ``stats()`` ran the decoder glue fused at every call site (4 a layer
+    and the final norm) and eagerly at none."""
+    want = {"fused": 4 * cfg.llm.num_hidden_layers + 1, "eager": 0}
+    for cap in stats["graph_captures"]:
+        if cap["kind"] == "decode" and cap["glue_calls"] != want:
+            raise AssertionError(f"the {path} path's decode-step capture ran the glue "
+                                 f"{cap['glue_calls']}, not {want}")
 
 
 def reset_launches() -> None:
@@ -470,15 +545,22 @@ def reset_launches() -> None:
         fn.launches = 0
     if GRAPH_LEDGER is not None:
         GRAPH_LEDGER.mark()
+    if GLUE_WATCH is not None:
+        GLUE_WATCH.mark()
 
 
 def read_launches(path: str, required) -> dict:
     """Every kernel's launches since ``reset_launches``; raises unless each
-    kernel in ``required`` launched.  A kernel inside a CUDA graph counts
-    once where the graph is captured; the graphs' replays since
+    kernel in ``required`` launched, and if a glue call site that its gate
+    let through ran eagerly (``GLUE_WATCH``).  A kernel inside a CUDA graph
+    counts once where the graph is captured; the graphs' replays since
     ``reset_launches`` are logged and kept by ``GRAPH_LEDGER``, per path."""
     launches = {name: fn.launches for name, fn in kernel_wrappers().items()}
     log(f"  kernel launches on the {path} path: {launches}")
+    fallbacks = GLUE_WATCH.read() if GLUE_WATCH is not None else {}
+    if any(fallbacks.values()):
+        raise AssertionError(f"the {path} path ran the decoder glue eagerly on CUDA bf16 "
+                             f"inference tensors: {fallbacks}")
     if GRAPH_LEDGER is not None:
         for kernels, replays in GRAPH_LEDGER.read(path):
             log(f"  a CUDA graph on the {path} path replayed {replays} times, each replay "
@@ -520,12 +602,25 @@ class GraphLedger:
 
         def counted_step():
             before = {k: fn.launches for k, fn in kernel_wrappers().items()}
+            eager = glue_eager()
             step()
             entry["kernels"] = {k: fn.launches - before[k] for k, fn in kernel_wrappers().items()
                                 if fn.launches > before[k]}
+            entry["glue_eager"] = {k: n - eager[k] for k, n in glue_eager().items()}
 
         graph, pool_bytes = self.inner(warmup, counted_step, generator, pool)
         self.graphs.append(entry)
+        # A step that runs a glue kernel runs every call site fused but a
+        # prefill's or mixed step's qkv epilogue (the steps that launch the
+        # prefill attention), which has no kernel; a decode step's, one qkv
+        # epilogue and one SiLU a layer.
+        ran = entry["kernels"]
+        allowed = ("qkv_decode",) if "flash_attention" in ran else ()
+        strays = {k: n for k, n in entry["glue_eager"].items() if n and k not in allowed}
+        if any(k in ran for k in GLUE) and (strays or (
+                not allowed and ran.get("qkv_decode") != ran.get("silu_mul"))):
+            raise AssertionError(f"a CUDA graph's step ran the decoder glue eagerly at "
+                                 f"{strays}, launching {ran}")
         return _CountedGraph(graph, entry), pool_bytes
 
     def mark(self) -> None:
@@ -539,6 +634,7 @@ class GraphLedger:
 
 
 GRAPH_LEDGER = None  # main() installs a GraphLedger
+GLUE_WATCH = None  # and a GlueWatch
 
 
 # ---------------------------------------------------------------------------
@@ -877,6 +973,209 @@ def phase_int4_new_shapes(torch, gen, dev) -> list:
         del weights, packs
         torch.cuda.empty_cache()
     return rows
+
+
+def near_bits(torch, got, want, what: str, share: float = 1e-3) -> int:
+    """Raises unless bf16 ``got`` equals ``want`` but for one ulp in under
+    ``share`` of the elements (a norm's sum of squares in another order);
+    returns the count one ulp off."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    ulps = (ordered(got) - ordered(want)).abs()
+    off = int((ulps > 0).sum())
+    if int(ulps.max()) > 1 or off >= share * ulps.numel():
+        raise AssertionError(f"{what}: {off} of {ulps.numel()} elements off, up to "
+                             f"{int(ulps.max())} bf16 ulps")
+    return off
+
+
+# The glue's shapes (models/qwen.py's decode step and block prefill):
+# (hidden, heads, kv heads, intermediate, qkv bias, q/k norms, cache), and
+# the rows of a decode step (B = 32) and of a block prefill (R = 4,096).
+GLUE_MODELS = {"14b": (5120, 40, 8, 13824, True, False, "int8"),
+               "qwen3_8b": (4096, 32, 8, 12288, False, True, "bf16")}
+GLUE_ROWS = (32, 4096)
+
+
+def phase_glue(torch, gen, dev) -> dict:
+    """The decoder glue's kernels (``ops/fused_glue.py``) against their
+    eager compositions in ``models/qwen.py`` at the 14B and Qwen3-8B
+    shapes: ``add_rms_norm`` (the residual add bit-equal, the norm one ulp
+    off in under 0.1% of the elements; the norm-only variant at B = 32) and
+    ``silu_mul`` (bit-equal) at B = 32 and R = 4,096, ``qkv_decode`` at
+    B = 32 over a cache of 2,048 positions (the 14B's int8 cache with its
+    qkv bias bit-equal, codes and scales as ``quantize_kv`` makes them;
+    Qwen3's bf16 cache with its q/k norms one ulp off in under 0.1%).  The
+    device times of the kernel, of the eager composition (its kernels and
+    their gaps in one graph, as the decode step replays them) and of
+    ``F.rms_norm``, the one PyTorch call for the norm (without the add); the
+    bound, the bytes read and written once.  Then the decode step at full
+    depth with the glue fused and eager (``glue_decode_step``).  Returns
+    each kernel's entry, its rows under ``more_shapes``."""
+    import torch.nn.functional as F
+
+    from chatts_tpu_torch.models import qwen
+    from chatts_tpu_torch.ops import fused_glue as glue
+
+    def bf16(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    def around_one(n):
+        return (torch.rand((n,), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+
+    rows = {name: [] for name in GLUE}
+
+    def row(name, shape, ms, plain_ms, nbytes, library_ms=None, **extra):
+        bound_ms, bound_by = bound(nbytes, 0.0, PEAK_BF16_S)
+        rows[name].append(dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=library_ms, **extra))
+        log(f"  {name} {shape}: kernel {ms:.4f} ms, eager {plain_ms:.4f} ms"
+            + ("" if library_ms is None else f", F.rms_norm {library_ms:.4f} ms")
+            + f", bound {bound_ms:.4f} ms ({bound_ms / ms:.1%} of it)"
+            + "".join(f", {k} {v}" for k, v in extra.items()))
+
+    for model, (hid, h, kvh, inter, bias, norms, cache) in GLUE_MODELS.items():
+        w = around_one(hid)
+        for r in GLUE_ROWS:
+            x, br = bf16((r, hid), 4), bf16((r, hid))
+            for add in (True, False) if r == 32 else (True,):
+                branch = br if add else None
+                resid, normed = glue.add_rms_norm(x, branch, w, 1e-6)
+                want = x + br if add else x
+                if not torch.equal(resid, want):
+                    raise AssertionError(f"add_rms_norm {model} R={r}: the residual is not "
+                                         f"x + branch to the bit")
+                what = f"add_rms_norm {model} R={r}{'' if add else ' norm only'}"
+                off = near_bits(torch, normed, qwen.rms_norm(want, w, 1e-6), what)
+                lib = _library_ms(torch, F.rms_norm(want, (hid,), w, 1e-6), normed,
+                                  lambda: F.rms_norm(want, (hid,), w, 1e-6), what)
+                row("add_rms_norm", f"{model} R{r} H{hid}{'' if add else ' norm only'}",
+                    graph_ms(lambda: glue.add_rms_norm(x, branch, w, 1e-6)),
+                    graph_ms(lambda: (qwen.rms_norm(x + br, w, 1e-6) if add
+                                      else qwen.rms_norm(x, w, 1e-6))),
+                    (3 + add) * 2 * r * hid + 2 * hid, lib, ulp_off=off)
+            gate, up = bf16((r, 2 * inter), 4).chunk(2, dim=-1)
+            if not torch.equal(glue.silu_mul(gate, up), F.silu(gate) * up):
+                raise AssertionError(f"silu_mul {model} R={r}: not bit-equal to F.silu * up")
+            row("silu_mul", f"{model} R{r} I{inter}", graph_ms(lambda: glue.silu_mul(gate, up)),
+                graph_ms(lambda: F.silu(gate) * up), 3 * 2 * r * inter)
+
+        b, d, s = 32, 128, 2048
+        widths = [h * d, kvh * d, kvh * d]
+        y = bf16((b, sum(widths)), 3)
+        bvec = bf16((sum(widths),), 0.1) if bias else None
+        biases = [None] * 3 if bvec is None else list(bvec.split(widths))
+        qn, kn = (around_one(d), around_one(d)) if norms else (None, None)
+        pos = torch.randint(500, 800, (b,), generator=gen, device=dev, dtype=torch.int32)
+        cos, sin = qwen.rope_cos_sin(pos[:, None], d, 1e6)
+        if cache == "int8":
+            base = [torch.randint(-127, 128, (b, kvh, s, d), generator=gen, device=dev,
+                                  dtype=torch.int8) for _ in range(2)]
+            base += [torch.rand((b, kvh, s), generator=gen, device=dev) for _ in range(2)]
+            written = 2 * b * kvh * (d + 4)
+        else:
+            base = [bf16((b, kvh, s, d)) for _ in range(2)]
+            written = 2 * b * kvh * d * 2
+        got_kv, want_kv = [c.clone() for c in base], [c.clone() for c in base]
+        ix = (torch.arange(b, device=dev)[:, None, None],
+              torch.arange(kvh, device=dev)[None, :, None], pos.long()[:, None, None])
+
+        def fused(kv):
+            return glue.qkv_decode(*y.split(widths, dim=-1), biases, qn, kn, 1e-6,
+                                   cos.reshape(b, d), sin.reshape(b, d), pos, kv, h, kvh, d)
+
+        def eager(kv):
+            yb = y if bvec is None else (y.float() + bvec.float()).to(torch.bfloat16)
+            q, k, v = yb.split(widths, dim=-1)
+            q, k = q.reshape(b, 1, h, d), k.reshape(b, 1, kvh, d)
+            v = v.reshape(b, 1, kvh, d).contiguous()
+            if norms:
+                q, k = qwen.rms_norm(q, qn, 1e-6), qwen.rms_norm(k, kn, 1e-6)
+            q, k = qwen.apply_rope(q, cos, sin), qwen.apply_rope(k, cos, sin)
+            qwen._write_cache(kv, ix, qwen._cache_values(kv, k.transpose(1, 2),
+                                                           v.transpose(1, 2)))
+            return q[:, 0].contiguous()
+
+        q_got, q_want = fused(got_kv), eager(want_kv)
+        what = f"qkv_decode {model} {cache}"
+        if norms:
+            off = near_bits(torch, q_got, q_want, f"{what} q")
+            for g, w_ in zip(got_kv, want_kv):
+                off += near_bits(torch, g, w_, f"{what} cache")
+        else:
+            off = 0
+            if not (torch.equal(q_got, q_want)
+                    and all(torch.equal(g, w_) for g, w_ in zip(got_kv, want_kv))):
+                raise AssertionError(f"{what}: q or the cache is not bit-equal to the eager "
+                                     f"epilogue's")
+        row("qkv_decode", f"{model} B{b} H{h} KVH{kvh} D{d} {cache}",
+            graph_ms(lambda: fused(got_kv)), graph_ms(lambda: eager(want_kv)),
+            2 * y.numel() + (0 if bvec is None else 2 * bvec.numel()) + 2 * 2 * b * d * 4
+            + 2 * b * h * d + written, ulp_off=off)
+        del base, got_kv, want_kv
+    results = {name: dict(**rows[name][0], more_shapes=rows[name][1:]) for name in GLUE}
+    results["decode_step"] = glue_decode_step(torch, dev)
+    return results
+
+
+def glue_decode_step(torch, dev) -> list:
+    """The decode step at full depth (the 14B's 48 layers, int8 cache;
+    Qwen3-8B's 36, bf16 cache) on ``glue_model``'s weights, 32 slots at 500
+    to 800 cached positions: embedding, layers, head and argmax captured in
+    a CUDA graph with the glue fused and with it eager (the gate forced
+    off), in turns, each replayed between CUDA events; the glue's call
+    sites one step runs on each path."""
+    from chatts_tpu_torch.ops import fused_glue as glue
+    from chatts_tpu_torch.runtime import kv_cache
+
+    out = []
+    for name, make, layers in (("14b", chatts_14b_config, 48),
+                               ("qwen3_8b", qwen3_8b_config, 36)):
+        cfg = make(layers)
+        llm = glue_model(torch, cfg, dev, SEED + 19).llm
+        cache = torch.int8 if GLUE_MODELS[name][-1] == "int8" else torch.bfloat16
+        b = 32
+        caches = kv_cache.allocate(cfg.llm, b, 2048, cache, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+        tokens = torch.randint(0, 400, (b,), generator=gen, device=dev, dtype=torch.int32)
+        lens = torch.randint(500, 800, (b,), generator=gen, device=dev, dtype=torch.int32)
+
+        def step():
+            positions = lens[:, None]
+            hidden, _ = llm(llm.embed(tokens[:, None]), positions, kv_caches=caches,
+                            write_pos=positions, kv_lengths=lens + 1)
+            return llm.compute_logits(hidden)[:, 0].argmax(dim=-1)
+
+        times, calls = {"fused": [], "eager": []}, {}
+        engaged = glue.engaged
+        for path in ("fused", "eager", "fused", "eager"):
+            if path == "eager":
+                glue.engaged = lambda *a: False
+            try:
+                with torch.no_grad():
+                    before = glue.counts()
+                    step()
+                    calls[path] = {k: v - before[k] for k, v in glue.counts().items()}
+                    times[path].append(graph_ms(step))
+            finally:
+                glue.engaged = engaged
+        want = 4 * layers + 1
+        if calls["fused"] != {"fused": want, "eager": 0} or calls["eager"] != {
+                "fused": 0, "eager": want}:
+            raise AssertionError(f"decode step {name}: glue call sites {calls}, not {want} "
+                                 f"fused, then {want} eager")
+        row = dict(model=name, layers=layers, shape=f"B{b} {cache} cache, 500-800 positions",
+                   fused_ms=times["fused"], eager_ms=times["eager"], calls=calls)
+        log(f"  decode step {name} ({layers} layers): glue fused "
+            f"{', '.join(f'{t:.3f}' for t in times['fused'])} ms, eager "
+            f"{', '.join(f'{t:.3f}' for t in times['eager'])} ms; call sites {calls}")
+        out.append(row)
+        del llm, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_kernels():
@@ -1272,6 +1571,7 @@ def phase_kernels():
         rows = phase_int4_new_shapes(torch, gen, dev)
         results["int4_matmul"].update(more_shapes=rows, max_abs_err=max(
             [results["int4_matmul"]["max_abs_err"]] + [row["max_abs_err"] for row in rows]))
+        results.update(phase_glue(torch, gen, dev))
     return results
 
 
@@ -1338,6 +1638,32 @@ def qwen3_8b_config(num_layers: int):
                            max_sequence_length=4096),
         ts_token_start_index=vocab - 10,
     )
+
+
+def glue_model(torch, cfg, dev, seed: int):
+    """A random int4 ChatTS model of ``cfg`` on ``dev``
+    (``init_quantized_params``, fused projections) with the decoder glue's
+    operands drawn away from their neutral values from ``seed``: every norm
+    weight (input, post-attention, q/k, final) uniform in [0.5, 1.5] and
+    every qkv bias 0.1 N(0, 1), so that a weight or a bias skipped or applied
+    to the wrong rows shows.  Phase 2's decode step and the glue's card
+    tests (``tests/test_torch_kernels_gpu.py``) share it."""
+    from chatts_tpu_torch.models.quantize import init_quantized_params
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = init_quantized_params(cfg, gen, dev)
+    llm = model.llm
+    norms = [llm.norm] + [w for layer in llm.layers for w in (
+        layer.input_layernorm, layer.post_attention_layernorm, layer.self_attn.q_norm,
+        layer.self_attn.k_norm) if w is not None]
+    with torch.no_grad():
+        for w in norms:
+            w.copy_(torch.rand(w.shape, generator=gen, device=dev) + 0.5)
+        for layer in llm.layers:
+            bias = layer.self_attn.qkv_proj.bias
+            if bias is not None:
+                bias.copy_(torch.randn(bias.shape, generator=gen, device=dev) * 0.1)
+    return model
 
 
 def first_layers(model, cfg, n: int):
@@ -1903,7 +2229,8 @@ def phase_mixed_model():
         reqs, got, tokens = serve(dev)
         replayed, captures = serve(dev, graph=True)
         launches = read_launches("scan-sliced model (3d)", (
-            "flash_attention", "ragged_decode_attention_int8", "int4_matmul"))
+            "flash_attention", "ragged_decode_attention_int8", "int4_matmul", "add_rms_norm",
+            "silu_mul"))
         if [r.output_tokens for r in replayed] != [r.output_tokens for r in reqs]:
             raise AssertionError("the mixed rounds' graphs served other tokens than their eager "
                                  "rounds")
@@ -1978,7 +2305,7 @@ def phase_slice(smi: str):
         s2 = engine.generate(batch, sampled,
                              generator=torch.Generator(device=dev).manual_seed(SEED + 2))
         launches = read_launches("batch", ("flash_attention", "ragged_decode_attention",
-                                           "int4_matmul"))
+                                           "int4_matmul") + GLUE)
         if launches["int4_matmul_a8"]:
             raise AssertionError("the bf16 prefill launched the int8-activation matmul")
         for r in (g1, g2, s1, s2):
@@ -2308,7 +2635,7 @@ def phase_serving(smi: str, model, cfg, act_int8: bool = False):
 
     dev = torch.device("cuda", 0)
     path = "serving_a8" if act_int8 else "serving"
-    required = ("flash_attention", "ragged_decode_attention_int8", "int4_matmul") + (
+    required = ("flash_attention", "ragged_decode_attention_int8", "int4_matmul") + GLUE + (
         ("int4_matmul_a8",) if act_int8 else ())
     wave, n_new = 8, 64
     with Phase("6b" if act_int8 else 5,
@@ -2355,6 +2682,7 @@ def phase_serving(smi: str, model, cfg, act_int8: bool = False):
                     runs.append((results, reqs, wall, decode))
                 launches = read_launches(path, required)
             stats = engine.stats()
+            check_glue_captures(stats, cfg, path)
             with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
                                         timeout=60) as r:
                 metrics = json.loads(r.read())
@@ -2618,7 +2946,7 @@ def phase_chunked(smi: str, model, cfg, bf16_run) -> dict:
             g1 = chunked.generate(batch, greedy)
             g2 = chunked.generate(batch, greedy)
             paths["chunked_batch"] = read_launches("chunked batch (8a)", (
-                "flash_attention", "ragged_decode_attention", "int4_matmul"))
+                "flash_attention", "ragged_decode_attention", "int4_matmul") + GLUE)
         finally:
             spy.remove()
         region = spy.regions["chunked"]
@@ -2707,7 +3035,7 @@ def phase_chunked(smi: str, model, cfg, bf16_run) -> dict:
                                        engine.round_snapshot()[log_before:], n_spans,
                                        len(clock.events)))
                 paths["serving_6144"] = read_launches("serving at cap 6,144 (8b, 8m, 8c)", (
-                    "flash_attention", "ragged_decode_attention_int8", "int4_matmul"))
+                    "flash_attention", "ragged_decode_attention_int8", "int4_matmul") + GLUE)
             engine_stats = engine.stats()
         finally:
             server.shutdown()
@@ -4518,9 +4846,12 @@ def pipeline_reference(torch, model, cfg) -> dict:
 
 def phase_train(smi: str) -> dict:
     """Phase 9: training on the card, after every serving phase, with their
-    models freed.  Returns each kernel's launches on the training path (all
-    0: training reaches the plain attention through attn_impl="xla" and takes
-    float projections)."""
+    models freed.  Returns each kernel's launches on the training path (B1
+    to B5 all 0: training reaches the plain attention through
+    attn_impl="xla" and takes float projections; the decoder glue's kernels
+    run where autograd records none of their inputs, as their gate and
+    ``refuse_gradients`` let them: the first layer's norm of frozen
+    embeddings and forwards under no_grad)."""
     import torch
 
     with Phase(9, "training: 9a LoRA and full-parameter steps at 14B widths (2 layers) "
@@ -4538,7 +4869,7 @@ def phase_train(smi: str) -> dict:
         result["9b"], refs["pp"] = phase_train_full_depth(smi)
         refs["9b_loss"] = result["9b"]["losses"][0]
         launches = read_launches("training", ())
-        if any(launches.values()):
+        if any(launches[name] for name in REPLACES):
             raise AssertionError(f"the training path launched a kernel: {launches}")
         log("  train: " + json.dumps(result))
         gc.collect()
@@ -4925,34 +5256,48 @@ def per_layer_against_cpu(torch, card, batch, what: str) -> dict:
 
     from chatts_tpu_torch.models import qwen
 
-    def hook_outputs(layer, into: dict) -> list:
+    def hook_outputs(layer, into: dict, whole: bool = True) -> list:
         def keep(key):
             def post(module, args, out):
                 into[key] = (out[0] if isinstance(out, tuple) else out).float().cpu()
             return post
 
         return [layer.self_attn.register_forward_hook(keep("attention")),
-                layer.mlp.register_forward_hook(keep("mlp")),
-                layer.register_forward_hook(keep("layer"))]
+                layer.mlp.register_forward_hook(keep("mlp"))] + (
+                    [layer.register_forward_hook(keep("layer"))] if whole else [])
 
     dev = card.llm.embed_tokens.device
     seen, shared, hooks = [{} for _ in card.llm.layers], {}, []
 
-    def keep_input(i):
-        def pre(module, args):
-            if not shared:
-                shared.update(positions=args[1].cpu(), kv_valid=args[5].cpu(),
-                              kv_positions=args[6].cpu())
-            seen[i]["input"] = args[0].float().cpu()
-        return pre
+    def keep_stream(i, layer):
+        """The model runs a layer as ``forward_residual`` (x, the previous
+        layer's MLP output), the adds left to the norms after them: the
+        layer's input is x + branch and its output the stream plus its MLP
+        output, each the bf16 add the eager layer makes."""
+        inner = layer.forward_residual
 
+        def forward_residual(x, branch, *args, **kw):
+            if not shared:
+                shared.update(positions=args[0].cpu(), kv_valid=args[4].cpu(),
+                              kv_positions=args[5].cpu())
+            seen[i]["input"] = (x if branch is None else x + branch).float().cpu()
+            out, mlp_out = inner(x, branch, *args, **kw)
+            seen[i]["layer"] = (out + mlp_out).float().cpu()
+            return out, mlp_out
+
+        layer.forward_residual = forward_residual
+        return lambda: delattr(layer, "forward_residual")
+
+    undo = [keep_stream(i, layer) for i, layer in enumerate(card.llm.layers)]
     for i, layer in enumerate(card.llm.layers):
-        hooks += [layer.register_forward_pre_hook(keep_input(i))] + hook_outputs(layer, seen[i])
+        hooks += hook_outputs(layer, seen[i], whole=False)
     try:
         tail_logits(card, batch, dev, 1)
     finally:
         for hook in hooks:
             hook.remove()
+        for restore in undo:
+            restore()
     lcfg = card.llm.cfg
     positions = shared["positions"]
     rope = qwen.rope_cos_sin(positions, lcfg.head_dim, lcfg.rope_theta)
@@ -5157,7 +5502,7 @@ def serve_headline(torch, smi: str, model, cfg, cache_dtype, path: str, runs: in
              (32, 40, HEADLINE_BURST_TOKENS, (0, "finished"))]
     bf16 = cache_dtype == torch.bfloat16
     required = ("flash_attention", "ragged_decode_attention" if bf16 else
-                "ragged_decode_attention_int8", "int4_matmul")
+                "ragged_decode_attention_int8", "int4_matmul") + GLUE
     torch.cuda.reset_peak_memory_stats(dev)
     engine = ServeEngine(model, cfg, proc, device=dev, cache_dtype=cache_dtype, **HEADLINE_ENGINE)
     tokens, summary = [], []
@@ -5478,7 +5823,7 @@ def phase_serving_6144_bf16(smi: str, model, cfg) -> dict:
                         short, long, engine.round_snapshot()[log_before:], n_spans,
                         len(clock.events), wall))
             launches = read_launches("serving at cap 6,144 from the bf16 cache (8f)", (
-                "flash_attention", "ragged_decode_attention", "int4_matmul"))
+                "flash_attention", "ragged_decode_attention", "int4_matmul") + GLUE)
         finally:
             clock.remove()
         spans_ms = clock.read_ms()
@@ -5545,8 +5890,9 @@ def main() -> int:
         return 1
     import chatts_tpu_torch  # noqa: F401  (fails outside a checkout of the repository)
 
-    global GRAPH_LEDGER
+    global GRAPH_LEDGER, GLUE_WATCH
     GRAPH_LEDGER = GraphLedger()
+    GLUE_WATCH = GlueWatch()
     smi = phase_environment()
     phase_build()
     kernels = phase_kernels()
@@ -5605,6 +5951,18 @@ def main() -> int:
              "library_note", "more_shapes")}}
         for name in REPLACES
     ]}))
+    # The decoder glue's kernels, counted the same way; they replace no TPU
+    # kernel.  Phase 2's rows: the kernel, its eager composition, the bound
+    # and, for the norm, F.rms_norm; then the decode step fused and eager.
+    log(json.dumps({"glue": [
+        {"name": name, "route": "cuda", "source": "chatts_tpu_torch/csrc/fused_glue.cu",
+         "launches": sum(counts.get(name, 0) for counts in paths.values()),
+         "launches_by_path": {path: counts.get(name, 0) for path, counts in paths.items()},
+         "graph_replays": {label: g for label, g in (
+             (label, [[k[name], n] for k, n in graphs if name in k])
+             for label, graphs in GRAPH_LEDGER.by_path.items()) if g},
+         **kernels[name]}
+        for name in GLUE], "decode_step": kernels["decode_step"]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

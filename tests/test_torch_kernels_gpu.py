@@ -515,3 +515,271 @@ def test_torch_int8_dense_on_the_card(cuda, rows, act_int8):
     assert got.dtype == torch.bfloat16 and got.shape == (2, rows, 384)
     _within_one_ulp(got.cpu(), want,
                     0.0 if act_int8 else 1e-4 * float(want.float().abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The decoder glue (csrc/fused_glue.cu) against its eager composition in
+# models/qwen.py, at the 14B and Qwen3-8B decode shapes (B = 32) and at
+# R = 4,096 prefill rows.  Bit for bit where no reduction is reordered; a
+# norm's sum of squares runs in another order, so a normed value may land one
+# bf16 ulp off, in under 0.1% of the elements.
+# ---------------------------------------------------------------------------
+
+def _ordered(t):
+    """bf16 bits as integers ordered like the values: one ulp apart is 1."""
+    bits = t.contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def _near_bits(got, want, share=1e-3):
+    """Equal but for one bf16 ulp in under ``share`` of the elements."""
+    ulps = (_ordered(got) - _ordered(want)).abs()
+    assert int(ulps.max()) <= 1, int(ulps.max())
+    assert float((ulps > 0).float().mean()) < share, float((ulps > 0).float().mean())
+
+
+def _around_one(gen, n, dev):
+    return (0.5 + torch.rand((n,), generator=gen, device=dev)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("r,h", [(32, 5120), (32, 4096), (4096, 5120), (4096, 4096)])
+@pytest.mark.parametrize("add", [True, False], ids=["add", "norm_only"])
+def test_torch_add_rms_norm_kernel_matches_eager(cuda, r, h, add):
+    from chatts_tpu_torch.models.qwen import rms_norm
+    from chatts_tpu_torch.ops import fused_glue as glue
+
+    gen = torch.Generator(device=cuda).manual_seed(r + h)
+    x = _bf16(gen, (r, h), cuda) * 4
+    branch = _bf16(gen, (r, h), cuda) if add else None
+    w = _around_one(gen, h, cuda)
+    before = glue.add_rms_norm.launches
+    resid, normed = glue.add_rms_norm(x, branch, w, 1e-6)
+    torch.cuda.synchronize()
+    assert glue.add_rms_norm.launches == before + 1
+    want_resid = x + branch if add else x
+    assert torch.equal(resid, want_resid)
+    _near_bits(normed, rms_norm(want_resid, w, 1e-6))
+
+
+@pytest.mark.parametrize("r,i", [(32, 13824), (32, 12288), (4096, 13824), (4096, 12288)])
+@pytest.mark.parametrize("layout", ["gate_up", "apart"])
+def test_torch_silu_mul_kernel_matches_eager(cuda, r, i, layout):
+    import torch.nn.functional as F
+
+    from chatts_tpu_torch.ops import fused_glue as glue
+
+    gen = torch.Generator(device=cuda).manual_seed(r + i)
+    gate_up = _bf16(gen, (r, 2 * i), cuda) * 4
+    gate, up = gate_up.chunk(2, dim=-1)
+    if layout == "apart":
+        gate, up = gate.contiguous(), up.contiguous()
+    got = glue.silu_mul(gate, up)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and torch.equal(got, F.silu(gate) * up)
+
+
+QKV_SHAPES = {"14b": (40, 8, True, False), "qwen3_8b": (32, 8, False, True)}
+
+
+@pytest.mark.parametrize("model", list(QKV_SHAPES))
+@pytest.mark.parametrize("cache", ["int8", "bf16"])
+def test_torch_qkv_decode_kernel_matches_eager(cuda, model, cache):
+    """The decode step's qkv epilogue at B = 32, 256 positions a row:
+    against ``Dense``'s bias add, ``rms_norm``, ``apply_rope``,
+    ``_cache_values`` and ``_write_cache``.  The 14B's shape (bias, no
+    norms) matches to the bit, codes and scales as ``quantize_kv`` makes
+    them; with Qwen3's q/k norms a value may be one ulp off (an int8 code
+    one step) in under 0.1% of the elements.  No position but each row's
+    ``write_pos`` changes."""
+    from chatts_tpu_torch.models import qwen
+    from chatts_tpu_torch.ops import fused_glue as glue
+
+    h, kvh, bias, norms = QKV_SHAPES[model]
+    b, d, s = 32, 128, 256
+    gen = torch.Generator(device=cuda).manual_seed(len(model) + len(cache))
+    y = _bf16(gen, (b, (h + 2 * kvh) * d), cuda) * 3
+    widths = [h * d, kvh * d, kvh * d]
+    bvec = (_bf16(gen, ((h + 2 * kvh) * d,), cuda) * 0.1) if bias else None
+    qn, kn = (_around_one(gen, d, cuda) for _ in range(2)) if norms else (None, None)
+    pos = torch.randint(0, s, (b,), generator=gen, device=cuda, dtype=torch.int32)
+    cos, sin = qwen.rope_cos_sin(pos[:, None], d, 1e6)
+    if cache == "int8":
+        base = [torch.randint(-127, 128, (b, kvh, s, d), generator=gen, device=cuda,
+                              dtype=torch.int8) for _ in range(2)]
+        base += [torch.rand((b, kvh, s), generator=gen, device=cuda) for _ in range(2)]
+    else:
+        base = [_bf16(gen, (b, kvh, s, d), cuda) for _ in range(2)]
+    got_cache = [c.clone() for c in base]
+    want_cache = [c.clone() for c in base]
+
+    q_got = glue.qkv_decode(*y.split(widths, dim=-1),
+                            [None] * 3 if bvec is None else bvec.split(widths), qn, kn, 1e-6,
+                            cos.reshape(b, d), sin.reshape(b, d), pos, got_cache, h, kvh, d)
+    torch.cuda.synchronize()
+
+    yb = y if bvec is None else (y.float() + bvec.float()).to(torch.bfloat16)
+    q, k, v = yb.split(widths, dim=-1)
+    q, k, v = q.reshape(b, 1, h, d), k.reshape(b, 1, kvh, d), v.reshape(b, 1, kvh, d)
+    if norms:
+        q, k = qwen.rms_norm(q, qn, 1e-6), qwen.rms_norm(k, kn, 1e-6)
+    q, k = qwen.apply_rope(q, cos, sin), qwen.apply_rope(k, cos, sin)
+    values = qwen._cache_values(want_cache, k.transpose(1, 2), v.contiguous().transpose(1, 2))
+    rows = torch.arange(b, device=cuda)[:, None, None]
+    heads = torch.arange(kvh, device=cuda)[None, :, None]
+    qwen._write_cache(want_cache, (rows, heads, pos.long()[:, None, None]), values)
+
+    assert q_got.shape == (b, h, d) and q_got.is_contiguous()
+    written = torch.zeros((b, kvh, s), dtype=torch.bool, device=cuda)
+    written[rows[:, :, 0], heads[:, :, 0], pos.long()[:, None]] = True
+    for got, want, old in zip(got_cache, want_cache, base):
+        keep = ~written if got.dim() == 3 else ~written[..., None].expand_as(got)
+        assert torch.equal(got[keep], old[keep])
+    if not norms:
+        assert torch.equal(q_got, q[:, 0])
+        assert all(torch.equal(g, w) for g, w in zip(got_cache, want_cache))
+        return
+    _near_bits(q_got, q[:, 0])
+    if cache == "bf16":
+        for g, w in zip(got_cache, want_cache):
+            _near_bits(g[written], w[written])
+        return
+    assert torch.equal(got_cache[1], want_cache[1]) and torch.equal(got_cache[3], want_cache[3])
+    steps = (got_cache[0][written].int() - want_cache[0][written].int()).abs()
+    assert int(steps.max()) <= 1 and float((steps > 0).float().mean()) < 1e-3
+    ratio = got_cache[2][written] / want_cache[2][written]
+    assert float((ratio - 1).abs().max()) <= 2 ** -7
+
+
+def _steps_within_one(got, want, what):
+    """int8 codes at most one step apart."""
+    steps = (got.int() - want.int()).abs()
+    assert int(steps.max()) <= 1, (what, int(steps.max()))
+
+
+@pytest.mark.parametrize("model", ["14b", "qwen3_8b"])
+def test_torch_fused_decode_step_in_a_cuda_graph(cuda, model):
+    """Two layers at the model's widths (``chip_smoke.glue_model``: random
+    int4 weights, norm weights and qkv biases away from 1 and 0), 32 slots
+    at random lengths, 32 decode steps three ways: the fused step captured
+    in a CUDA graph and replayed, the fused step run without a graph, and
+    the step with the glue eager (the gate forced off).  The capture records
+    4 fused glue calls a layer and the final norm, no eager one.  The graph
+    replays to the fused step's tokens and caches bit for bit.  Against the
+    eager glue (a norm's sum of squares in another order: one bf16 ulp here
+    and there, carried through the layers) every step's logits agree to
+    2e-2 of the row's largest while the tokens agree; the first layer's
+    cache written until then holds int8 codes within one step, scales within
+    2**-7 and bf16 values within one ulp, the second layer's head vectors
+    agree to 2e-2 of their largest.  A near-tie may send the tokens apart:
+    the steps after it are not compared."""
+    import chip_smoke
+    from chatts_tpu_torch.ops import fused_glue as glue
+    from chatts_tpu_torch.runtime import kv_cache
+
+    make = {"14b": chip_smoke.chatts_14b_config, "qwen3_8b": chip_smoke.qwen3_8b_config}[model]
+    n_layers, b, s, n_steps = 2, 32, 1024, 32
+    cfg = make(n_layers)
+    llm = chip_smoke.glue_model(torch, cfg, cuda, 11).llm
+    cache_dtype = torch.int8 if model == "14b" else torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    caches0 = kv_cache.allocate(cfg.llm, b, s, cache_dtype, cuda)
+    for c in caches0:
+        for t in c:
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=cuda))
+            elif t.dtype == torch.float32:
+                t.copy_(torch.rand(t.shape, generator=gen, device=cuda) / 20)
+            else:
+                t.copy_(_bf16(gen, t.shape, cuda))
+    tokens0 = torch.randint(0, cfg.llm.vocab_size, (b,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+    lens0 = torch.randint(1, s // 2, (b,), generator=gen, device=cuda, dtype=torch.int32)
+    per_step = {"fused": 4 * n_layers + 1, "eager": 0}
+
+    def state():
+        return [tuple(t.clone() for t in c) for c in caches0], tokens0.clone(), lens0.clone()
+
+    def step(caches, tokens, lens):
+        positions = lens[:, None]
+        hidden, _ = llm(llm.embed(tokens[:, None]), positions, kv_caches=caches,
+                        write_pos=positions, kv_lengths=lens + 1)
+        logits = llm.compute_logits(hidden)[:, 0]
+        tokens.copy_(logits.argmax(dim=-1).to(torch.int32))
+        lens.add_(1)
+        return logits
+
+    def run(caches, tokens, lens):
+        logits, out = [], []
+        for _ in range(n_steps):
+            logits.append(step(caches, tokens, lens).clone())
+            out.append(tokens.clone())
+        return logits, out
+
+    with torch.no_grad():
+        caches_f, tokens_f, lens_f = state()
+        before = glue.counts()
+        step(*state())
+        assert {k: v - before[k] for k, v in glue.counts().items()} == per_step
+        logits_f, out_f = run(caches_f, tokens_f, lens_f)
+
+        caches_g, tokens_g, lens_g = state()
+        graph, captured = torch.cuda.CUDAGraph(), {}
+        with torch.cuda.graph(graph):
+            glue.counting(lambda: step(caches_g, tokens_g, lens_g), captured)()
+        assert captured == per_step
+        for c, c0 in zip(caches_g, caches0):
+            for t, t0 in zip(c, c0):
+                t.copy_(t0)
+        tokens_g.copy_(tokens0)
+        lens_g.copy_(lens0)
+        out_g = []
+        for _ in range(n_steps):
+            graph.replay()
+            out_g.append(tokens_g.clone())
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, e) for a, e in zip(out_g, out_f))
+        assert torch.equal(lens_g, lens_f)
+        for cg, cf in zip(caches_g, caches_f):
+            assert all(torch.equal(a, e) for a, e in zip(cg, cf))
+
+        caches_e, tokens_e, lens_e = state()
+        engaged = glue.engaged
+        glue.engaged = lambda *a: False
+        try:
+            before = glue.counts()
+            logits_e, out_e = run(caches_e, tokens_e, lens_e)
+            assert glue.counts()["eager"] - before["eager"] == n_steps * per_step["fused"]
+        finally:
+            glue.engaged = engaged
+
+    apart = next((i for i in range(n_steps) if not torch.equal(out_f[i], out_e[i])), n_steps)
+    print(f"{model}: the eager glue's tokens agree for {apart} of {n_steps} steps")
+    for i in range(min(apart + 1, n_steps)):
+        _close_rows(logits_f[i], logits_e[i])
+    # Positions written from the same tokens: step i writes lens0 + i from
+    # the token step i - 1 chose.  Layer 0's K/V hold the glue's own
+    # roundings only; a later layer's also carry the earlier layers' (a norm
+    # one ulp off moves every projection after it), so its head vectors are
+    # held, dequantized, to 2e-2 of each vector's largest value.
+    pos = torch.arange(s, device=cuda)[None, :]
+    same = (pos < (lens0 + min(apart + 1, n_steps))[:, None])[:, None, :]  # (B, 1, S)
+    for layer, (cf, ce) in enumerate(zip(caches_f, caches_e)):
+        mask = same.expand(cf[0].shape[:3])
+        what = f"{model} layer {layer}"
+        if layer:
+            if cache_dtype == torch.int8:
+                for codes, scales in ((0, 2), (1, 3)):
+                    _close_rows(cf[codes][mask].float() * cf[scales][mask][:, None],
+                                ce[codes][mask].float() * ce[scales][mask][:, None])
+            else:
+                for f, e in zip(cf, ce):
+                    _close_rows(f[mask], e[mask])
+            continue
+        for j, (f, e) in enumerate(zip(cf, ce)):
+            if f.dtype == torch.int8:
+                _steps_within_one(f[mask], e[mask], f"{what} cache {j}")
+            elif f.dtype == torch.float32:
+                assert bool(((f[mask] - e[mask]).abs() <= 2 ** -7 * e[mask].abs()).all()), what
+            else:
+                ulps = (_ordered(f[mask]) - _ordered(e[mask])).abs()
+                assert int(ulps.max()) <= 1, (what, j, int(ulps.max()))

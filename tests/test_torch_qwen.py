@@ -21,6 +21,8 @@ from chatts_tpu_torch.models import chatts as tchatts
 from chatts_tpu_torch.models import quantize as tquant
 from chatts_tpu_torch.models.convert import from_jax_params, qwen_from_jax, to_tensor
 from chatts_tpu_torch.models.qwen import Dense, QwenModel
+from chatts_tpu_torch.ops import fused_glue
+from chatts_tpu_torch.ops.int4_matmul import int4_matmul
 from chatts_tpu_torch.processor import processor as tprocessor
 from chatts_tpu_torch.runtime import kv_cache as tkv
 from tests.helpers import FakeTokenizer, random_series
@@ -265,3 +267,66 @@ def test_torch_bf16_products_are_f32_like_jax(case):
     want = np.asarray(want.astype(jnp.float32))
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+def test_torch_whole_int4_dense_returns_the_kernel_output(bias):
+    """A whole int4 projection (no zero-points, no mesh) with nothing to add
+    returns ``int4_matmul``'s output bit for bit: the round trip through f32
+    it used to make is exact.  With a bias: the f32 sum rounded once, and
+    ``forward_unbiased`` hands the bias back unadded."""
+    gen = torch.Generator().manual_seed(3)
+    packed = torch.randint(-128, 128, (64, 256), generator=gen, dtype=torch.int8)
+    scales = torch.rand((1, 256), generator=gen) / 50
+    b = torch.randn((256,), generator=gen).to(torch.bfloat16) if bias else None
+    x = torch.randn((3, 5, 128), generator=gen).to(torch.bfloat16)
+    dense = Dense(kernel_q4=packed, scales4=scales, bias=b)
+    y = int4_matmul(x.reshape(15, 128), packed, scales).reshape(3, 5, 256)
+    want = y if b is None else (y.float() + b.float()).to(torch.bfloat16)
+    got = dense(x)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    got_y, got_bias = dense.forward_unbiased(x)
+    assert torch.equal(got_y, y) and got_bias is dense.bias
+
+
+@pytest.mark.parametrize("case", ["cpu", "grad", "mesh"])
+def test_torch_glue_gate_picks_eager(case):
+    """The glue's kernels engage on CUDA bf16 tensors only, with autograd
+    recording none of them and no tensor-parallel mesh; the eager functions
+    run for CPU tensors, for inputs that need a gradient and under a mesh."""
+    x = torch.ones((2, 128), dtype=torch.bfloat16)
+    w = torch.ones((128,), dtype=torch.bfloat16)
+    if case == "cpu":
+        assert not fused_glue.engaged(None, x, w, None)
+    elif case == "grad":
+        x.requires_grad_(True)
+        assert not fused_glue.engaged(None, x, w)
+        with torch.no_grad():  # autograd off: the CPU still keeps it eager
+            assert not fused_glue.engaged(None, x, w)
+    else:
+        assert not fused_glue.engaged(object(), x, w)
+    before = fused_glue.counts()
+    fused_glue.take("add_rms_norm", fused_glue.engaged(
+        object() if case == "mesh" else None, x, w))
+    assert fused_glue.counts() == {"fused": before["fused"], "eager": before["eager"] + 1}
+
+
+@pytest.mark.parametrize("qwen3", [False, True], ids=["qwen2", "qwen3"])
+def test_torch_glue_call_sites_stay_eager_on_the_cpu(qwen3):
+    """Every forward passes the glue's call sites once each: per layer the
+    two norms after their residual adds, the qkv epilogue and SiLU * up,
+    then the final norm; on the CPU every one of them runs eagerly."""
+    cfg = _config(qwen3)
+    llm = tquant.init_quantized_params(cfg, torch.Generator().manual_seed(0), "cpu").llm
+    sites = 4 * cfg.llm.num_hidden_layers + 1
+    caches = tkv.allocate(cfg.llm, 2, 16, torch.int8)
+    embeds = torch.randn((2, 4, cfg.llm.hidden_size)).to(torch.bfloat16)
+    positions = torch.arange(4)[None].repeat(2, 1)
+    before = fused_glue.counts()
+    llm(embeds, positions, kv_caches=caches)
+    assert fused_glue.counts() == {"fused": before["fused"], "eager": before["eager"] + sites}
+    pos = torch.full((2, 1), 4, dtype=torch.int32)
+    llm(embeds[:, :1], pos, kv_caches=caches, write_pos=pos,
+        kv_lengths=torch.full((2,), 5, dtype=torch.int32))
+    assert fused_glue.counts() == {"fused": before["fused"],
+                                   "eager": before["eager"] + 2 * sites}

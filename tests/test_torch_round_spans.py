@@ -334,3 +334,20 @@ def test_span_metrics_are_in_the_benchmark():
         assert m["source"] == "program_span" and m["workloads"]
         for cell in m["workloads"]:
             assert name in [p.name for p in bench.cell(cell).per_layer]
+
+
+def test_stats_report_the_glue_calls(tiny):
+    """``stats()`` reports the decoder glue's call sites by path: on the CPU
+    every forward of the model runs them eagerly, 4 a layer and the final
+    norm, and no graph is captured."""
+    from chatts_tpu_torch.ops import fused_glue
+
+    eng = make_engine(tiny, block_budget=0)
+    before = fused_glue.counts()
+    drive(eng)
+    stats = eng.stats()
+    assert stats["glue_calls"] == fused_glue.counts()
+    assert stats["glue_calls"]["fused"] == before["fused"]
+    ran = stats["glue_calls"]["eager"] - before["eager"]
+    assert ran > 0 and ran % (4 * tiny[0].llm.num_hidden_layers + 1) == 0
+    assert stats["graph_captures"] == []
