@@ -1,7 +1,8 @@
 """The benchmark's definition, read from data: ``BENCHMARK.json`` names the
-cells, the configurations and the metrics; each configuration, traffic mix
-and per-layer metric is a file of its own under the benchmark's folder,
-found by its name.  Adding one adds files and entries, and edits none."""
+cells, the configurations and the metrics; each configuration, traffic mix,
+per-layer metric and decoder family is a file of its own under the
+benchmark's folder, found by its name.  Adding one adds files and entries,
+and edits none."""
 from __future__ import annotations
 
 import dataclasses
@@ -40,7 +41,7 @@ class Bench:
         with open(os.path.join(self.root, "BENCHMARK.json")) as f:
             self.spec = json.load(f)
         self.folder = os.path.join(self.root, self.spec["paths"][0])
-        self._readers: Dict[str, ModuleType] = {}
+        self._modules: Dict[str, ModuleType] = {}
 
     def _json(self, path: str) -> dict:
         with open(os.path.join(self.root, path)) as f:
@@ -66,14 +67,26 @@ class Bench:
                      and any(e.name == m["moves"] for e in e2e)]
         return Cell(name, config, traffic, int(w["chips"]), e2e, per_layer)
 
+    def _module(self, kind: str, name: str) -> ModuleType:
+        """``<kind>/<name>.py`` under the benchmark's folder, loaded by path
+        once."""
+        path = os.path.join(self.folder, kind, name + ".py")
+        if path not in self._modules:
+            if not os.path.isfile(path):
+                raise FileNotFoundError(f"no {kind} {name!r}: {path} does not exist")
+            spec = importlib.util.spec_from_file_location(
+                f"port_bench_{kind}_" + name.replace(".", "_").replace("-", "_"), path)
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            self._modules[path] = module
+        return self._modules[path]
+
     def reader(self, metric: str) -> ModuleType:
         """The reader module ``metrics/<metric>.py``: ``read(run)`` gives the
         metric's value, or None where the run holds nothing to read."""
-        if metric not in self._readers:
-            path = os.path.join(self.folder, "metrics", metric + ".py")
-            spec = importlib.util.spec_from_file_location(
-                "port_bench_metric_" + metric.replace(".", "_").replace("-", "_"), path)
-            module = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(module)
-            self._readers[metric] = module
-        return self._readers[metric]
+        return self._module("metrics", metric)
+
+    def family(self, name: str) -> ModuleType:
+        """The decoder family ``families/<name>.py`` that a configuration's
+        ``"family"`` names (``families/__init__.py`` says what it gives)."""
+        return self._module("families", name)

@@ -4,8 +4,11 @@ held to the plain reference.
 Once the window has closed and the program's state is freed, a sample of the
 finished requests, drawn from the seed and holding the one with the most
 served tokens and one admitted by each prefill route that the run took
-(monolithic, block, scan-sliced), is run through the reference (``reference/``): each prompt
-with its served tokens, the logits at every position that produced one.  The
+(monolithic, block, scan-sliced), is run through the reference of the
+configuration's family (``families/<family>.py``, ``logits``, built on
+``reference/``): each prompt with its served tokens, the logits at every
+position that produced one.  The sample, the prompts' encoding and the
+comparison are shared; only the forward pass is the family's.  The
 number compared is the widest gap by which a served token's logit lies below
 the reference's best at its position (greedy tokens only; every mix here is
 greedy).  The configuration's ``check.logit_gap_limit`` bounds it; the
@@ -15,10 +18,10 @@ Beside it, exact counts: every request the run answers for finished, with
 the tokens it asked for, and the reference's processor gives the prompt the
 length the engine admitted.
 
-``control=True`` also reads the control: the reference computed with float8
-activations (``reference/model.py``), the gap of the token it puts first at
-each of the same positions.  The benchmark's runs never read it; the control
-script and its test do.
+``control=True`` also reads the control: the family's reference computed
+with float8 activations (``logits(..., lowered=True)``), the gap of the token
+it puts first at each of the same positions.  The benchmark's runs never
+read it; the control script and its test do.
 """
 from __future__ import annotations
 
@@ -57,9 +60,10 @@ def gaps(ref: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return ref.max(dim=-1).values - ref.gather(1, tokens[:, None])[:, 0]
 
 
-def check(cfg: dict, w: Dict[str, torch.Tensor], records: list, seed: int,
+def check(family, cfg: dict, w: Dict[str, torch.Tensor], records: list, seed: int,
           control: bool = False) -> dict:
-    """The numbers compared, each with its limit, and ``correct``."""
+    """The numbers compared, each with its limit, and ``correct``; ``family``
+    is the configuration's family module, whose ``logits`` is the reference."""
     spec = cfg["check"]
     chosen = sample(records, int(spec["sample_requests"]), seed)
     seqs: List[ref_model.Sequence_] = []
@@ -78,7 +82,7 @@ def check(cfg: dict, w: Dict[str, torch.Tensor], records: list, seed: int,
     gap = lowered_gap = 0.0
     detail = []
     if seqs:
-        ref = ref_model.logits(cfg, w, seqs)
+        ref = family.logits(cfg, w, seqs)
         per = [gaps(lg, tok) for lg, tok in zip(ref, served)]
         gap = max(float(g.max()) for g in per)
         for r, g, lg, tok in zip(chosen, per, ref, served):
@@ -95,7 +99,7 @@ def check(cfg: dict, w: Dict[str, torch.Tensor], records: list, seed: int,
                 worst=[(int(i), int(tok[i]), int(lg[i].argmax()), round(float(g[i]), 4))
                        for i in g.topk(min(5, g.numel())).indices if g[i] > 0]))
         if control:
-            low = ref_model.logits(cfg, w, seqs, lowered=True)
+            low = family.logits(cfg, w, seqs, lowered=True)
             lowered_gap = max(float(gaps(lg, lo.argmax(dim=-1)).max())
                               for lg, lo in zip(ref, low))
     short = sum(1 for r in records if not r.ok or r.tokens != r.spec.max_tokens)

@@ -4,9 +4,9 @@
 
 For each seed a run of the cell (set-up, ramp, a window of ``--seconds``,
 the drain) and the check, which reads beside the program's widest logit gap
-the control's: the reference computed with float8 activations
-(``reference/model.py``, ``lowered=True``), put in the program's place at
-the same positions.  The limit of ``check.logit_gap_limit`` lies between the
+the control's: the family's reference computed with float8 activations
+(``families/<family>.py``, ``logits(..., lowered=True)``), put in the
+program's place at the same positions.  The limit of ``check.logit_gap_limit`` lies between the
 largest program reading over a dozen seeds or more and the smallest control
 reading (PERF.md gives both).  Prints one JSON line a seed, and with
 ``--rate`` (an open loop) the knee sweep's readings: the waiting queue at

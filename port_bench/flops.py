@@ -1,5 +1,7 @@
-"""Peaks, bounds and model FLOPs: the arithmetic behind every roofline and
-utilization the benchmark reports.
+"""Peaks and kernel bounds: the arithmetic behind every roofline and
+utilization the benchmark reports, shared by every family.  A family gives
+its own model FLOPs (``request_flops``) and the bound of each of its
+launches, from these.
 
 The peaks are NVIDIA's data sheet figures for one H100 SXM at its full power
 limit of 700 W (dense, no sparsity).  A launch's bound is the larger of its
@@ -9,7 +11,7 @@ of ``chip_smoke.py``'s ``bound`` and ``int4_bound``, copied).
 """
 from __future__ import annotations
 
-from typing import Iterable, Tuple
+from typing import Iterable
 
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_S = 989e12
@@ -48,55 +50,3 @@ def span_pairs(start: int, stop: int) -> int:
     """Causal pairs of the queries at positions [start, stop) of one prompt,
     each attending every position up to its own: sum of (q + 1)."""
     return (stop * (stop + 1) - start * (start + 1)) // 2 if stop > start else 0
-
-
-def layer_matmul_params(cfg: dict) -> int:
-    """The projection weights of one decoder layer."""
-    hid, inter = cfg["hidden_size"], cfg["intermediate_size"]
-    h, kvh, d = cfg["num_attention_heads"], cfg["num_key_value_heads"], cfg["head_dim"]
-    return hid * (h + 2 * kvh) * d + h * d * hid + hid * 2 * inter + inter * hid
-
-
-def token_flops(cfg: dict, context: int) -> float:
-    """Forward FLOPs of one token that attends ``context`` keys, without the
-    head: 2 per projection weight, 4 head_dim a key and head."""
-    n, h, d = cfg["num_hidden_layers"], cfg["num_attention_heads"], cfg["head_dim"]
-    return n * (2.0 * layer_matmul_params(cfg) + 4.0 * h * d * context)
-
-
-def head_flops(cfg: dict) -> float:
-    return 2.0 * cfg["hidden_size"] * cfg["vocab_size"]
-
-
-def prefill_flops(cfg: dict, prompt: int) -> float:
-    """A whole prompt's prefill: every token, attending its causal prefix,
-    and the head once (the first token's logits)."""
-    n, h, d = cfg["num_hidden_layers"], cfg["num_attention_heads"], cfg["head_dim"]
-    return (prompt * n * 2.0 * layer_matmul_params(cfg)
-            + n * 4.0 * h * d * prefix_pairs([prompt]) + head_flops(cfg))
-
-
-def decode_flops(cfg: dict, prompt: int, first: int, count: int) -> float:
-    """Output tokens ``first`` .. ``first + count - 1`` (0 is the prefill's):
-    token j runs output j - 1 at position prompt + j - 1, attending
-    prompt + j keys, and the head."""
-    n, h, d = cfg["num_hidden_layers"], cfg["num_attention_heads"], cfg["head_dim"]
-    keys = span_pairs(prompt + first - 1, prompt + first - 1 + count)
-    return count * (n * 2.0 * layer_matmul_params(cfg) + head_flops(cfg)) + n * 4.0 * h * d * keys
-
-
-def request_flops(cfg: dict, prompt: int, puts: Iterable[Tuple[float, int]]):
-    """(time, FLOPs) of each delivery of one request's tokens: the first
-    carries the prefill, the rest the decode steps that made them."""
-    out, done = [], 0
-    for t, n in puts:
-        f = 0.0
-        if done == 0:
-            f += prefill_flops(cfg, prompt)
-            if n > 1:
-                f += decode_flops(cfg, prompt, 1, n - 1)
-        else:
-            f += decode_flops(cfg, prompt, done, n)
-        out.append((t, f))
-        done += n
-    return out

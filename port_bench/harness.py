@@ -1,7 +1,9 @@
 """One run of one cell: the port's ``ServeEngine`` under the cell's traffic,
 its metrics, and the check of what it served.
 
-The run builds the weights on the device from the seed, builds the engine
+The run builds the weights on the device from the seed and the port's model
+from them, both by the configuration's decoder family
+(``families/<family>.py``), builds the engine
 (``configs/<config>.json``'s ``engine``), captures the graph of every
 scan-sliced round that a wave of the mix can run (``capture_mixed``), and
 starts the traffic: its ramp is the rest of the warm-up, so the window opens
@@ -9,7 +11,7 @@ on an engine that has admitted, captured its decode graph and reached the
 mix's steady state with this cell's own shapes and no others.  Set-up is everything from the process's start to the
 window's opening.  After the window the requests due in it are drained, the
 peak memory is read, the engine is freed, and a sample of what it served is
-held to the plain reference (``check.py``).
+held to the family's plain reference (``check.py``).
 
 Timing is by the host clock throughout: every request records when each of
 its tokens reached its stream (``_Stream``), and every engine round when it
@@ -24,12 +26,13 @@ import queue
 import sys
 import time
 import traceback
+from types import ModuleType
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from port_bench import check, stats, weights
+from port_bench import check, stats
 from port_bench.cells import Bench, Cell
 from port_bench.reference.processor import WordTokenizer
 from port_bench.trace import Tracer
@@ -156,8 +159,9 @@ class RoundClock:
 
 @dataclasses.dataclass
 class RunRecord:
-    """What the per-layer readers read: the configuration, the rounds of the
-    measured part of the window, the requests, and a traced run's trace."""
+    """What the per-layer readers read: the configuration and its family,
+    the rounds of the measured part of the window, the requests, and a traced
+    run's trace."""
 
     cfg: dict
     engine: dict
@@ -165,9 +169,12 @@ class RunRecord:
     span: Tuple[float, float]  # first and last round end of the measured part
     records: List[Record]
     trace: Optional[dict]
+    family: Optional[ModuleType] = None
 
 
 def engine_kwargs(cfg: dict) -> dict:
+    """The ``ServeEngine``'s keyword arguments from the configuration's
+    ``engine``, unless its family gives its own (``engine_kwargs``)."""
     e = dict(cfg["engine"])
     e["cache_dtype"] = {"int8": torch.int8, "bfloat16": torch.bfloat16}[e["cache_dtype"]]
     return e
@@ -370,16 +377,17 @@ def run(bench: Bench, name: str, seed: int, seconds: float, trace: bool, t0: flo
         # first run in a checkout compiles them.
         from chatts_tpu_torch.kernels import build
         build.build()
-    w = weights.make(cfg, seed, dev)
-    pcfg, model = weights.port_model(cfg, w)
+    family = bench.family(cfg["family"])
+    w = family.make(cfg, seed, dev)
+    pcfg, model = family.port_model(cfg, w)
     processor = ChatTSProcessor(WordTokenizer(), pcfg)
     processor(["build <ts><ts/>"], [np.zeros(16)])
-    tracer = Tracer(cfg) if trace else None
+    tracer = Tracer(cfg, family) if trace else None
     if tracer is not None:
         tracer.install()
     try:
         engine = ServeEngine(model, pcfg, processor, device=dev, seed=seed % (1 << 63),
-                             **engine_kwargs(cfg))
+                             **getattr(family, "engine_kwargs", engine_kwargs)(cfg))
         if tracer is not None:
             tracer.attach(engine)
         clock = RoundClock(engine, tracer)
@@ -418,7 +426,7 @@ def run(bench: Bench, name: str, seed: int, seconds: float, trace: bool, t0: flo
         span = stats.round_window(clock.stamps(), w_info["t_open"], hi) or (0.0, 0.0)
         rounds = [e for e in clock.entries if span[0] < e["t"] <= span[1]]
         summary = tracer.read() if traced else None
-        run_record = RunRecord(cfg, cfg["engine"], rounds, span, records, summary)
+        run_record = RunRecord(cfg, cfg["engine"], rounds, span, records, summary, family)
         routes: Dict[str, int] = {}
         for r in due:
             routes[str(r.route)] = routes.get(str(r.route), 0) + 1
@@ -435,7 +443,7 @@ def run(bench: Bench, name: str, seed: int, seconds: float, trace: bool, t0: flo
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    verdict = check.check(cfg, w, due, seed, control=control)
+    verdict = check.check(family, cfg, w, due, seed, control=control)
     del w
     gc.collect()
     if dev.type == "cuda":

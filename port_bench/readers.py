@@ -65,7 +65,7 @@ def _round_flops(run):
     lo = run.span[0]
     for rec in run.records:
         prompt = rec.req.prompt_tokens if rec.req is not None else 0
-        for t, f in flops.request_flops(run.cfg, prompt, rec.puts):
+        for t, f in run.family.request_flops(run.cfg, prompt, rec.puts):
             if not (lo < t <= ends[-1]):
                 continue
             i = bisect.bisect_left(ends, t)
@@ -75,7 +75,8 @@ def _round_flops(run):
 
 def mfu_pct(run, kinds=None) -> Optional[float]:
     """Model FLOPs of the tokens the rounds (of ``kinds``, all when None)
-    delivered, over their host seconds at the bf16 peak."""
+    delivered (the family's ``request_flops``), over their host seconds at
+    the bf16 peak."""
     pairs = [(r, f) for r, f in _round_flops(run) if kinds is None or r["kind"] in kinds]
     seconds = sum(r["round_s"] for r, _ in pairs)
     work = sum(f for _, f in pairs)
@@ -85,13 +86,14 @@ def mfu_pct(run, kinds=None) -> Optional[float]:
 
 
 def roofline_pct(run, kernel: str) -> Optional[float]:
-    """The recorded launches' bounds over the kernel's device time in the
-    traced sub-window."""
+    """The recorded launches' bounds over the device time of the kernels of
+    ``kernel``, a key of the family's ``KERNELS``, in the traced sub-window;
+    None where a launch's bound was unknown."""
     tr = run.trace
-    if tr is None:
+    if tr is None or f"{kernel}_device_s" not in tr:
         return None
     device, bound = tr[f"{kernel}_device_s"], tr[f"{kernel}_bound_s"]
-    if device <= 0 or bound <= 0 or (kernel == "flash" and tr["flash_unknown"]):
+    if device <= 0 or bound <= 0 or tr[f"{kernel}_unknown"]:
         return None
     return 100.0 * bound / device
 

@@ -1,23 +1,15 @@
-"""ChatTS's forward pass in plain PyTorch, float32, TF32 off.
+"""The pieces of ChatTS's forward pass that every family's reference shares,
+in plain PyTorch, float32, TF32 off (``full_f32``): the patch encoder, an MLP
+with exact GELU between its layers over patches of ``patch_size`` values (a
+series padded to whole patches with its last value), whose embeddings
+replace those of the placeholder tokens; RMSNorm; rotate-half RoPE (inverse
+frequencies theta ** (-2i / head_dim)) at positions 0 .. T - 1; causal
+grouped-query attention; the unpacking of the benchmark's int4 bytes and
+group scales to float32; and the float8 e4m3 rounding of the control, each
+row scaled by its largest magnitude over 448.
 
-Qwen2 (qkv bias) or Qwen3 (per-head RMSNorm on q and k, no bias) decoder
-layers: x + attn(rmsnorm(x)), then x + mlp(rmsnorm(x)); attention is causal
-grouped-query attention with rotate-half RoPE (inverse frequencies
-theta ** (-2i / head_dim)) at positions 0 .. T - 1; the MLP is
-down(silu(gate(x)) * up(x)); a final RMSNorm and the head give the logits.
-The series go through the patch encoder, an MLP with exact GELU between its
-layers over patches of ``patch_size`` values (a series padded to whole
-patches with its last value), and each patch's embedding replaces the
-embedding of its placeholder token.
-
-Every int4 projection is unpacked from the benchmark's bytes here and
-multiplied by its group scales in float32, one layer at a time, and the whole
-of every sequence is computed: no cache.  ``lowered=True`` is the control,
-the reference computed a precision below the bfloat16 the configurations
-state: every tensor the program holds in bfloat16 (the merged embeddings,
-the residual stream after each add, each norm's output, q, k and v, the
-attention output, each projection's output, the MLP's activation) is
-rounded to float8 e4m3, each row scaled by its largest magnitude over 448.
+A family's reference (``families/<family>.py``, ``logits``) builds its
+decoder from these and computes the whole of every ``Sequence_``: no cache.
 """
 from __future__ import annotations
 
@@ -116,53 +108,3 @@ class Sequence_:
     def __init__(self, ids: List[int], values: List[np.ndarray], starts: List[int],
                  wanted: Sequence[int]):
         self.ids, self.values, self.starts, self.wanted = ids, values, starts, list(wanted)
-
-
-@torch.no_grad()
-def logits(cfg: dict, w: Dict[str, torch.Tensor], seqs: List[Sequence_],
-           lowered: bool = False) -> List[torch.Tensor]:
-    """The logits (len(wanted), vocab) float32 of every sequence, computed
-    layer by layer over all of them (one layer's weights unpacked at a
-    time)."""
-    dev = w["embed"].device
-    eps, theta = cfg["rms_norm_eps"], cfg["rope_theta"]
-    h, kvh, d = cfg["num_attention_heads"], cfg["num_key_value_heads"], cfg["head_dim"]
-    inter = cfg["intermediate_size"]
-
-    def lo(x):
-        return to_fp8(x) if lowered else x
-
-    with full_f32():
-        xs = []
-        for s in seqs:
-            x = w["embed"][torch.as_tensor(s.ids, device=dev)].float()
-            for values, start in zip(s.values, s.starts):
-                e = patch_embeddings(cfg, w, values, dev)
-                x[start:start + e.shape[0]] = e
-            xs.append(lo(x))
-        for i in range(cfg["num_hidden_layers"]):
-            wq = {n: unpack_int4(w[f"{n}.q4"][i], w[f"{n}.s4"][i])
-                  for n in ("qkv", "o", "gate_up", "down")}
-            for j, x in enumerate(xs):
-                t = x.shape[0]
-                qkv = lo(rms_norm(x, w["ln1"][i], eps)) @ wq["qkv"]
-                if cfg["attention_bias"]:
-                    qkv = qkv + w["qkv.bias"][i].float()
-                q, k, v = lo(qkv).split([h * d, kvh * d, kvh * d], dim=-1)
-                q, k, v = q.reshape(t, h, d), k.reshape(t, kvh, d), v.reshape(t, kvh, d)
-                if cfg["qk_norm"]:
-                    q = lo(rms_norm(q, w["q_norm"][i], eps))
-                    k = lo(rms_norm(k, w["k_norm"][i], eps))
-                q, k = lo(rope(q, theta)), lo(rope(k, theta))
-                att = lo(causal_attention(q, k, v))
-                x = lo(x + lo(att @ wq["o"]))
-                gate, up = lo(lo(rms_norm(x, w["ln2"][i], eps)) @ wq["gate_up"]).split(
-                    [inter, inter], dim=-1)
-                xs[j] = lo(x + lo(lo(F.silu(gate) * up) @ wq["down"]))
-            del wq
-        head = unpack_int4(w["head.q4"], w["head.s4"])
-        out = []
-        for s, x in zip(seqs, xs):
-            hidden = lo(rms_norm(x[torch.as_tensor(s.wanted, device=dev)], w["norm"], eps))
-            out.append(hidden @ head)
-        return out

@@ -1,13 +1,16 @@
 """FLOP, byte and bound counts against numbers worked by hand, for both
-configurations."""
+configurations: the shared bounds (``flops.py``) and the Qwen family's model
+FLOPs."""
 import json
 import os
 
 import pytest
 
 from port_bench import flops
+from port_bench.cells import Bench
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+QWEN = Bench(os.path.join(HERE, "..", "..")).family("qwen")
 
 
 def config(name):
@@ -17,10 +20,10 @@ def config(name):
 
 def test_layer_params():
     # 14B: 5120 x 7168 (q 5120, k and v 1024 each) + 5120 x 5120 + 5120 x 27648 + 13824 x 5120
-    assert flops.layer_matmul_params(config("chatts-14b-int4")) == 36_700_160 + 26_214_400 \
+    assert QWEN.layer_matmul_params(config("chatts-14b-int4")) == 36_700_160 + 26_214_400 \
         + 141_557_760 + 70_778_880
     # Qwen3-8B: 4096 x 6144 + 4096 x 4096 + 4096 x 24576 + 12288 x 4096
-    assert flops.layer_matmul_params(config("qwen3-8b-ts-int4")) == 25_165_824 + 16_777_216 \
+    assert QWEN.layer_matmul_params(config("qwen3-8b-ts-int4")) == 25_165_824 + 16_777_216 \
         + 100_663_296 + 50_331_648
 
 
@@ -45,11 +48,11 @@ def test_flash_bound_and_pairs():
 
 def test_request_flops():
     cfg = config("chatts-14b-int4")
-    layer = 2.0 * flops.layer_matmul_params(cfg)
+    layer = 2.0 * QWEN.layer_matmul_params(cfg)
     per_key = 4.0 * 40 * 128
     head = 2.0 * 5120 * 152064
     # a prompt of 10 tokens, then deliveries of 1 and 2 tokens
-    got = flops.request_flops(cfg, 10, [(1.0, 1), (2.0, 2)])
+    got = QWEN.request_flops(cfg, 10, [(1.0, 1), (2.0, 2)])
     prefill = 10 * 48 * layer + 48 * per_key * 55 + head
     # outputs 1 and 2 run at positions 10 and 11, attending 11 and 12 keys
     decode = 2 * (48 * layer + head) + 48 * per_key * (11 + 12)

@@ -159,9 +159,10 @@ def test_no_jax_and_reference_alone():
     code = (
         "import sys, time, torch; torch.set_num_threads(2)\n"
         "import port_bench.reference.model, port_bench.reference.processor\n"
+        "from port_bench.cells import Bench\n"
+        f"Bench({ROOT!r}).family('qwen')\n"
         "assert not [m for m in sys.modules if m.split('.')[0].startswith('chatts_tpu')]\n"
         "from port_bench import harness, run\n"
-        "from port_bench.cells import Bench\n"
         f"harness.run(Bench({FIXTURE!r}), 'tiny.tiny_open', 5, 1.0, False, time.perf_counter(),"
         " device='cpu')\n"
         "print(run.forbidden_modules())\n")

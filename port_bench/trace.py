@@ -1,29 +1,34 @@
-"""What a traced run (``--trace 1``) adds: the shapes of the port's kernel
+"""What a traced run (``--trace 1``) adds: the bounds of the port's kernel
 launches, labels for what the host is doing, and a ``torch.profiler`` trace
 of a steady sub-window, reduced to device time by kernel, busy time, idle
 gaps and the bounds of the launches the sub-window ran.
 
-The profiler sees the kernels inside a CUDA graph's replay (checked on the
-H100 with PyTorch 2.11 and CUDA 12.8), so a replayed launch counts at the
-shape it was captured with: while a graph is captured, the wrappers record
-the shapes of one step, and each replay of that step is counted with them.
-A scan-sliced round's prefill attention changes its query span every step,
-so its bounds are worked out from the admission the round consumes.
+Which kernels there are, and how each launch's bound follows from its
+arguments, is the configuration's family's (``families/<family>.py``:
+``KERNELS``, ``spies``, ``mixed_launches``); the counting is shared.  A
+family's wrappers stand in for the port's Python entry points and hand each
+launch to the tracer, which counts it under the family's key: at once while
+the sub-window records, or, while the engine captures a CUDA graph, with
+the capture.  The profiler sees the kernels inside a graph's replay (checked
+on the H100 with PyTorch 2.11 and CUDA 12.8), so each replay of a captured
+step counts the step's launches at the shapes they were captured with.  A
+launch whose shapes a capture cannot give (a scan-sliced round's prefill
+attention changes its query span every step) is counted eagerly only, and
+the family works out the mixed step's from the admission the round consumes.
+The wrappers record host numbers only and launch nothing.
 
-The wrappers stand in for the names ``models/qwen.py`` calls
-(``int4_matmul``, ``attention``) and for the engine's graph classes; they
-record host tuples only and launch nothing.  Every profiler call is made on
-the engine's thread, between rounds, right after a round's host fetch, when
-the device has finished the round and no other thread launches work: the
-profiler is started and stopped once after the first round (its first start
-takes seconds), and the sub-window, the profiler and the recording of
-launches start and stop together at two round ends.  The profiler's state
-belongs to the thread that started it; started or stopped from the main
-thread while the engine launched graphs, it hung one run and crashed others
-on the card.  Its stop takes seconds of the engine's thread, in the drain,
-which is why a mix's ``drain_s`` leaves room.  Host phases (a round's
-dispatch, the fetch, an admission) are noted on the host clock and mapped
-onto the trace's clock through a marker recorded at a known host time.
+Every profiler call is made on the engine's thread, between rounds, right
+after a round's host fetch, when the device has finished the round and no
+other thread launches work: the profiler is started and stopped once after
+the first round (its first start takes seconds), and the sub-window, the
+profiler and the recording of launches start and stop together at two round
+ends.  The profiler's state belongs to the thread that started it; started
+or stopped from the main thread while the engine launched graphs, it hung
+one run and crashed others on the card.  Its stop takes seconds of the
+engine's thread, in the drain, which is why a mix's ``drain_s`` leaves room.
+Host phases (a round's dispatch, the fetch, an admission) are noted on the
+host clock and mapped onto the trace's clock through a marker recorded at a
+known host time.
 """
 from __future__ import annotations
 
@@ -31,15 +36,13 @@ import json
 import os
 import tempfile
 import time
-from typing import Dict, List, Optional, Tuple
+from types import ModuleType
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from port_bench import flops
 from port_bench.stats import merge_intervals
 
-INT4_KERNELS = ("int4_mma_kernel", "int4_splitk_reduce_kernel")
-FLASH_KERNELS = ("flash_mma_kernel",)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SYNC = "port_bench.sync"
 
@@ -49,16 +52,17 @@ def _capturing() -> bool:
 
 
 class Tracer:
-    def __init__(self, cfg: dict):
+    def __init__(self, cfg: dict, family: ModuleType):
         self.cfg = cfg
+        self.family = family
         self.recording = False
-        self._capture: Optional[List[Tuple[int, int, int]]] = None
-        self.int4_bound = 0.0
-        self.int4_calls = 0
-        self.flash_bound = 0.0
-        self.flash_calls = 0
-        self._flash_eager: List[tuple] = []
-        self.flash_unknown = 0
+        # While a graph is captured: its launches' bounds by key.
+        self._capture: Optional[Dict[str, List[float]]] = None
+        keys = list(family.KERNELS)
+        self.calls: Dict[str, int] = dict.fromkeys(keys, 0)
+        self.bound: Dict[str, float] = dict.fromkeys(keys, 0.0)
+        self.unknown: Dict[str, int] = dict.fromkeys(keys, 0)
+        self._eager: List[Tuple[str, Callable, tuple]] = []  # bounds worked out at read
         self.replays: Dict[str, int] = {}
         self._saved: List[tuple] = []
         self.warmed = False
@@ -69,65 +73,68 @@ class Tracer:
         self.window: Optional[Tuple[float, float]] = None  # host clock
         self.phases: List[Tuple[float, float, str]] = []  # host clock
 
+    # -- what the family's wrappers call ---------------------------------------
+
+    def launch(self, key: str, bound: Callable[..., float], *args) -> None:
+        """A launch of ``key`` whose bound is ``bound(*args)``: recorded with
+        the graph being captured (each replay counts it), else counted while
+        the sub-window records."""
+        if _capturing():
+            if self._capture is not None:
+                self._capture.setdefault(key, []).append(bound(*args))
+        elif self.recording:
+            self.calls[key] += 1
+            self.bound[key] += bound(*args)
+
+    def counts_eager(self) -> bool:
+        """Whether an eager launch counts now: the sub-window records and no
+        graph is being captured."""
+        return self.recording and not _capturing()
+
+    def eager(self, key: str, bound: Optional[Callable[..., float]], *args) -> None:
+        """An eager launch of ``key`` (``counts_eager``), its bound
+        ``bound(*args)`` worked out when the trace is read, or None where it
+        cannot be: then the kernel's roofline is not read."""
+        if bound is None:
+            self.unknown[key] += 1
+        else:
+            self._eager.append((key, bound, args))
+
     # -- wrappers -------------------------------------------------------------
 
     def install(self) -> None:
-        """Put the wrappers in place; before the engine is built, so that
-        every graph it captures is recorded."""
-        from chatts_tpu_torch.models import qwen
+        """Put the family's wrappers and the graph classes' in place; before
+        the engine is built, so that every graph it captures is recorded."""
         from chatts_tpu_torch.serve import scheduler
 
         tracer = self
-        int4, attention = qwen.int4_matmul, qwen.attention
-
-        def int4_spy(x, packed, scales, *args, **kw):
-            shape = (x.shape[0], x.shape[1], packed.shape[1])
-            if _capturing():
-                if tracer._capture is not None:
-                    tracer._capture.append(shape)
-            elif tracer.recording:
-                tracer.int4_calls += 1
-                tracer.int4_bound += flops.int4_bound_s(*shape)
-            return int4(x, packed, scales, *args, **kw)
-
-        def attention_spy(q, k, v, **kw):
-            if tracer.recording and not _capturing():
-                # A prompt block's prefill attends the block itself: queries
-                # and keys at positions 0 .. T - 1, valid below each length.
-                if kw.get("impl", "auto") == "auto" and q.shape[1] == k.shape[1]:
-                    tracer._flash_eager.append((q.shape[2], k.shape[2], q.shape[3],
-                                                kw["kv_valid"]))
-                else:
-                    tracer.flash_unknown += 1
-            return attention(q, k, v, **kw)
 
         def graph_class(base, kind):
             class Recorded(base):
                 def __init__(self, *args, **kw):
-                    tracer._capture = []
+                    tracer._capture = {}
                     try:
                         super().__init__(*args, **kw)
                     finally:
-                        self.bench_int4, tracer._capture = tracer._capture, None
+                        self.bench_launches, tracer._capture = tracer._capture, None
 
                 def round(self):
                     if tracer.recording:
                         n = self.chunk_size
-                        tracer.int4_calls += n * len(self.bench_int4)
-                        tracer.int4_bound += n * sum(flops.int4_bound_s(*s)
-                                                     for s in self.bench_int4)
+                        for key, bounds in self.bench_launches.items():
+                            tracer.calls[key] += n * len(bounds)
+                            tracer.bound[key] += n * sum(bounds)
                         tracer.replays[kind] = tracer.replays.get(kind, 0) + n
                     return super().round()
 
             Recorded.__name__ = base.__name__
             return Recorded
 
-        for owner, name, value in (
-                (qwen, "int4_matmul", int4_spy), (qwen, "attention", attention_spy),
+        for owner, name, value in self.family.spies(self) + [
                 (scheduler, "_DecodeStepGraph",
                  graph_class(scheduler._DecodeStepGraph, "decode")),
                 (scheduler, "_MixedStepGraph",
-                 graph_class(scheduler._MixedStepGraph, "mixed"))):
+                 graph_class(scheduler._MixedStepGraph, "mixed"))]:
             self._saved.append((owner, name, getattr(owner, name)))
             setattr(owner, name, value)
 
@@ -137,8 +144,9 @@ class Tracer:
         self._saved = []
 
     def attach(self, engine) -> None:
-        """Note the engine's host phases while the profiler runs, and work
-        out the prefill attention bounds of each scan-sliced round."""
+        """Note the engine's host phases while the profiler runs, and count
+        the launches of each scan-sliced round that its capture cannot give
+        (the family's ``mixed_launches``)."""
         tracer = self
         op_round, admit, complete = engine._op_round, engine._admit, engine._complete_round
         dispatch_mixed = engine._dispatch_mixed
@@ -160,32 +168,15 @@ class Tracer:
 
         def mixed_round():
             if tracer.recording:
-                tracer._mixed_flash(engine)
+                for key, calls, bound in tracer.family.mixed_launches(tracer.cfg, engine):
+                    tracer.calls[key] += calls
+                    tracer.bound[key] += bound
             return dispatch_mixed()
 
         engine._op_round = noted(round_kind, op_round)
         engine._admit = noted(lambda: "admit", admit)
         engine._complete_round = noted(lambda: "fetch", complete)
         engine._dispatch_mixed = mixed_round
-
-    def _mixed_flash(self, engine) -> None:
-        """The prefill attention launches of the scan-sliced round about to
-        run: ``decode_chunk`` steps, each taking ``npt`` prompt tokens of
-        every row from the round's offset, each query attending its causal
-        prefix."""
-        st = engine._pending_mixed
-        cfg = self.cfg
-        lengths = [r.prompt_tokens for r in st["reqs"]]
-        npt, o = st["npt"], st["o"]
-        for s in range(engine.decode_chunk):
-            start = o + s * npt
-            queries = sum(max(0, min(start + npt, n) - start) for n in lengths)
-            keys = sum(min(n, start + npt) for n in lengths if start < n)
-            pairs = sum(flops.span_pairs(start, min(start + npt, n)) for n in lengths)
-            one = flops.flash_bound_s(cfg["num_attention_heads"], cfg["num_key_value_heads"],
-                                      cfg["head_dim"], queries, keys, pairs)
-            self.flash_bound += cfg["num_hidden_layers"] * one
-            self.flash_calls += cfg["num_hidden_layers"]
 
     # -- the profiled sub-window ---------------------------------------------
 
@@ -234,13 +225,13 @@ class Tracer:
     def read(self) -> dict:
         """Reduce the trace: device seconds by kernel, busy and window
         seconds, the idle gaps labelled by the host phase they began in, and
-        the bounds of the recorded launches."""
-        for h, kvh, d, valid in self._flash_eager:
-            lens = valid.sum(dim=1).tolist()
-            self.flash_bound += flops.flash_bound_s(
-                h, kvh, d, sum(lens), sum(lens), flops.prefix_pairs(lens))
-            self.flash_calls += 1
-        self._flash_eager = []
+        for each of the family's kernel keys its device seconds, its
+        recorded launches' bounds and count, and its launches of unknown
+        bound (``<key>_device_s``, ``_bound_s``, ``_calls``, ``_unknown``)."""
+        for key, bound, args in self._eager:
+            self.bound[key] += bound(*args)
+            self.calls[key] += 1
+        self._eager = []
         fd, path = tempfile.mkstemp(suffix=".json")
         os.close(fd)
         try:
@@ -278,12 +269,12 @@ class Tracer:
             busy_s=sum(t - s for s, t in busy) * 1e-6,
             by_kernel=by_kernel,
             gaps=[(label, g * 1e-6) for g, label in gaps],
-            int4_device_s=total(INT4_KERNELS), int4_bound_s=self.int4_bound,
-            int4_calls=self.int4_calls,
-            flash_device_s=total(FLASH_KERNELS), flash_bound_s=self.flash_bound,
-            flash_calls=self.flash_calls, flash_unknown=self.flash_unknown,
-            graph_replays=dict(self.replays),
         )
+        for key, names in self.family.KERNELS.items():
+            summary.update({f"{key}_device_s": total(names), f"{key}_bound_s": self.bound[key],
+                            f"{key}_calls": self.calls[key],
+                            f"{key}_unknown": self.unknown[key]})
+        summary["graph_replays"] = dict(self.replays)
         self._prof = None
         return summary
 
