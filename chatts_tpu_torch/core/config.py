@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,10 +126,112 @@ class QwenConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoonlightConfig:
+    """Decoder config of the DeepSeek-V3 block (``model_type``
+    ``deepseek_v3``) at Moonlight-16B-A3B's widths by default: multi-head
+    latent attention (MLA) without a q LoRA, and sparse experts.
+
+    - Attention: q is one ``hidden -> heads * (nope + rope)`` projection;
+      ``kv_a`` maps ``hidden -> kv_lora_rank + rope``, a latent ``c_kv``
+      (RMSNorm'd) and one rope key shared by the heads; ``kv_b`` maps the
+      latent to each head's ``nope`` key and ``v_head_dim`` value.  The
+      softmax scale is ``(nope + rope) ** -0.5`` (no rope scaling).
+    - Feed-forward: the first ``first_k_dense_replace`` layers are a dense
+      SiLU MLP of ``intermediate_size``; every later layer routes each token
+      to ``num_experts_per_tok`` of ``n_routed_experts`` experts of
+      ``moe_intermediate_size`` (sigmoid scores, top-k on score + bias,
+      weights normalised and scaled by ``routed_scaling_factor``) and adds
+      ``n_shared_experts`` shared experts, which act as one MLP of
+      ``n_shared_experts * moe_intermediate_size``.
+    """
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 50000.0
+    max_position_embeddings: int = 8192
+    tie_word_embeddings: bool = False
+    dtype: str = "bfloat16"
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def head_dim(self) -> int:
+        """The rope width, as ``transformers``' ``DeepseekV3Config.head_dim``:
+        the width of the cos/sin tables."""
+        return self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Width of a latent cache row: the normed ``c_kv`` and the roped key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @classmethod
+    def from_hf_dict(cls, d: Mapping[str, Any]) -> "MoonlightConfig":
+        if d.get("q_lora_rank") is not None:
+            raise NotImplementedError("a q LoRA (q_lora_rank) is not ported")
+        if int(d.get("n_group", 1)) != 1 or int(d.get("topk_group", 1)) != 1:
+            raise NotImplementedError("group-limited routing (n_group > 1) is not ported")
+        if d.get("rope_scaling"):
+            raise NotImplementedError("rope scaling is not ported")
+        if d.get("moe_layer_freq", 1) != 1:
+            raise NotImplementedError("moe_layer_freq other than 1 is not ported")
+        return cls(
+            vocab_size=int(d["vocab_size"]),
+            hidden_size=int(d["hidden_size"]),
+            intermediate_size=int(d["intermediate_size"]),
+            moe_intermediate_size=int(d["moe_intermediate_size"]),
+            num_hidden_layers=int(d["num_hidden_layers"]),
+            num_attention_heads=int(d["num_attention_heads"]),
+            kv_lora_rank=int(d["kv_lora_rank"]),
+            qk_nope_head_dim=int(d["qk_nope_head_dim"]),
+            qk_rope_head_dim=int(d["qk_rope_head_dim"]),
+            v_head_dim=int(d["v_head_dim"]),
+            n_routed_experts=int(d["n_routed_experts"]),
+            n_shared_experts=int(d.get("n_shared_experts") or 0),
+            num_experts_per_tok=int(d["num_experts_per_tok"]),
+            first_k_dense_replace=int(d.get("first_k_dense_replace", 0)),
+            routed_scaling_factor=float(d.get("routed_scaling_factor", 1.0)),
+            norm_topk_prob=bool(d.get("norm_topk_prob", True)),
+            rms_norm_eps=float(d.get("rms_norm_eps", 1e-6)),
+            rope_theta=float(d.get("rope_theta", 10000.0)),
+            max_position_embeddings=int(d.get("max_position_embeddings", 4096)),
+            tie_word_embeddings=bool(d.get("tie_word_embeddings", False)),
+        )
+
+
+DecoderConfig = Union[QwenConfig, MoonlightConfig]
+
+
+def decoder_config_from_hf_dict(d: Mapping[str, Any]) -> DecoderConfig:
+    """The decoder config a checkpoint's ``config.json`` describes:
+    ``MoonlightConfig`` for ``model_type`` ``deepseek_v3``, else Qwen."""
+    if d.get("model_type") == "deepseek_v3":
+        return MoonlightConfig.from_hf_dict(d)
+    return QwenConfig.from_hf_dict(d)
+
+
+@dataclasses.dataclass(frozen=True)
 class ChatTSConfig:
     """Full model config: decoder + TS encoder + multimodal token contract."""
 
-    llm: QwenConfig = dataclasses.field(default_factory=QwenConfig)
+    llm: DecoderConfig = dataclasses.field(default_factory=QwenConfig)
     ts: TSEncoderConfig = dataclasses.field(default_factory=TSEncoderConfig)
     # Token id of <ts>; <ts/> is ts_token_start_index + 1
     # (reference: chatts/vllm/chatts_vllm.py:376,441).
@@ -143,7 +245,7 @@ class ChatTSConfig:
     @classmethod
     def from_hf_dict(cls, d: Mapping[str, Any]) -> "ChatTSConfig":
         return cls(
-            llm=QwenConfig.from_hf_dict(d),
+            llm=decoder_config_from_hf_dict(d),
             ts=TSEncoderConfig.from_dict(d.get("ts", {})),
             ts_token_start_index=int(d.get("ts_token_start_index", 151666)),
         )

@@ -4,6 +4,15 @@
 // Replaces chatts_tpu/ops/flash_attention.py::flash_attention (Pallas body
 // `_flash_kernel`).
 //
+// The body is generic over the widths of q/k (DQK) and of v (DV): the
+// head_dim 128 instance (`flash_mma_kernel`, both widths 128) is the main
+// path's, and `mla_prefill_mma_kernel` (qk 192, v 128, one kv head a query
+// head) is multi-head latent attention's prefill (ops/mla.py::mla_prefill).
+// Everything below is said of the 128 instance; the other differs only in
+// the row widths of q, k and v in shared memory (chunks of 16 bytes a row:
+// DQK / 8 and DV / 8, swizzled alike) and in its shared memory: 107 KB
+// (MT = 1) or 131 KB (MT = 2).
+//
 // What it computes, for bf16 and head_dim 128:
 //   q (B, T, H, D), k/v (B, S, KVH, D), q_positions (B, T) int32,
 //   kv_positions (B, S) int32, kv_valid (B, S) bool  ->  out (B, T, H, D).
@@ -66,31 +75,35 @@
 
 namespace {
 
-constexpr int kD = 128;
 constexpr int kBK = 64;                       // keys a tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowBytes = kD * 2;             // one row of q, k or v
-constexpr int kTileBytes = kBK * kRowBytes;   // one k or v tile
 constexpr float kNegInf = -3.4028234663852886e38f;  // float32 min, as the reference
 constexpr int kIntMin = -2147483647 - 1;
 constexpr int kIntMax = 2147483647;           // the position of an invalid key
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int MT>
+template <int MT, int DQK, int DV>
 struct Cfg {
   static constexpr int kBQ = kWarps * MT * 16;
-  static constexpr int kQBytes = kBQ * kRowBytes;
+  static constexpr int kQRowBytes = DQK * 2;  // one row of q or k
+  static constexpr int kVRowBytes = DV * 2;   // one row of v
+  static constexpr int kQBytes = kBQ * kQRowBytes;
+  static constexpr int kKTileBytes = kBK * kQRowBytes;
+  static constexpr int kVTileBytes = kBK * kVRowBytes;
+  static constexpr int kStageBytes = kKTileBytes + kVTileBytes;
   // q, two stages of (k, v), two stages of key positions.
-  static constexpr int kSmemBytes = kQBytes + 4 * kTileBytes + 2 * kBK * 4;
+  static constexpr int kSmemBytes = kQBytes + 2 * kStageBytes + 2 * kBK * 4;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Byte offset of 16-byte chunk `c` of row `r` in a swizzled tile.
-__device__ __forceinline__ int swz(int r, int c) { return r * kRowBytes + ((c ^ (r & 7)) << 4); }
+// Byte offset of 16-byte chunk `c` of row `r` in a swizzled tile of rows of
+// RB bytes (at least 8 chunks a row).
+template <int RB>
+__device__ __forceinline__ int swz(int r, int c) { return r * RB + ((c ^ (r & 7)) << 4); }
 
 // 16 bytes global -> shared; src_bytes 0 zero-fills the destination.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
@@ -137,30 +150,49 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return l | (h << 16);
 }
 
-// Copy `rows` rows of 128 bf16 into a swizzled tile.  Row r comes from
+// Copy `rows` rows of D bf16 into a swizzled tile.  Row r comes from
 // src + (first + r) * stride; rows at or past `limit` are zero-filled.
+__host__ __device__ constexpr int ilog2(int n) { return n <= 1 ? 0 : 1 + ilog2(n / 2); }
+
+// i / n and i % n, by a shift and a mask where n is a power of two.
+template <int N>
+__device__ __forceinline__ int div_n(int i) {
+  if constexpr ((N & (N - 1)) == 0) return i >> ilog2(N);
+  return i / N;
+}
+template <int N>
+__device__ __forceinline__ int mod_n(int i) {
+  if constexpr ((N & (N - 1)) == 0) return i & (N - 1);
+  return i % N;
+}
+
+template <int D>
 __device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* src, size_t stride,
                                           int first, int limit, int rows) {
-  for (int i = threadIdx.x; i < rows * 16; i += kThreads) {
-    const int r = i >> 4;
-    const int c = i & 15;
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
+    const int r = div_n<kChunks>(i);
+    const int c = mod_n<kChunks>(i);
     const bool in = first + r < limit;
-    cp_async16(dst + swz(r, c), src + static_cast<size_t>(in ? first + r : 0) * stride + c * 8,
-               in ? 16 : 0);
+    cp_async16(dst + swz<D * 2>(r, c),
+               src + static_cast<size_t>(in ? first + r : 0) * stride + c * 8, in ? 16 : 0);
   }
 }
 
-template <int MT>
-__global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(
+template <int MT, int DQK, int DV>
+__device__ __forceinline__ void flash_body(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_positions,
     const int* __restrict__ kv_positions, const uint8_t* __restrict__ kv_valid,
     __nv_bfloat16* __restrict__ out, int B, int T, int S, int H, int KVH, float scale) {
-  using C = Cfg<MT>;
+  using C = Cfg<MT, DQK, DV>;
+  constexpr int QRB = C::kQRowBytes;
+  constexpr int VRB = C::kVRowBytes;
+  constexpr int kOut = DV / 8;  // n8 tiles (and 16-byte chunks) of an output row
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t qs = smem_u32(smem);
-  const uint32_t kv0 = qs + C::kQBytes;                   // stage s: k at kv0 + 2 s tile, v after it
-  int* kpos = reinterpret_cast<int*>(smem + C::kQBytes + 4 * kTileBytes);  // [2][kBK]
+  const uint32_t kv0 = qs + C::kQBytes;  // stage s: k at kv0 + s stage, v after it
+  int* kpos = reinterpret_cast<int*>(smem + C::kQBytes + 2 * C::kStageBytes);  // [2][kBK]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -183,8 +215,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(
   const uint8_t* kok_b = kv_valid + static_cast<size_t>(b) * S;
 
   // q: one cp.async group of its own (the first tile's group follows).
-  load_rows(qs, q + (static_cast<size_t>(b) * T * H + h) * kD, static_cast<size_t>(H) * kD, q0, T,
-            C::kBQ);
+  load_rows<DQK>(qs, q + (static_cast<size_t>(b) * T * H + h) * DQK, static_cast<size_t>(H) * DQK,
+                 q0, T, C::kBQ);
   cp_async_commit();
 
   // The largest query position of the tile, by every warp for itself.
@@ -213,9 +245,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(
   const float scale_log2 = scale * 1.4426950408889634f;
 
   const int n_tiles = (S + kBK - 1) / kBK;
-  const __nv_bfloat16* k_base = k + (static_cast<size_t>(b) * S * KVH + kvh) * kD;
-  const __nv_bfloat16* v_base = v + (static_cast<size_t>(b) * S * KVH + kvh) * kD;
-  const size_t kv_stride = static_cast<size_t>(KVH) * kD;
+  const __nv_bfloat16* k_base = k + (static_cast<size_t>(b) * S * KVH + kvh) * DQK;
+  const __nv_bfloat16* v_base = v + (static_cast<size_t>(b) * S * KVH + kvh) * DV;
+  const size_t k_stride = static_cast<size_t>(KVH) * DQK;
+  const size_t v_stride = DQK == DV ? k_stride : static_cast<size_t>(KVH) * DV;
 
   // The first live tile at or after `kt` (n_tiles if none), with this lane's
   // two key positions of it (kIntMax for an invalid key or one past S).
@@ -232,9 +265,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(
   };
   // Starts the copies of tile kt; returns the tile's largest key position.
   auto start_tile = [&](int kt, int stage) {
-    const uint32_t ks = kv0 + stage * 2 * kTileBytes;
-    load_rows(ks, k_base, kv_stride, kt * kBK, S, kBK);
-    load_rows(ks + kTileBytes, v_base, kv_stride, kt * kBK, S, kBK);
+    const uint32_t ks = kv0 + stage * C::kStageBytes;
+    load_rows<DQK>(ks, k_base, k_stride, kt * kBK, S, kBK);
+    load_rows<DV>(ks + C::kKTileBytes, v_base, v_stride, kt * kBK, S, kBK);
     if (warp == 0) {
       kpos[stage * kBK + lane] = e0;
       kpos[stage * kBK + 32 + lane] = e1;
@@ -243,7 +276,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(
     return __reduce_max_sync(kFull, max(e0, e1));
   };
 
-  float m[MT][2], l[MT][2], o[MT][16][4];
+  float m[MT][2], l[MT][2], o[MT][kOut][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -252,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(
       l[mt][hh] = 0.f;
     }
 #pragma unroll
-    for (int n = 0; n < 16; ++n)
+    for (int n = 0; n < kOut; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[mt][n][e] = 0.f;
   }
@@ -280,8 +313,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(
     const int nxt = next_live(kt + 1);
     if (nxt < n_tiles) kmax_next = start_tile(nxt, stage ^ 1);
 
-    const uint32_t ks = kv0 + stage * 2 * kTileBytes;
-    const uint32_t vs = ks + kTileBytes;
+    const uint32_t ks = kv0 + stage * C::kStageBytes;
+    const uint32_t vs = ks + C::kKTileBytes;
     const int* kp = kpos + stage * kBK;
 
     // S = q k^T.
@@ -293,14 +326,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       uint32_t a[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[mt], qs + swz(a_row + mt * 16, 2 * kk + a_half));
+      for (int mt = 0; mt < MT; ++mt)
+        ldmatrix_x4(a[mt], qs + swz<QRB>(a_row + mt * 16, 2 * kk + a_half));
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bk[4];
-        ldmatrix_x4(bk, ks + swz(np * 16 + kb_row, 2 * kk + kb_half));
+        ldmatrix_x4(bk, ks + swz<QRB>(np * 16 + kb_row, 2 * kk + kb_half));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma_bf16(s[mt][2 * np], a[mt], bk[0], bk[1]);
@@ -358,7 +392,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(
           }
         l[mt][hh] = l[mt][hh] * alpha + rs;
 #pragma unroll
-        for (int n = 0; n < 16; ++n) {
+        for (int n = 0; n < kOut; ++n) {
           o[mt][n][2 * hh] *= alpha;
           o[mt][n][2 * hh + 1] *= alpha;
         }
@@ -377,9 +411,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(
         pa[mt][3] = pack_bf16x2(s[mt][2 * j + 1][2], s[mt][2 * j + 1][3]);
       }
 #pragma unroll
-      for (int dp = 0; dp < 8; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vs + swz(j * 16 + vb_row, 2 * dp + vb_half));
+        ldmatrix_x4_trans(bv, vs + swz<VRB>(j * 16 + vb_row, 2 * dp + vb_half));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma_bf16(o[mt][2 * dp], pa[mt], bv[0], bv[1]);
@@ -408,35 +442,54 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(
       const float inv = 1.f / (sum > 0.f ? sum : 1.f);
       const int r = wrow0 + mt * 16 + fg + 8 * hh;
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
-        *reinterpret_cast<uint32_t*>(smem + swz(r, n) + ft * 4) =
+      for (int n = 0; n < kOut; ++n) {
+        *reinterpret_cast<uint32_t*>(smem + swz<QRB>(r, n) + ft * 4) =
             pack_bf16x2(o[mt][n][2 * hh] * inv, o[mt][n][2 * hh + 1] * inv);
       }
     }
   __syncwarp();
-  for (int i = lane; i < MT * 16 * 16; i += 32) {
-    const int r = wrow0 + (i >> 4);
-    const int c = i & 15;
+  for (int i = lane; i < MT * 16 * kOut; i += 32) {
+    const int r = wrow0 + div_n<kOut>(i);
+    const int c = mod_n<kOut>(i);
     const int t = q0 + r;
     if (t < T) {
-      *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(b) * T + t) * H + h) * kD + c * 8) =
-          *reinterpret_cast<const uint4*>(smem + swz(r, c));
+      *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(b) * T + t) * H + h) * DV + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + swz<QRB>(r, c));
     }
   }
 }
 
+#define FLASH_ARGS                                                                          \
+  const __nv_bfloat16 *__restrict__ q, const __nv_bfloat16 *__restrict__ k,                 \
+      const __nv_bfloat16 *__restrict__ v, const int *__restrict__ q_positions,             \
+      const int *__restrict__ kv_positions, const uint8_t *__restrict__ kv_valid,           \
+      __nv_bfloat16 *__restrict__ out, int B, int T, int S, int H, int KVH, float scale
+
+// The main path's instance: head_dim 128.
 template <int MT>
-int launch(const void* q, const void* k, const void* v, const void* q_positions,
+__global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(FLASH_ARGS) {
+  flash_body<MT, 128, 128>(q, k, v, q_positions, kv_positions, kv_valid, out, B, T, S, H, KVH,
+                           scale);
+}
+
+// Multi-head latent attention's prefill: qk 192 (nope 128 + rope 64), v 128.
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1) mla_prefill_mma_kernel(FLASH_ARGS) {
+  flash_body<MT, 192, 128>(q, k, v, q_positions, kv_positions, kv_valid, out, B, T, S, H, KVH,
+                           scale);
+}
+
+template <int MT, int DQK, int DV, typename Kernel>
+int launch(Kernel kernel, const void* q, const void* k, const void* v, const void* q_positions,
            const void* kv_positions, const void* kv_valid, void* out, int B, int T, int S, int H,
            int KVH, float scale, cudaStream_t stream) {
-  using C = Cfg<MT>;
-  cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         C::kSmemBytes);
+  using C = Cfg<MT, DQK, DV>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>((T + C::kBQ - 1) / C::kBQ) * B * H;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  flash_mma_kernel<MT><<<static_cast<unsigned>(blocks), kThreads, C::kSmemBytes, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, C::kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_positions),
       static_cast<const int*>(kv_positions), static_cast<const uint8_t*>(kv_valid),
@@ -457,10 +510,30 @@ extern "C" int chatts_flash_attention(const void* q, const void* k, const void* 
                                       int H, int KVH, float scale, int block_q, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (block_q == 64) {
-    return launch<1>(q, k, v, q_positions, kv_positions, kv_valid, out, B, T, S, H, KVH, scale, st);
+    return launch<1, 128, 128>(flash_mma_kernel<1>, q, k, v, q_positions, kv_positions, kv_valid,
+                               out, B, T, S, H, KVH, scale, st);
   }
   if (block_q == 128) {
-    return launch<2>(q, k, v, q_positions, kv_positions, kv_valid, out, B, T, S, H, KVH, scale, st);
+    return launch<2, 128, 128>(flash_mma_kernel<2>, q, k, v, q_positions, kv_positions, kv_valid,
+                               out, B, T, S, H, KVH, scale, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same at qk width 192 and v width 128: q (B,T,H,192), k (B,S,KVH,192),
+// v (B,S,KVH,128) bf16, out (B,T,H,128); the rest as above.
+extern "C" int chatts_mla_prefill(const void* q, const void* k, const void* v,
+                                  const void* q_positions, const void* kv_positions,
+                                  const void* kv_valid, void* out, int B, int T, int S, int H,
+                                  int KVH, float scale, int block_q, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (block_q == 64) {
+    return launch<1, 192, 128>(mla_prefill_mma_kernel<1>, q, k, v, q_positions, kv_positions,
+                               kv_valid, out, B, T, S, H, KVH, scale, st);
+  }
+  if (block_q == 128) {
+    return launch<2, 192, 128>(mla_prefill_mma_kernel<2>, q, k, v, q_positions, kv_positions,
+                               kv_valid, out, B, T, S, H, KVH, scale, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -32,24 +32,13 @@
 //       cannot fill two blocks an SM, K is split into runs of whole groups.
 //     - GEMM (kGemm): WM = 2, MT = 4: 128 x 128 output tiles, K split only
 //       when the tiles cannot fill the SMs once.
-//   * A K step is one 128-row group.  A 4-stage cp.async ring holds, per
-//     stage, the x tile (BM x 128 bf16, its 16-byte chunks XOR-swizzled by
-//     row so that ldmatrix reads are free of bank conflicts), the packed
-//     weight tile (64 x 128 bytes, chunks swizzled by row) and the group's
-//     128 scales.  Dynamic shared memory: 51 KB (MT = 1) to 166 KB (GEMM).
-//   * B fragments need no shuffle: a packed byte is the (k, k+1) pair of one
-//     column, which is one bf16x2 register of the m16n8k16 B fragment.  A
-//     warp's n8 tile j takes the columns 4c + j (c = the fragment's column),
-//     so the thread of fragment column c finds the registers of all four
-//     tiles in the four bytes of one 32-bit shared-memory word.  The
-//     accumulators then hold 8 consecutive columns a thread: 16-byte stores.
-//   * Unpacking is exact: the byte is placed as (low nibble, high nibble) in
-//     the low mantissa bits of two bf16 128.0 (0x4300) with the sign bit
-//     flipped (XOR 8), and 136 is subtracted by one bf16x2 fma: q in -8..7,
-//     two a register, -8 included.
-//   * Per group, bf16 mma.sync.m16n8k16 sums into f32 partials that start at
-//     0; at the group's end the partials, times the group's scales, are added
-//     to the f32 accumulators.  Two sets of 4*MT*4 f32 registers a thread.
+//   * The main loop is csrc/int4_mma.cuh's (shared with csrc/moe_int4.cu):
+//     a K step is one 128-row group through a 4-stage cp.async ring of (x
+//     tile, packed tile, scales), swizzled for ldmatrix; B fragments taken
+//     from the packed bytes without a shuffle and unpacked exactly; bf16
+//     mma.sync.m16n8k16 into f32 partials a group, times the group's scales
+//     added to the f32 accumulators.  Two sets of 4*MT*4 f32 registers a
+//     thread; dynamic shared memory 51 KB (MT = 1) to 166 KB (GEMM).
 //   * A split writes f32 partial sums to a workspace the caller allocates; a
 //     second launch adds the splits in split order and rounds to bf16
 //     (deterministic; no atomics).
@@ -63,9 +52,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int4_mma.cuh"
+
 namespace {
 
-constexpr int kGroup = 128;
+using int4_mma::Cfg;
+using int4_mma::kGroup;
+using int4_mma::kTileN;
+using int4_mma::kWarpsN;
 
 // Paths; ops/int4_matmul.py passes one.
 constexpr int kStream = 1;
@@ -75,116 +69,32 @@ constexpr int kGemm = 2;
 // Tensor-core kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kTileN = 128;                            // output columns a block
-constexpr int kWarpsN = kTileN / 32;                   // warps along OUT
-constexpr int kStages = 4;                             // cp.async ring depth
-constexpr int kWTileBytes = (kGroup / 2) * kTileN;     // packed rows x columns
-constexpr int kSTileBytes = kTileN * 4;                // one group's scales
-constexpr int kXRowBytes = kGroup * 2;                 // one row of the x tile
-
-template <int MT, int WM>
-struct MmaCfg {
-  static constexpr int kThreads = WM * kWarpsN * 32;
-  static constexpr int kBM = WM * MT * 16;
-  static constexpr int kXTileBytes = kBM * kXRowBytes;
-  static constexpr int kStageBytes = kXTileBytes + kWTileBytes + kSTileBytes;
-  static constexpr int kSmemBytes = kStages * kStageBytes;
+// The A rows of block row m0: x's rows m0.., those at R and past zero-filled.
+struct DenseRows {
+  const __nv_bfloat16* __restrict__ x;
+  int R, IN, m0;
+  __device__ __forceinline__ bool src(int row, const __nv_bfloat16*& p) const {
+    const int gr = m0 + row;
+    p = x + static_cast<size_t>(gr < R ? gr : 0) * IN;
+    return gr < R;
+  }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A 32-bit word of four packed bytes (four columns of one packed row) ->
-// four bf16x2 B-fragment registers, b[j] = (q[2i][col j], q[2i+1][col j]).
-__device__ __forceinline__ void unpack_word(uint32_t w, uint32_t (&b)[4]) {
-  const uint32_t wh = w >> 4;  // byte j's high nibble in the low bits of byte j
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    // Byte 0 <- byte j of w (low nibble: row 2i); byte 2 <- byte j of wh
-    // (low nibble: row 2i+1); bytes 1 and 3 are masked off below.
-    const uint32_t p = __byte_perm(w, wh, j | ((4 + j) << 8));
-    // bf16 128 + (nibble ^ 8) in each half, then minus 136: the signed nibble.
-    const uint32_t v = (p & 0x000F000Fu) ^ 0x43084308u;
-    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
-        : "=r"(b[j])
-        : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));  // v * 1.0 + (-136.0)
-  }
-}
-
-// Issue the cp.async copies of group g into one stage.
-template <int MT, int WM>
-__device__ __forceinline__ void load_stage(uint8_t* stage, const __nv_bfloat16* __restrict__ x,
-                                           const int8_t* __restrict__ packed,
-                                           const float* __restrict__ scales, int R, int IN,
-                                           int OUT, int m0, int n0, int g) {
-  using C = MmaCfg<MT, WM>;
-  const int tid = threadIdx.x;
-  const uint32_t xs = smem_u32(stage);
-  // x: BM rows x 16 chunks of 8 bf16; chunk c of row r at c ^ (r & 7).
-  for (int i = tid; i < C::kBM * 16; i += C::kThreads) {
-    const int row = i >> 4;
-    const int c = i & 15;
-    const int gr = m0 + row;
-    const __nv_bfloat16* src =
-        x + static_cast<size_t>(gr < R ? gr : 0) * IN + g * kGroup + c * 8;
-    cp_async16(xs + row * kXRowBytes + ((c ^ (row & 7)) << 4), src, gr < R ? 16 : 0);
-  }
-  // Weights: 64 packed rows x 8 chunks of 16 columns; chunk c of row r at
-  // c ^ ((r & 3) << 1).
-  const uint32_t ws = xs + C::kXTileBytes;
-  for (int i = tid; i < (kGroup / 2) * 8; i += C::kThreads) {
-    const int row = i >> 3;
-    const int c = i & 7;
-    const int8_t* src = packed + static_cast<size_t>(g * (kGroup / 2) + row) * OUT + n0 + c * 16;
-    cp_async16(ws + row * kTileN + ((c ^ ((row & 3) << 1)) << 4), src, 16);
-  }
-  // The group's 128 scales.
-  const uint32_t ss = ws + kWTileBytes;
-  for (int i = tid; i < kTileN / 4; i += C::kThreads) {
-    cp_async16(ss + i * 16, scales + static_cast<size_t>(g) * OUT + n0 + i * 4, 16);
-  }
-}
+// The weight columns of block column n0: n0..n0 + 127.
+struct DenseCols {
+  int n0;
+  __device__ __forceinline__ int operator()(int tc) const { return n0 + tc; }
+};
 
 // Grid: (OUT/128, ceil(R/BM), splits); split z takes groups
 // [z*gps, min(G, (z+1)*gps)).  With one split it writes y in bf16, else f32
 // partial sums to partial[z][R][OUT].
 template <int MT, int WM>
-__global__ void __launch_bounds__(MmaCfg<MT, WM>::kThreads) int4_mma_kernel(
+__global__ void __launch_bounds__(Cfg<MT, WM>::kThreads) int4_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
     const float* __restrict__ scales, __nv_bfloat16* __restrict__ y,
     float* __restrict__ partial, int R, int IN, int OUT, int gps) {
-  using C = MmaCfg<MT, WM>;
+  using C = Cfg<MT, WM>;
   extern __shared__ __align__(128) uint8_t smem[];
 
   const int lane = threadIdx.x & 31;
@@ -198,95 +108,12 @@ __global__ void __launch_bounds__(MmaCfg<MT, WM>::kThreads) int4_mma_kernel(
   const int n_groups = IN / kGroup;
   const int g_begin = blockIdx.z * gps;
   const int g_count = min(n_groups, g_begin + gps) - g_begin;
-
-  float acc[MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < g_count) {
-      load_stage<MT, WM>(smem + s * C::kStageBytes, x, packed, scales, R, IN, OUT, m0, n0,
-                         g_begin + s);
-    }
-    cp_async_commit();
-  }
-
-  // Per-thread shared-memory offsets inside a stage.
-  // ldmatrix: lanes 0-15 give rows 0-15 at k 0-7, lanes 16-31 at k 8-15.
-  const int a_row0 = wm * MT * 16 + (lane & 15);
-  const int a_half = lane >> 4;
-  // The thread's weight word: fragment column fg of the warp's 32 columns,
-  // i.e. columns wn*32 + 4*fg + (0..3), in packed rows 8*kk + ft (+ 4).
-  const int w_word = wn * 8 + fg;
-  const int w_off = ((((w_word >> 2) ^ (ft << 1)) << 4)) + (w_word & 3) * 4 + ft * kTileN;
   // The thread's 8 output columns: wn*32 + 8*ft + (0..7).
   const int c_local = wn * 32 + 8 * ft;
 
-  for (int it = 0; it < g_count; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    {
-      const int nxt = it + kStages - 1;
-      if (nxt < g_count) {
-        load_stage<MT, WM>(smem + (nxt % kStages) * C::kStageBytes, x, packed, scales, R, IN,
-                           OUT, m0, n0, g_begin + nxt);
-      }
-      cp_async_commit();
-    }
-    const uint8_t* stage = smem + (it % kStages) * C::kStageBytes;
-    const uint32_t xs = smem_u32(stage);
-    const uint8_t* ws = stage + C::kXTileBytes;
-    const float* ss = reinterpret_cast<const float*>(ws + kWTileBytes);
-
-    float part[MT][4][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[mt][j][e] = 0.f;
-
-#pragma unroll
-    for (int kk = 0; kk < kGroup / 16; ++kk) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int row = a_row0 + mt * 16;
-        const int c = 2 * kk + a_half;
-        ldmatrix_x4(a[mt], xs + row * kXRowBytes + ((c ^ (row & 7)) << 4));
-      }
-      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(ws + w_off + (8 * kk) * kTileN);
-      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(ws + w_off + (8 * kk + 4) * kTileN);
-      uint32_t b0[4], b1[4];
-      unpack_word(w0, b0);
-      unpack_word(w1, b1);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(part[mt][j], a[mt], b0[j], b1[j]);
-    }
-
-    // acc += part * s, per column, the multiply and the add rounded apart.
-    const float4 s_lo = *reinterpret_cast<const float4*>(ss + c_local);
-    const float4 s_hi = *reinterpret_cast<const float4*>(ss + c_local + 4);
-    const float s[8] = {s_lo.x, s_lo.y, s_lo.z, s_lo.w, s_hi.x, s_hi.y, s_hi.z, s_hi.w};
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // c0, c2: fragment column 2*ft -> column 8*ft + j; c1, c3: 8*ft + 4 + j.
-        acc[mt][j][0] = __fadd_rn(acc[mt][j][0], __fmul_rn(part[mt][j][0], s[j]));
-        acc[mt][j][1] = __fadd_rn(acc[mt][j][1], __fmul_rn(part[mt][j][1], s[4 + j]));
-        acc[mt][j][2] = __fadd_rn(acc[mt][j][2], __fmul_rn(part[mt][j][2], s[j]));
-        acc[mt][j][3] = __fadd_rn(acc[mt][j][3], __fmul_rn(part[mt][j][3], s[4 + j]));
-      }
-  }
-  cp_async_wait<0>();
+  float acc[MT][4][4];
+  int4_mma::mainloop<MT, WM>(acc, smem, DenseRows{x, R, IN, m0}, DenseCols{n0}, packed, scales,
+                             OUT, g_begin, g_count);
 
   const int col = n0 + c_local;
 #pragma unroll
@@ -383,7 +210,7 @@ template <int MT, int WM>
 int launch_mma(const __nv_bfloat16* x, const int8_t* packed, const float* scales,
                __nv_bfloat16* y, float* ws, int R, int IN, int OUT, const Plan& plan,
                cudaStream_t stream) {
-  using C = MmaCfg<MT, WM>;
+  using C = Cfg<MT, WM>;
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -33,7 +33,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 KERNELS = ("flash_attention", "ragged_decode_attention", "ragged_decode_attention_int8",
-           "int4_matmul", "int4_matmul_a8", "fused_glue")
+           "int4_matmul", "int4_matmul_a8", "fused_glue", "mla_decode", "moe_int4")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,6 +46,7 @@ Signature = Tuple[object, Sequence[object]]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_typed: set = set()  # (library, function) pairs whose signature is set
 
 
 @dataclasses.dataclass
@@ -168,8 +169,11 @@ def load(name: str, signatures: Dict[str, Signature]) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = ctypes.CDLL(library_path(name))
-            for fn, (restype, argtypes) in signatures.items():
+            _libs[name] = lib
+        for fn, (restype, argtypes) in signatures.items():
+            # Two wrappers may load one library, each with its own functions.
+            if (name, fn) not in _typed:
                 getattr(lib, fn).restype = restype
                 getattr(lib, fn).argtypes = list(argtypes)
-            _libs[name] = lib
+                _typed.add((name, fn))
         return lib

@@ -1,4 +1,7 @@
-"""ChatTS = Qwen2/Qwen3 decoder + time-series patch encoder + embedding merge.
+"""ChatTS = decoder + time-series patch encoder + embedding merge.  The
+decoder is Qwen2/Qwen3 (``models/qwen.py``) or the DeepSeek-V3 block
+(``models/moonlight.py``, a ``MoonlightConfig``), which share ``QwenModel``'s
+methods.
 
 Counterpart of ``chatts_tpu/models/chatts.py``.  The processor
 (``chatts_tpu_torch/processor/processor.py``) computes on the host
@@ -12,7 +15,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from chatts_tpu_torch.core.config import ChatTSConfig
+from chatts_tpu_torch.core.config import ChatTSConfig, MoonlightConfig
 from chatts_tpu_torch.models import qwen
 from chatts_tpu_torch.models.qwen import QwenModel, fuse_projections
 from chatts_tpu_torch.models.ts_encoder import TSEncoder
@@ -110,15 +113,29 @@ def init_params(cfg: ChatTSConfig, generator: torch.Generator, device="cuda",
     ``generator`` on its own device and placed on ``device``.  With
     ``mesh``, this rank's shard (``qwen.init_params``), the encoder whole."""
     encoder = TSEncoder(cfg.ts, device=generator.device).reset_parameters(generator)
-    llm = qwen.init_params(cfg.llm, generator, device, dtype, mesh=mesh)
+    if isinstance(cfg.llm, MoonlightConfig):
+        if mesh is not None:
+            raise NotImplementedError("a MoonlightConfig decoder on a mesh is not ported")
+        from chatts_tpu_torch.models import moonlight
+
+        llm = moonlight.init_params(cfg.llm, generator, device, dtype)
+    else:
+        llm = qwen.init_params(cfg.llm, generator, device, dtype, mesh=mesh)
     return ChatTSModel(cfg, encoder.to(device), llm)
 
 
 def maybe_fuse(model: ChatTSModel) -> ChatTSModel:
     """Fuse qkv / gate_up projections of float weights, in place; a model
     already fused or quantized, or placed on a mesh (its projections are
-    Megatron shards, as JAX keeps them unfused), is returned as it is."""
+    Megatron shards, as JAX keeps them unfused), is returned as it is.  A
+    multi-head latent attention decoder fuses q with kv_a, and gate with up,
+    float or int4 (``moonlight.fuse_projections``)."""
     attn = model.llm.layers[0].self_attn
+    if hasattr(attn, "q_kv_a_proj"):
+        from chatts_tpu_torch.models import moonlight
+
+        moonlight.fuse_projections(model.llm)
+        return model
     if model.mesh is not None or attn.qkv_proj is not None or attn.q_proj.kernel is None:
         return model
     fuse_projections(model.llm)

@@ -1658,7 +1658,9 @@ class ServeEngine:
         the spans of ``slow_event_s`` or more (``slow_events``); the decoder
         glue's call sites by path since the process started (``glue_calls``,
         fused or eager; a graph's replays count nothing, its capture once);
-        and the request metrics."""
+        for a decoder with routed experts, the rows routed to each expert of
+        each layer since it was built (``expert_tokens``, a device counter
+        read here); and the request metrics."""
         out: Dict[str, Any] = {
             "active_slots": int(self.live_host.sum()),
             "max_batch_size": self.max_batch_size,
@@ -1676,6 +1678,9 @@ class ServeEngine:
             waits = sorted(self._queue_waits)
             out["admissions"] = dict(self._routes)
         out["glue_calls"] = fused_glue.counts()
+        experts = getattr(self.model.llm, "expert_tokens", None)
+        if experts is not None:
+            out["expert_tokens"] = experts.tolist()
         rounds = self.round_snapshot()
         agg: Dict[str, list] = collections.defaultdict(lambda: [0, 0.0, 0, 0.0, None])
         spans = dict.fromkeys(SPANS.values(), 0.0)

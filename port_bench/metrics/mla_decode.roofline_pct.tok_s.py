@@ -1,0 +1,6 @@
+"""mla_decode.roofline_pct.tok_s: see BENCHMARK.json for its unit, layer and the metric it moves."""
+from port_bench import readers
+
+
+def read(run):
+    return readers.roofline_pct(run, "mla_decode")

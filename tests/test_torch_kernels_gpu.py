@@ -783,3 +783,185 @@ def test_torch_fused_decode_step_in_a_cuda_graph(cuda, model):
             else:
                 ulps = (_ordered(f[mask]) - _ordered(e[mask])).abs()
                 assert int(ulps.max()) <= 1, (what, j, int(ulps.max()))
+
+
+# ---------------------------------------------------------------------------
+# Moonlight-16B-A3B's kernels (multi-head latent attention, routed experts),
+# at its published shapes: 16 heads over a 576-wide latent row (c_kv 512,
+# rope 64), qk 192 / v 128 in prefill, 64 experts of 1,408 at hidden 2,048,
+# top 6.  Each is held to its plain version on the card, row by row, to
+# 2e-2 of the row's largest output: the kernels round q_lat, p and o to
+# bf16 where the plain versions round them at other points (p against the
+# row's max, not the running one), and the int4 products sum in another
+# order within a group.
+# ---------------------------------------------------------------------------
+
+def _mla_inputs(cuda, r, b, s, seed):
+    from chatts_tpu_torch.ops import mla
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    cache = _bf16(gen, (b, 1, s, mla.LATENT + mla.ROPE), cuda)
+    w_uk = (_bf16(gen, (mla.HEADS, mla.NOPE, mla.LATENT), cuda).float() / 12).to(torch.bfloat16)
+    w_uv = (_bf16(gen, (mla.HEADS, mla.LATENT, mla.V), cuda).float() / 23).to(torch.bfloat16)
+    q_nope = _bf16(gen, (r, mla.HEADS, mla.NOPE), cuda)
+    q_pe = _bf16(gen, (r, mla.HEADS, mla.ROPE), cuda)
+    return gen, cache, w_uk, w_uv, q_nope, q_pe
+
+
+@pytest.mark.parametrize("case", ["decode", "mixed"])
+def test_torch_mla_decode_kernel_matches_plain(cuda, case):
+    """``decode``: 128 rows over a capacity of 8,192 at lengths 0 to 8,192
+    (0, 1, 127, 128, 129 and 8,192 among them).  ``mixed``: the serving
+    engine's mixed step, 32 decode rows and 4 admission rows of 48 prompt
+    tokens, each prompt token a query over its slot's first p + 1
+    positions, several queries a slot."""
+    from chatts_tpu_torch.ops import mla
+
+    if case == "decode":
+        r, b, s = 128, 128, 8192
+        gen, cache, w_uk, w_uv, q_nope, q_pe = _mla_inputs(cuda, r, b, s, 21)
+        rows = torch.arange(r, device=cuda, dtype=torch.int32)
+        lengths = torch.randint(0, s + 1, (r,), generator=gen, device=cuda, dtype=torch.int32)
+        lengths[:6] = torch.tensor([0, 1, 127, 128, 129, s], device=cuda)
+    else:
+        b, s, a, npt = 32, 2048, 4, 48
+        r = b + a * npt
+        gen, cache, w_uk, w_uv, q_nope, q_pe = _mla_inputs(cuda, r, b, s, 22)
+        slots = torch.tensor([3, 9, 17, 30], device=cuda, dtype=torch.int32)
+        pos = 700 + torch.arange(npt, device=cuda, dtype=torch.int32)
+        rows = torch.cat([torch.arange(b, device=cuda, dtype=torch.int32),
+                          slots.repeat_interleave(npt)])
+        lengths = torch.cat([torch.randint(1, s, (b,), generator=gen, device=cuda,
+                                           dtype=torch.int32), (pos + 1).repeat(a)])
+    scale = 192 ** -0.5
+    got = mla.mla_decode(q_nope, q_pe, w_uk, w_uv, cache, rows, lengths, scale=scale)
+    want = mla.mla_decode_reference(q_nope, q_pe, w_uk, w_uv, cache, rows, lengths, scale)
+    assert got.shape == (r, mla.HEADS, mla.V) and mla.mla_decode.launches > 0
+    live = lengths > 0
+    assert (got[~live] == 0).all()
+    _close_rows(got[live].reshape(-1, mla.V), want[live].reshape(-1, mla.V))
+
+
+@pytest.mark.parametrize("t", [37, 300, 1024])
+def test_torch_mla_prefill_kernel_matches_plain(cuda, t):
+    """B1's qk 192 / v 128 instance: two rows, the second valid below T / 2,
+    16 heads, both query tiles (T 37 takes 64 rows, the others 128)."""
+    from chatts_tpu_torch.ops import mla
+
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    b, h = 2, 16
+    q = _bf16(gen, (b, t, h, 192), cuda)
+    k = _bf16(gen, (b, t, h, 192), cuda)
+    v = _bf16(gen, (b, t, h, 128), cuda)
+    pos = torch.arange(t, device=cuda, dtype=torch.int32)[None].repeat(b, 1).contiguous()
+    valid = pos < torch.tensor([[t], [t // 2]], device=cuda)
+    kw = dict(q_positions=pos, kv_positions=pos, kv_valid=valid, scale=192 ** -0.5)
+    got = mla.mla_prefill(q, k, v, **kw)
+    want = mla.mla_prefill_reference(q, k, v, **kw)
+    _close_rows(got.reshape(-1, 128), want.reshape(-1, 128))
+
+
+def _moe_weights(cuda, e, hid, inter, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def packed(fan_in, fan_out):
+        k = torch.randint(0, 225, (e, fan_in // 2, fan_out), generator=gen, device=cuda)
+        lo, hi = (k % 15 + 9) & 15, (k // 15 + 9) & 15
+        codes = (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
+        scales = (0.5 + torch.rand((e, fan_in // 128, fan_out), generator=gen, device=cuda)) / (
+            7 * math.sqrt(fan_in))
+        return codes, scales
+
+    return gen, packed(hid, 2 * inter), packed(inter, hid)
+
+
+@pytest.mark.parametrize("t", [128, 300, 1024, 1877, 1878, 4096])
+def test_torch_moe_int4_kernel_matches_plain(cuda, t):
+    """64 experts of 1,408 at hidden 2,048, top 6, uneven loads: expert 0 in
+    nearly every token's choice, expert 5 in none; T 128, 300 and 1,024 take
+    the 16-, 32- and 64-row tiles; the routing reads its ids from shared
+    memory up to 11,264 pairs (T 1,877) and from global memory above (T
+    1,878 and 4,096).  The counter gains each expert's rows exactly."""
+    from chatts_tpu_torch.ops import moe_int4
+    from chatts_tpu_torch.ops.int4_matmul import int4_matmul_grouped_reference
+
+    e, hid, inter, k = 64, 2048, 1408, 6
+    gen, (gu_q, gu_s), (d_q, d_s) = _moe_weights(cuda, e, hid, inter, t)
+    weights = torch.ones((e,), device=cuda)
+    weights[0], weights[5] = 400.0, 0.0
+    idx = torch.multinomial(weights.expand(t, e), k, replacement=False,
+                            generator=gen).to(torch.int32)
+    w = torch.rand((t, k), generator=gen, device=cuda)
+    x = _bf16(gen, (t, hid), cuda)
+    counts = torch.full((e,), 7, dtype=torch.int32, device=cuda)
+    got = moe_int4.moe_int4(x, idx, w, gu_q, gu_s, d_q, d_s, counts=counts)
+    want = moe_int4.moe_int4_reference(x, idx, w, gu_q, gu_s, d_q, d_s,
+                                       matmul=int4_matmul_grouped_reference)
+    assert moe_int4.rows_per_tile(t, k, e) == (16 if t == 128 else 32 if t == 300 else 64)
+    assert torch.equal(counts - 7, torch.bincount(idx.long().flatten(), minlength=e).int())
+    assert int(counts[5]) == 7 and int(counts[0]) > t * 0.8
+    _close_rows(got, want)
+
+
+def test_torch_moonlight_decode_step_in_a_cuda_graph(cuda):
+    """Two layers of Moonlight-16B-A3B at its published widths (dense layer
+    0 and an expert layer, int4 throughout, q with kv_a fused), 128 slots of
+    the latent cache at random lengths, 4 decode steps: the step captured in
+    a CUDA graph and replayed gives the eager step's logits, tokens and
+    latent cache bit for bit."""
+    import dataclasses
+
+    from chatts_tpu_torch.core.config import MoonlightConfig
+    from chatts_tpu_torch.models import moonlight
+    from chatts_tpu_torch.runtime import kv_cache
+
+    cfg = dataclasses.replace(MoonlightConfig(), num_hidden_layers=2)
+    b, s, n_steps = 128, 1024, 4
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    with torch.no_grad():
+        llm = moonlight.init_params(cfg, gen, cuda, torch.bfloat16, int4=True)
+        caches0 = kv_cache.allocate(cfg, b, s, torch.bfloat16, cuda)
+        for c in caches0:
+            c[0].copy_(_bf16(gen, c[0].shape, cuda))
+        tokens0 = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=cuda,
+                                dtype=torch.int32)
+        lens0 = torch.randint(1, s - n_steps, (b,), generator=gen, device=cuda,
+                              dtype=torch.int32)
+
+        def state():
+            return [tuple(t.clone() for t in c) for c in caches0], tokens0.clone(), lens0.clone()
+
+        def step(caches, tokens, lens, out):
+            positions = lens[:, None]
+            hidden, _ = llm(llm.embed(tokens[:, None]), positions, kv_caches=caches,
+                            write_pos=positions, kv_lengths=lens + 1)
+            logits = llm.compute_logits(hidden)[:, 0]
+            out.copy_(logits)
+            tokens.copy_(logits.argmax(dim=-1).to(torch.int32))
+            lens.add_(1)
+
+        caches_e, tokens_e, lens_e = state()
+        out_e = torch.empty((b, cfg.vocab_size), device=cuda)
+        eager = []
+        for _ in range(n_steps):
+            step(caches_e, tokens_e, lens_e, out_e)
+            eager.append((out_e.clone(), tokens_e.clone()))
+
+        caches_g, tokens_g, lens_g = state()
+        out_g = torch.empty_like(out_e)
+        step(*state(), out_g)  # warm-up on a copy
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step(caches_g, tokens_g, lens_g, out_g)
+        for c, c0 in zip(caches_g, caches0):
+            c[0].copy_(c0[0])
+        tokens_g.copy_(tokens0)
+        lens_g.copy_(lens0)
+        for i in range(n_steps):
+            graph.replay()
+            assert torch.equal(out_g, eager[i][0]) and torch.equal(tokens_g, eager[i][1]), i
+        torch.cuda.synchronize()
+        assert torch.equal(lens_g, lens_e)
+        for cg, ce in zip(caches_g, caches_e):
+            assert torch.equal(cg[0], ce[0])
