@@ -44,6 +44,9 @@
 //     x_q is its B operand, from shared memory, where its row-major (R, IN)
 //     tile already is the K-major layout the 8-bit wgmma takes.  No weight
 //     is written back to shared memory.
+//   * The ring's pieces (mbarriers, TMA, wgmma's descriptor and fences, the
+//     tensor maps) are csrc/tma_ring.cuh's, shared with B3's GEMM
+//     configuration (csrc/int4_matmul.cu).
 //   * A block is a producer and one or two consumer warpgroups (128 or 256
 //     output columns x 64 rows; ops/int4_matmul.py picks by R).  One thread
 //     of the producer keeps a ring of 6 stages full by TMA: per 128-row group
@@ -100,7 +103,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma_ring.cuh"
+
 namespace {
+
+using namespace tma_ring;
 
 constexpr int kGroup = 128;          // K rows per group and per ring stage
 constexpr int kRows = 64;            // rows of x a block (wgmma's N)
@@ -108,7 +115,6 @@ constexpr int kCols = 128;           // output columns a consumer warpgroup
 constexpr int kStages = 6;           // ring depth
 constexpr int kXBytes = kRows * kGroup;             // x_q tile: 8 KB
 constexpr int kWBytes = (kGroup / 2) * kCols;       // a warpgroup's packed tile: 8 KB
-constexpr uint64_t kWaitLimitNs = 4000000000ull;    // a wait this long is a fault: trap
 
 template <int WGS>
 struct Cfg {
@@ -121,75 +127,6 @@ struct Cfg {
   // Stages, 1 KB of slack to align them to the swizzle's 1 KB, the barriers.
   static constexpr int kSmemBytes = kStages * kStageBytes + 1024 + 2 * kStages * 8;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete.  A wait that outlasts
-// any real load traps, so a fault shows as an error and not as a hang.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t start = 0;
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((spins & 1023u) == 1023u) {
-      uint64_t now;
-      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-      if (start == 0) start = now;
-      if (now - start > kWaitLimitNs) __trap();
-    }
-  }
-}
-
-// One box of a 2-D tensor map into shared memory; completion counts on `bar`.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// `bytes` contiguous bytes (a multiple of 16) into shared memory.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// wgmma's descriptor of a K-major tile of 128-byte rows under the 128-byte
-// swizzle: start address, 1 KB between 8-row groups, swizzle mode 1.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
 
 // d (64 x 64 s32, 32 registers a thread) = or += A (64 x 32 s8, registers) x
 // B (32 x 64 s8, shared memory).  `accumulate` 0 overwrites d.
@@ -210,16 +147,6 @@ __device__ __forceinline__ void wgmma_m64n64k32(int (&d)[32], const uint32_t (&a
         "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
         "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // Two words of packed bytes (four columns each; w0 holds K k and k + 1 in its
@@ -382,7 +309,7 @@ __global__ void __launch_bounds__(Cfg<WGS>::kThreads, 1) int4_a8_wgmma_kernel(
         }
       wgmma_commit();
       if (g > 0) add_scaled(prev, half);  // under this half's wgmmas
-      wgmma_wait_all();  // the A registers are free again
+      wgmma_wait<0>();  // the A registers are free again
     }
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -427,47 +354,6 @@ __global__ void __launch_bounds__(Cfg<WGS>::kThreads, 1) int4_a8_wgmma_kernel(
     }
 }
 
-// cuTensorMapEncodeTiled, looked up in the libcuda that the runtime already
-// loaded (no link against it).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &status);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// A map of a row-major (rows, cols) byte matrix in boxes of 64 rows x 128
-// bytes under the 128-byte swizzle; what a box has past the matrix is zero.
-bool byte_matrix_map(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols};
-  const cuuint32_t box[2] = {128, 64};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int WGS>
 int launch(const CUtensorMap& x_map, const CUtensorMap& w_map, const float* xscale,
            const float* scales, __nv_bfloat16* y, int R, int IN, int OUT, cudaStream_t stream) {
@@ -495,7 +381,8 @@ extern "C" int chatts_int4_matmul_a8(const void* xq, const void* xscale, const v
                                      const void* scales, void* y, int R, int IN, int OUT,
                                      int warpgroups, void* stream) {
   CUtensorMap x_map, w_map;
-  if (!byte_matrix_map(&x_map, xq, R, IN) || !byte_matrix_map(&w_map, packed, IN / 2, OUT)) {
+  if (!swizzled_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xq, R, IN, kRows) ||
+      !swizzled_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed, IN / 2, OUT, kGroup / 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* xs = static_cast<const float*>(xscale);

@@ -38,18 +38,22 @@ _SIGNATURES = {
     ),
 }
 
-# The paths of ``csrc/int4_matmul.cu``: the tensor-core kernel in its
+# The paths of ``csrc/int4_matmul.cu``: the mma.sync kernel in its
 # streaming configuration (all rows up to 64 in one block row, 64-row tiles
-# above) and its GEMM configuration (128 x 128 tiles).
+# above) and the wgmma GEMM configuration (128 x 128 tiles of y^T, the
+# weights as register operand A).
 STREAM, GEMM = 1, 2
 PATHS = {"stream": STREAM, "gemm": GEMM}
 
-# The band, from the device times of both paths at every R in
-# ``chip_smoke.py`` phase 2, at the ChatTS-14B projection shapes (H100 80GB
-# HBM3, 700 W): the two lie within 4% of each other from R = 640 up;
-# streaming is the faster at R = 640 on the four layer projections (the
-# head runs on the last positions only) and the GEMM at R = 4096 and 5120
-# on most of them.
+# The band.  Before the GEMM moved to wgmma, both paths lay within 4% of
+# each other from R = 640 up at the ChatTS-14B projections (``chip_smoke.py``
+# phase 2, H100 80GB HBM3, 700 W), streaming the faster at 640.  The wgmma
+# GEMM takes the 8B layer's four projections at R = 4,096 in 3.58 ms against
+# streaming's 7.46; ``chip_smoke.py::phase_int4_band`` times both at R = 512,
+# 640, 641, 1,024, 2,048, 4,096 and 5,120 on the 14B, Qwen3-8B and
+# Moonlight dense projections and prints where the GEMM becomes the faster.
+# The band stays at 640 until that run puts the crossover below it at all
+# three.
 STREAM_MAX_ROWS = 640
 
 _SIGNATURES_A8 = {

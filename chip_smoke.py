@@ -975,6 +975,80 @@ def phase_int4_new_shapes(torch, gen, dev) -> list:
     return rows
 
 
+# B3's band (``ops/int4_matmul.py::STREAM_MAX_ROWS``): both configurations
+# at the rows around it (512: the most a mixed step packs) and at the
+# prefill rows, on the dense projections of
+# the three families the benchmark serves: ChatTS-14B fused (qkv, o,
+# gate_up, down), Qwen3-8B as its checkpoint keeps them (q and o, k and v,
+# gate and up, down; a projection listed once, summed with its count) and
+# Moonlight-16B-A3B's (q || kv_a padded to 3,712, kv_b, o, the shared
+# experts' gate_up and down, layer 0's dense gate_up and down).
+INT4_BAND_ROWS = (512, 640, 641, 1024, 2048) + INT4_PREFILL_ROWS
+INT4_BAND_SHAPES = {
+    "14b": (("qkv", 5120, 7168, 1), ("o", 5120, 5120, 1), ("gate_up", 5120, 27648, 1),
+            ("down", 13824, 5120, 1)),
+    "qwen3_8b unfused": (("q, o", 4096, 4096, 2), ("k, v", 4096, 1024, 2),
+                         ("gate, up", 4096, 12288, 2), ("down", 12288, 4096, 1)),
+    "moonlight dense": (("q || kv_a", 2048, 3712, 1), ("kv_b", 512, 4096, 1),
+                        ("o", 2048, 2048, 1), ("shared gate_up", 2048, 5632, 1),
+                        ("shared down", 2816, 2048, 1), ("layer 0 gate_up", 2048, 22528, 1),
+                        ("layer 0 down", 11264, 2048, 1)),
+}
+
+
+def phase_int4_band(torch, gen, dev) -> dict:
+    """B3's streaming and GEMM configurations at ``INT4_BAND_ROWS`` on
+    ``INT4_BAND_SHAPES``: the GEMM's output held to the grouped plain version
+    (one bf16 ulp) and run twice to the bit, both configurations' device
+    times by graph replay, summed a family and R with the bound.  Returns,
+    per family, the sums by R and the crossover: the least R of the rows at
+    which the GEMM's sum is the smaller (None if none)."""
+    from chatts_tpu_torch.ops import int4_matmul as i4
+
+    out = {}
+    for family, shapes in INT4_BAND_SHAPES.items():
+        sums = {r: dict(stream_ms=0.0, gemm_ms=0.0, bound_ms=0.0) for r in INT4_BAND_ROWS}
+        for name, in_dim, out_dim, count in shapes:
+            weights = rotating(lambda _: _int4_weights(torch, gen, dev, in_dim, out_dim),
+                               in_dim * out_dim // 2)
+            turn = [0]
+            for r in INT4_BAND_ROWS:
+                what = f"int4 band {family} {name} {in_dim}->{out_dim} R={r}"
+                x = torch.randn((r, in_dim), generator=gen, device=dev).to(torch.bfloat16)
+                got = i4.int4_matmul_on_path(x, *weights[0], i4.GEMM)
+                again = i4.int4_matmul_on_path(x, *weights[0], i4.GEMM)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{what}: two calls differ")
+                _int4_close(got, i4.int4_matmul_grouped_reference(x, *weights[0]), what)
+                times = {}
+                for path in (i4.STREAM, i4.GEMM):
+                    def run(x=x, path=path):
+                        turn[0] = (turn[0] + 1) % len(weights)
+                        return i4.int4_matmul_on_path(x, *weights[turn[0]], path)
+
+                    times[path] = graph_ms(run, target_s=0.1)
+                bound_ms, _ = int4_bound(r, in_dim, out_dim)
+                sums[r]["stream_ms"] += count * times[i4.STREAM]
+                sums[r]["gemm_ms"] += count * times[i4.GEMM]
+                sums[r]["bound_ms"] += count * bound_ms
+                log(f"  int4 band {family} {name} {in_dim}->{out_dim} R={r}: streaming "
+                    f"{times[i4.STREAM]:.4f} ms, GEMM {times[i4.GEMM]:.4f} ms, bound "
+                    f"{bound_ms:.4f} ms (GEMM {bound_ms / times[i4.GEMM]:.1%} of it)")
+            del weights
+            torch.cuda.empty_cache()
+        crossover = next((r for r in INT4_BAND_ROWS
+                          if sums[r]["gemm_ms"] < sums[r]["stream_ms"]), None)
+        for r, t in sums.items():
+            log(f"  int4 band {family} R={r}, summed: streaming {t['stream_ms']:.4f} ms, GEMM "
+                f"{t['gemm_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (GEMM "
+                f"{t['bound_ms'] / t['gemm_ms']:.1%} of it)")
+        log(f"  int4 band {family}: the GEMM is the faster from R = {crossover} of "
+            f"{INT4_BAND_ROWS} (the band ends at {i4.STREAM_MAX_ROWS})")
+        out[family] = dict(crossover=crossover, sums={str(r): t for r, t in sums.items()})
+    return out
+
+
 def near_bits(torch, got, want, what: str, share: float = 1e-3) -> int:
     """Raises unless bf16 ``got`` equals ``want`` but for one ulp in under
     ``share`` of the elements (a norm's sum of squares in another order);
@@ -1569,6 +1643,7 @@ def phase_kernels():
         unfused = phase_int4_unfused(torch, gen, dev)
         log("  unfused int4 stats: " + json.dumps(unfused))
         rows = phase_int4_new_shapes(torch, gen, dev)
+        log("  int4 band: " + json.dumps(phase_int4_band(torch, gen, dev)))
         results["int4_matmul"].update(more_shapes=rows, max_abs_err=max(
             [results["int4_matmul"]["max_abs_err"]] + [row["max_abs_err"] for row in rows]))
         results.update(phase_glue(torch, gen, dev))

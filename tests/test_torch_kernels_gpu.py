@@ -365,10 +365,15 @@ def test_torch_ragged_int8_kernel_refuses_what_it_does_not_take(cuda):
 
 INT4_ROWS = [1, 3, 16, 17, 24, 33, 64, 65, 130, 640]
 INT4_SHAPES = [(128, 128), (640, 384), (1152, 256), (5120, 7168)]
+# Above the band (R > STREAM_MAX_ROWS, the GEMM configuration's rows): the
+# 14B projections qkv, down and gate_up, and the smallest shape.
+INT4_GEMM_ROWS = [641, 1000, 2049, 4096]
+INT4_GEMM_SHAPES = [(5120, 7168), (13824, 5120), (5120, 27648), (128, 128)]
+INT4_CASES = ([(r, i, o) for i, o in INT4_SHAPES for r in INT4_ROWS]
+              + [(r, i, o) for i, o in INT4_GEMM_SHAPES for r in INT4_GEMM_ROWS])
 
 
-@pytest.mark.parametrize("r", INT4_ROWS)
-@pytest.mark.parametrize("in_dim,out_dim", INT4_SHAPES)
+@pytest.mark.parametrize("r,in_dim,out_dim", INT4_CASES)
 def test_torch_int4_kernel_matches_plain(cuda, r, in_dim, out_dim):
     """Every path of the kernel at R rows.  Against the plain version of its
     own arithmetic (``int4_matmul_grouped_reference``: per group an f32 sum,
@@ -401,6 +406,34 @@ def test_torch_int4_kernel_matches_plain(cuda, r, in_dim, out_dim):
         _within_one_ulp(out, grouped, 2.0 ** -16 * row_max)
         assert torch.equal(i4.int4_matmul_on_path(one, packed, scales, path)[0, :9], want1)
     assert torch.equal(got, i4.int4_matmul_on_path(x, packed, scales, i4.int4_path(r)))
+
+
+@pytest.mark.parametrize("r,in_dim,out_dim", [(1000, 5120, 7168), (700, 5120, 1024)])
+def test_torch_int4_gemm_in_a_cuda_graph(cuda, r, in_dim, out_dim):
+    """The GEMM configuration captured in a CUDA graph, as a captured step
+    would launch it (the second shape splits K, so the capture also holds
+    the workspace and the reduce): a replay gives the eager call's bits, and
+    after x changes in place, the new x's."""
+    assert i4.int4_path(r) == i4.GEMM
+    gen = torch.Generator(device=cuda).manual_seed(r)
+    x = _bf16(gen, (r, in_dim), cuda)
+    packed = torch.randint(-128, 128, (in_dim // 2, out_dim), generator=gen, device=cuda,
+                           dtype=torch.int8)
+    scales = (torch.rand((in_dim // 128, out_dim), generator=gen, device=cuda) + 0.5) \
+        / (7 * math.sqrt(in_dim))
+    eager = i4.int4_matmul(x, packed, scales)  # builds and loads outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = i4.int4_matmul(x, packed, scales)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    x.copy_(_bf16(gen, (r, in_dim), cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, i4.int4_matmul(x, packed, scales))
+    assert not torch.equal(out, eager)
 
 
 def test_torch_int4_kernel_refuses_what_it_does_not_take(cuda):
